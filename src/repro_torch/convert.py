@@ -1,0 +1,73 @@
+"""Carry a network's parameters into the port from plain arrays.
+
+`convert` takes numpy arrays and Python tuples only — never objects of
+another package — so anything that can export its quantized tensors,
+mapping and register tables as arrays (the JAX reference, a checkpoint)
+hands the port the very same network, and both compute the same thing.
+"""
+from __future__ import annotations
+
+from typing import Mapping as _Map, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.soc import CoreAssignment, Mapping, RegisterTable
+from repro_torch.device import resolve_device
+
+_QUANT_KEYS = ("idx", "codebook", "scale", "group_axis_size")
+
+
+class Converted(NamedTuple):
+    weights: list              # QuantizedTensors or f32 tensors, per layer
+    mapping: Mapping | None
+    register_tables: list | None
+
+
+def _layer(layer, dev):
+    if isinstance(layer, _Map):
+        missing = [k for k in _QUANT_KEYS if k not in layer]
+        if missing:
+            raise ValueError(f"quantized layer lacks {missing}")
+        idx = np.asarray(layer["idx"])
+        if idx.dtype != np.int8:
+            raise TypeError(f"idx must be int8, got {idx.dtype}")
+        return QuantizedTensor(
+            idx=torch.tensor(idx, device=dev),
+            codebook=torch.tensor(np.asarray(layer["codebook"], np.float32),
+                                  device=dev),
+            scale=torch.tensor(np.asarray(layer["scale"], np.float32),
+                               device=dev),
+            group_axis_size=int(layer["group_axis_size"]))
+    return torch.tensor(np.asarray(layer, np.float32), device=dev)
+
+
+def convert(layers: Sequence, mapping: Sequence[tuple] | None = None,
+            register_tables: Sequence[_Map] | None = None,
+            device=None) -> Converted:
+    """Build the port's weights, Mapping and RegisterTables.
+
+    `layers`: per layer either a float (n_pre, n_post) matrix or a dict
+    with `idx` (int8), `codebook` (G, N), `scale` (G,) and
+    `group_axis_size` — a quantized tensor.  `mapping`: optional rows
+    `(core_id, layer, neuron_lo, neuron_hi)`.  `register_tables`: optional
+    dicts of `RegisterTable` fields.  Tensors go to `device` (default: the
+    card, see `repro_torch.resolve_device`).
+    """
+    dev = resolve_device(device)
+    weights = [_layer(layer, dev) for layer in layers]
+    mp = None
+    if mapping is not None:
+        shapes = [w.shape for w in weights]
+        sizes = [int(shapes[0][0])] + [int(s[1]) for s in shapes]
+        mp = Mapping(assignments=[CoreAssignment(int(c), int(l), int(lo),
+                                                 int(hi))
+                                  for c, l, lo, hi in mapping],
+                     layer_sizes=sizes)
+    tables = None
+    if register_tables is not None:
+        tables = [RegisterTable(**{
+            k: (tuple(int(x) for x in v) if k == "codebook_words" else v)
+            for k, v in fields.items()}) for fields in register_tables]
+    return Converted(weights, mp, tables)

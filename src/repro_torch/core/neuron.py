@@ -1,0 +1,86 @@
+"""LIF neuron model with partial membrane-potential (MP) update (paper C2),
+in torch.  Port of `repro.core.neuron`, inference side: the surrogate
+gradient (`spike_fn` as an `autograd.Function`) comes with training.
+
+Partial update only touches neurons that received at least one valid
+input spike this timestep; untouched neurons keep their raw potential and
+count pending leak steps in `elapsed`, applied lazily as
+`leak ** (elapsed + 1)` when next touched — exactly the dense update.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LIFParams:
+    """Neuron configuration (the chip's per-core register-table fields)."""
+
+    threshold: float = 1.0
+    leak: float = 0.9            # multiplicative leak alpha in [0, 1]
+    reset: float = 0.0           # reset potential after a spike
+    reset_mode: str = "hard"     # "hard" (V<-reset) or "soft" (V<-V-theta)
+    partial_update: bool = True  # paper C2: skip neurons with no input
+
+
+class LIFState(NamedTuple):
+    """Carry for a population of LIF neurons."""
+
+    v: torch.Tensor          # membrane potential, f32 (..., n)
+    elapsed: torch.Tensor    # int32 timesteps since last touch (lazy leak)
+
+
+def init_state(n: int, batch: tuple[int, ...] = (), device=None
+               ) -> LIFState:
+    shape = tuple(batch) + (n,)
+    return LIFState(v=torch.zeros(shape, dtype=torch.float32, device=device),
+                    elapsed=torch.zeros(shape, dtype=torch.int32,
+                                        device=device))
+
+
+def lif_step(state: LIFState, current: torch.Tensor, p: LIFParams,
+             touched: torch.Tensor | None = None,
+             ) -> tuple[LIFState, torch.Tensor, torch.Tensor]:
+    """One LIF timestep -> (new_state, spikes, updated_mask).
+
+    `touched` optionally supplies the partial-update mask explicitly (the
+    connectivity mask of `touch_mask`, integer-exact); without it the mask
+    falls back to ``current != 0``.
+    """
+    has_input = (current != 0.0) if touched is None else touched
+    v = state.v
+    if p.partial_update:
+        pending = state.elapsed + 1
+        # Lazy leak: apply alpha**pending only for touched neurons.
+        decay = torch.where(has_input, p.leak ** pending.to(v.dtype),
+                            torch.ones_like(v))
+        v_int = v * decay + current
+        # Untouched neurons keep raw v and bump `elapsed`.
+        new_elapsed = torch.where(has_input, torch.zeros_like(pending),
+                                  pending)
+        # A neuron can only fire when touched (its readout happens on touch).
+        v_eff = torch.where(has_input, v_int, torch.full_like(v, -torch.inf))
+        spikes = ((v_eff - p.threshold) >= 0.0).to(v.dtype)
+        updated = has_input
+    else:
+        v_int = v * p.leak + current
+        spikes = ((v_int - p.threshold) >= 0.0).to(v.dtype)
+        new_elapsed = torch.zeros_like(state.elapsed)
+        updated = torch.ones_like(has_input)
+
+    if p.reset_mode == "hard":
+        v_reset = torch.where(spikes > 0, torch.full_like(v, p.reset),
+                              torch.where(updated, v_int, v))
+    else:  # soft reset
+        v_reset = torch.where(updated, v_int - spikes * p.threshold, v)
+    return LIFState(v=v_reset, elapsed=new_elapsed), spikes, updated
+
+
+def touch_mask(spikes: torch.Tensor, nonzero_w: torch.Tensor) -> torch.Tensor:
+    """Connectivity-driven partial-update mask: a neuron is touched when a
+    valid spike reaches one of its nonzero synapses.  The counts are small
+    integers, exact in f32 under any summation order."""
+    return (spikes @ nonzero_w) > 0

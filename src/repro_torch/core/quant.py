@@ -1,0 +1,253 @@
+"""Non-uniform (codebook / LUT) weight quantization — paper C3, in torch.
+
+Port of `repro.core.quant` (inference side).  On the chip all synapses of
+a core share an N x W-bit weight table and each synapse stores a
+log2(N)-bit index, so a weight tensor is
+
+    idx      : int8  same shape as the weight (values in [0, N))
+    codebook : (G, N) f32 — per-group table of W-bit fixed-point values
+    scale    : (G,) f32 — the fixed-point step
+
+Codebooks are fit by 1-D k-means (Lloyd) on the tensor's own device.  At
+the paper's widths the (M, N) distance matrix of one Lloyd step is about
+600 MB in f32, which the card holds easily.  Float sums over a cluster run
+in another order than XLA's, so centroids agree with the reference to a
+few ulp, not bit for bit; the harness carries the reference's fitted
+tensors across with `repro_torch.convert` where equality matters.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+VALID_N = (4, 8, 16)
+VALID_W = (4, 8, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class CodebookConfig:
+    n_levels: int = 16          # N: entries in the shared table
+    bit_width: int = 8          # W: precision of each stored entry
+    group_size: int = 0         # 0 => one codebook per tensor ("per-core");
+                                # else one per `group_size` output columns
+    kmeans_iters: int = 25
+    zero_level: bool = False    # snap the centroid nearest 0 to exactly 0,
+                                # so pruned synapses stay absent on-chip (the
+                                # partial-update touch set sees w == 0)
+
+    def __post_init__(self):
+        if self.n_levels not in VALID_N:
+            raise ValueError(f"N must be in {VALID_N}")
+        if self.bit_width not in VALID_W:
+            raise ValueError(f"W must be in {VALID_W}")
+
+    @property
+    def index_bits(self) -> int:
+        return max(1, (self.n_levels - 1).bit_length())
+
+
+class QuantizedTensor(NamedTuple):
+    idx: torch.Tensor       # int8, shape == original weight shape
+    codebook: torch.Tensor  # (G, N) float32, W-bit fixed-point values
+    scale: torch.Tensor     # (G,) float32 fixed-point step
+    group_axis_size: int    # columns per group (0 = whole tensor)
+
+    @property
+    def shape(self):
+        return tuple(self.idx.shape)
+
+
+def _fixed_point(values: torch.Tensor, bit_width: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Snap codebook entries to signed W-bit fixed point (chip table format)."""
+    qmax = 2.0 ** (bit_width - 1) - 1.0
+    scale = torch.clamp(values.abs().amax(dim=-1), min=1e-8) / qmax
+    q = torch.clamp(torch.round(values / scale[..., None]), -qmax - 1, qmax)
+    return q * scale[..., None], scale
+
+
+def _quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+    """`jnp.quantile(x, qs)` (linear interpolation) by one sort.
+
+    `torch.quantile` refuses inputs above 2**24 elements; a sort does not.
+    """
+    xs = torch.sort(x).values
+    pos = qs.to(torch.float64) * (x.numel() - 1)
+    lo = torch.floor(pos).long()
+    hi = torch.ceil(pos).long()
+    hw = (pos - lo.to(torch.float64)).to(x.dtype)
+    return xs[lo] * (1.0 - hw) + xs[hi] * hw
+
+
+def _kmeans_1d(x: torch.Tensor, n: int, iters: int) -> torch.Tensor:
+    """Lloyd's algorithm on a flat value vector -> (n,) sorted centroids."""
+    # Percentile init is robust for bell-shaped weight distributions.
+    qs = (torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) / n
+    cents = _quantile_linear(x, qs)
+    for _ in range(iters):
+        assign = torch.argmin((x[:, None] - cents[None, :]).abs(), dim=1)
+        tot = torch.bincount(assign, minlength=n).to(x.dtype)
+        sums = torch.zeros(n, dtype=x.dtype, device=x.device)
+        sums.index_add_(0, assign, x)
+        cents = torch.where(tot > 0, sums / torch.clamp(tot, min=1), cents)
+    return torch.sort(cents).values
+
+
+def _group_view(w: torch.Tensor, group_size: int
+                ) -> tuple[torch.Tensor, int]:
+    """Reshape (..., cols) -> (G, elems_per_group)."""
+    if group_size <= 0 or group_size >= w.shape[-1]:
+        return w.reshape(1, -1), 0
+    if w.shape[-1] % group_size:
+        raise ValueError("group_size must divide the last dim")
+    flat = w.reshape(-1, w.shape[-1])
+    g = w.shape[-1] // group_size
+    return (flat.reshape(flat.shape[0], g, group_size)
+            .permute(1, 0, 2).reshape(g, -1), group_size)
+
+
+def quantize(w, cfg: CodebookConfig, device=None) -> QuantizedTensor:
+    """Fit codebook(s) and assign every weight its nearest index.
+
+    Runs on `device` (default: the card, see `repro_torch.resolve_device`)
+    unless `w` is already a tensor, in which case it runs where `w` lies.
+    """
+    from repro_torch.device import resolve_device
+
+    if isinstance(w, torch.Tensor) and device is None:
+        w = w.to(torch.float32)
+    else:
+        w = torch.as_tensor(np.asarray(w, np.float32),
+                            device=resolve_device(device))
+    grouped, gsize = _group_view(w, cfg.group_size)
+    cents = torch.stack([_kmeans_1d(v, cfg.n_levels, cfg.kmeans_iters)
+                         for v in grouped])
+    cents, scale = _fixed_point(cents, cfg.bit_width)
+    if cfg.zero_level:
+        # force one table entry to exact 0 (a "no synapse" level): pruned
+        # weights then dequantize to 0.0 and drop out of the touch set
+        zi = torch.argmin(cents.abs(), dim=-1)
+        lvl = torch.arange(cents.shape[-1], device=cents.device)
+        cents = torch.where(lvl[None, :] == zi[:, None],
+                            torch.zeros_like(cents), cents)
+    idx_g = torch.stack([
+        torch.argmin((vals[:, None] - c[None, :]).abs(), dim=1)
+        .to(torch.int8) for vals, c in zip(grouped, cents)])
+    if gsize == 0:
+        idx = idx_g.reshape(w.shape)
+    else:
+        rows = w.reshape(-1, w.shape[-1]).shape[0]
+        g = w.shape[-1] // gsize
+        idx = (idx_g.reshape(g, rows, gsize).permute(1, 0, 2)
+               .reshape(w.shape))
+    return QuantizedTensor(idx=idx, codebook=cents, scale=scale,
+                           group_axis_size=gsize)
+
+
+def dequantize(q: QuantizedTensor) -> torch.Tensor:
+    """Reference dequantization: w = codebook[idx]."""
+    ix = q.idx.long()
+    if q.group_axis_size == 0:
+        return q.codebook[0][ix]
+    gsize = q.group_axis_size
+    g = q.idx.shape[-1] // gsize
+    flat = ix.reshape(-1, g, gsize)                      # (rows, G, gsize)
+    groups = torch.arange(g, device=ix.device)[None, :, None]
+    return q.codebook[groups, flat].reshape(q.idx.shape)
+
+
+# ---------------------------------------------------------------------------
+# Register-table round trip — the chip's actual storage format for codebooks
+# ---------------------------------------------------------------------------
+#
+# `_fixed_point` snapped every centroid to `word * scale`, so the integer
+# words are recoverable exactly; decode recomputes the identical f32
+# product `word * scale`.
+
+def codebook_to_words(codebook, scale, bit_width: int) -> np.ndarray:
+    """(G, N) f32 codebook -> (G, N) int32 signed W-bit register words.
+
+    Raises if any entry is not representable at `bit_width` (i.e. the
+    codebook did not come from `quantize` at this W).
+    """
+    cb = np.asarray(torch.as_tensor(codebook).cpu(), np.float32)
+    sc = np.asarray(torch.as_tensor(scale).cpu(), np.float32)[..., None]
+    words = np.rint(cb / sc).astype(np.int64)
+    if not np.array_equal(words.astype(np.float32) * sc, cb):
+        raise ValueError("codebook entries are not word*scale exact — was it "
+                         "produced by quantize() at this bit width?")
+    lo, hi = -(2 ** (bit_width - 1)), 2 ** (bit_width - 1) - 1
+    if words.min() < lo or words.max() > hi:
+        raise ValueError(
+            f"codebook words {words.min()}..{words.max()} exceed signed "
+            f"{bit_width}-bit range [{lo}, {hi}]")
+    return words.astype(np.int32)
+
+
+def words_to_codebook(words, scale) -> torch.Tensor:
+    """Inverse of `codebook_to_words`: bit-exact f32 reconstruction."""
+    sc = torch.as_tensor(scale, dtype=torch.float32)
+    w = torch.as_tensor(np.asarray(words), dtype=torch.float32,
+                        device=sc.device)
+    return w * sc[..., None]
+
+
+def to_register_entries(q: QuantizedTensor, cfg: CodebookConfig
+                        ) -> list[tuple[tuple[int, ...], float]]:
+    """One `(words, scale)` register payload per codebook group."""
+    words = codebook_to_words(q.codebook, q.scale, cfg.bit_width)
+    scales = np.asarray(q.scale.cpu(), np.float32)
+    return [(tuple(int(x) for x in words[g]), float(scales[g]))
+            for g in range(words.shape[0])]
+
+
+def register_entry_for_slice(q: QuantizedTensor, cfg: CodebookConfig,
+                             neuron_lo: int, neuron_hi: int | None = None
+                             ) -> tuple[tuple[int, ...], float]:
+    """The (words, scale) payload a core holding columns
+    [neuron_lo, neuron_hi) programs into its register table: the codebook
+    group covering that slice (group 0 for whole-tensor codebooks).
+
+    A core has exactly ONE table, so a slice that straddles a group
+    boundary cannot be represented and raises.
+    """
+    entries = to_register_entries(q, cfg)
+    if q.group_axis_size == 0:
+        return entries[0]
+    gs = q.group_axis_size
+    gi = min(neuron_lo // gs, len(entries) - 1)
+    if neuron_hi is not None and neuron_hi > neuron_lo:
+        gi_last = min((neuron_hi - 1) // gs, len(entries) - 1)
+        if gi_last != gi:
+            raise ValueError(
+                f"core slice [{neuron_lo}, {neuron_hi}) spans codebook "
+                f"groups {gi}..{gi_last} (group_size={gs}) — one core holds "
+                f"one table; re-partition on group boundaries or quantize "
+                f"per core")
+    return entries[gi]
+
+
+def infer_bit_width(q: QuantizedTensor) -> int:
+    """Smallest valid W whose signed range holds every codebook word."""
+    last = None
+    for wbits in VALID_W:
+        try:
+            codebook_to_words(q.codebook, q.scale, wbits)
+            return wbits
+        except ValueError as e:
+            last = e
+    raise ValueError(f"codebook not representable at any W in {VALID_W}: {last}")
+
+
+def dequantize_via_registers(q: QuantizedTensor, bit_width: int | None = None
+                             ) -> torch.Tensor:
+    """Dequantize through the W-bit register-word round trip — exactly what
+    the chip computes, and bit-identical to `dequantize(q)`."""
+    wbits = bit_width or infer_bit_width(q)
+    cb = words_to_codebook(codebook_to_words(q.codebook, q.scale, wbits),
+                           q.scale)
+    return dequantize(QuantizedTensor(idx=q.idx, codebook=cb, scale=q.scale,
+                                      group_axis_size=q.group_axis_size))

@@ -1,0 +1,478 @@
+"""SoC-level model (paper C5 + Fig. 7) of the port: 20 neuromorphic cores +
+fullerene NoC + RISC-V control plane, with network->core mapping, the
+array engines and full energy/cycle accounting.
+
+Port of `repro.core.soc`.  The mapping, register-table and report code is
+numpy, copied from the reference; weights and engine state are torch
+tensors on the simulator's device.  This slice ports the two array
+engines (`engine="compiled"` and `engine="fused"`) on the inference path;
+the options that later slices bring raise `NotImplementedError` naming
+the ROADMAP.md item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import energy as E
+from repro_torch.core import noc as NOC
+from repro_torch.core.quant import CodebookConfig
+from repro_torch.core.zspe import CoreGeometry, CycleModel
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class RegisterTable:
+    """Per-core configuration registers (Fig. 1).
+
+    `codebook_words` holds the core's shared weight table exactly as the
+    chip stores it: N signed W-bit integers; `codebook_scale` is the
+    fixed-point step.  `codebook()` reconstructs the float table the SPEs
+    dequantize against.
+    """
+
+    core_id: int
+    enabled: bool = True
+    threshold: float = 1.0
+    leak: float = 0.9
+    reset: float = 0.0
+    weight_levels: int = 16       # N in {4,8,16}
+    weight_bits: int = 8          # W in {4,8,16}
+    codebook_words: tuple = ()    # N signed W-bit ints ((), if unprogrammed)
+    codebook_scale: float = 1.0
+
+    def __post_init__(self):
+        if self.codebook_words:
+            if len(self.codebook_words) != self.weight_levels:
+                raise ValueError(
+                    f"core {self.core_id}: {len(self.codebook_words)} codebook "
+                    f"words for N={self.weight_levels}")
+            lim = 2 ** (self.weight_bits - 1)
+            bad = [w for w in self.codebook_words
+                   if not (-lim <= int(w) <= lim - 1)]
+            if bad:
+                raise ValueError(
+                    f"core {self.core_id}: codebook words {bad} exceed signed "
+                    f"{self.weight_bits}-bit range")
+
+    def codebook(self) -> np.ndarray:
+        """The (N,) f32 weight table the SPEs read (words * scale)."""
+        return (np.asarray(self.codebook_words, np.float32)
+                * np.float32(self.codebook_scale))
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreAssignment:
+    """A slice of one SNN layer placed on one physical core."""
+
+    core_id: int                  # NoC node id (12..31)
+    layer: int
+    neuron_lo: int
+    neuron_hi: int
+
+    @property
+    def n_neurons(self) -> int:
+        return self.neuron_hi - self.neuron_lo
+
+
+@dataclasses.dataclass
+class Mapping:
+    assignments: list[CoreAssignment]
+    layer_sizes: list[int]
+
+    def cores_of_layer(self, layer: int) -> list[CoreAssignment]:
+        return [a for a in self.assignments if a.layer == layer]
+
+    def active_core_ids(self) -> list[int]:
+        return sorted({a.core_id for a in self.assignments})
+
+
+def validate_capacity(layer_sizes: Sequence[int],
+                      neurons_per_core: int = E.NEURONS_PER_CORE,
+                      n_cores: int = NOC.N_CORES) -> None:
+    """Reject networks that cannot fit the chip before any placement runs."""
+    need = sum(int(s) for s in layer_sizes[1:])
+    cap = n_cores * neurons_per_core
+    if need > cap:
+        raise ValueError(
+            f"network needs {need} neurons but chip capacity is {cap} "
+            f"({n_cores} cores x {neurons_per_core} neurons/core); "
+            f"layer sizes {tuple(layer_sizes)} — use the compiler's "
+            f"multi-domain scale-up (repro_torch.compiler.ChipSpec("
+            f"max_domains=N)) for larger networks")
+
+
+def map_network(layer_sizes: Sequence[int],
+                neurons_per_core: int = E.NEURONS_PER_CORE,
+                strategy: str = "greedy", seed: int = 0) -> Mapping:
+    """Place a feed-forward SNN onto the 20 cores.
+
+    strategy "greedy" is the legacy contiguous layout; any other value is
+    forwarded to the mapping compiler (`repro_torch.compiler`), e.g.
+    "anneal".  Layer 0 is the input population (not placed).  Raises
+    ValueError when the network exceeds chip capacity.
+    """
+    validate_capacity(layer_sizes, neurons_per_core)
+    if strategy != "greedy":
+        from repro_torch import compiler as CC
+
+        spec = CC.ChipSpec(neurons_per_core=neurons_per_core)
+        compiled = CC.compile_network(list(layer_sizes), spec,
+                                      strategy=strategy, seed=seed)
+        return compiled.to_soc_mapping()
+    cores = list(NOC.core_ids())
+    assignments: list[CoreAssignment] = []
+    nxt = 0
+    for layer, size in enumerate(layer_sizes[1:], start=1):
+        placed = 0
+        while placed < size:
+            if nxt >= len(cores):
+                raise ValueError(
+                    f"network needs more than {len(cores)} cores "
+                    f"({layer_sizes})")
+            take = min(neurons_per_core, size - placed)
+            assignments.append(CoreAssignment(
+                core_id=int(cores[nxt]), layer=layer,
+                neuron_lo=placed, neuron_hi=placed + take))
+            placed += take
+            nxt += 1
+    return Mapping(assignments=assignments, layer_sizes=list(layer_sizes))
+
+
+def build_register_tables(mapping: Mapping, qweights=None, lif=None,
+                          layer_cfgs=None,
+                          default_cfg: CodebookConfig | None = None
+                          ) -> list[RegisterTable]:
+    """Lower a mapping (+ optional per-layer QuantizedTensors) to one
+    programmed RegisterTable per core assignment.
+
+    `layer_cfgs` supplies each placed layer's CodebookConfig; when absent
+    it is inferred from the tensor (minimal W holding the words).  With no
+    `qweights` the tables carry only the neuron registers.
+    """
+    from repro_torch.core import quant as Q
+    from repro_torch.core.neuron import LIFParams
+
+    lif = lif or LIFParams()
+    default_cfg = default_cfg or CodebookConfig()
+    tables = []
+    for a in mapping.assignments:
+        words: tuple = ()
+        scale = 1.0
+        cfg = default_cfg
+        if qweights is not None:
+            q = qweights[a.layer - 1]
+            cfg = (layer_cfgs[a.layer - 1] if layer_cfgs is not None else
+                   CodebookConfig(n_levels=int(q.codebook.shape[-1]),
+                                  bit_width=Q.infer_bit_width(q)))
+            words, scale = Q.register_entry_for_slice(
+                q, cfg, a.neuron_lo, a.neuron_hi)
+        tables.append(RegisterTable(
+            core_id=a.core_id, threshold=lif.threshold, leak=lif.leak,
+            reset=lif.reset, weight_levels=cfg.n_levels,
+            weight_bits=cfg.bit_width, codebook_words=words,
+            codebook_scale=scale))
+    return tables
+
+
+def _reject_index_like(w, layer: int, quant_cfg: CodebookConfig | None) -> None:
+    """Catch codebook *indices* passed where weights belong.
+
+    Integer arrays are always rejected.  In the codebook path (a quant_cfg
+    is supplied) a float array whose values are all small non-negative
+    integers below N is almost certainly `QuantizedTensor.idx` cast to
+    float — raise instead of silently re-fitting k-means over indices.
+    Binary {0, 1} matrices are exempt (max >= 2): k-means reproduces them.
+    """
+    if isinstance(w, torch.Tensor):
+        integer = not (w.is_floating_point() or w.dtype == torch.bool)
+    elif hasattr(w, "dtype"):
+        integer = np.issubdtype(np.dtype(w.dtype), np.integer)
+    else:
+        raise TypeError(f"layer {layer}: expected a weight matrix, got {w!r}")
+    if integer:
+        raise TypeError(
+            f"layer {layer}: integer weight array ({w.dtype}) looks like "
+            f"codebook indices, not synaptic weights — pass the full "
+            f"quant.QuantizedTensor (idx + codebook + scale) instead")
+    if quant_cfg is not None:
+        vals = np.asarray(torch.as_tensor(w).detach().cpu(), np.float32)
+        if (vals.size and np.all(vals == np.round(vals)) and vals.min() >= 0
+                and 2 <= vals.max() <= quant_cfg.n_levels - 1):
+            raise ValueError(
+                f"layer {layer}: float weight array holds only integers in "
+                f"[0, {quant_cfg.n_levels}) — these look like codebook "
+                f"indices; re-fitting a codebook over index values would "
+                f"silently corrupt the network. Pass the QuantizedTensor "
+                f"from quant.quantize(), or the dequantized float weights")
+
+
+@dataclasses.dataclass
+class StepStats:
+    """Per-run accounting gathered by the engines."""
+
+    nominal_sops: float = 0.0
+    performed_sops: float = 0.0
+    spikes_in: float = 0.0
+    spikes_routed: float = 0.0
+    neurons_touched: float = 0.0
+    core_cycles: float = 0.0         # max over cores (parallel execution)
+    noc_hops: float = 0.0
+    noc_energy_pj: float = 0.0
+    noc_contention_cycles: float = 0.0  # M/M/1 bottleneck-router wait cycles
+    spike_words_skipped: float = 0.0  # ZSPE word-scan skips (fused engine)
+    weight_writes: float = 0.0       # plasticity register-index writes
+
+    @property
+    def sparsity(self) -> float:
+        if self.nominal_sops == 0:
+            return 1.0
+        return 1.0 - self.performed_sops / self.nominal_sops
+
+
+@dataclasses.dataclass
+class ChipReport:
+    steps: int
+    stats: StepStats                 # accumulated
+    energy_pj: float
+    core_energy_pj: float
+    noc_energy_pj: float
+    riscv_energy_pj: float
+    wall_cycles: float
+    freq_hz: float
+    write_energy_pj: float = 0.0     # plasticity weight-write energy
+
+    @property
+    def pj_per_sop(self) -> float:
+        return self.energy_pj / max(self.stats.nominal_sops, 1.0)
+
+    @property
+    def power_mw(self) -> float:
+        t_s = self.wall_cycles / self.freq_hz
+        return self.energy_pj * 1e-12 / max(t_s, 1e-12) * 1e3
+
+    @property
+    def gsops(self) -> float:
+        t_s = self.wall_cycles / self.freq_hz
+        return self.stats.nominal_sops / max(t_s, 1e-12) / 1e9
+
+
+# the options later slices of the port bring, with their ROADMAP.md item
+_NOT_PORTED = {
+    "reference": "Queue 1 item 9 (interpretive reference engine)",
+    "sharded": "Queue 1 item 10 (multi-GPU ShardedEngine)",
+    "trace": "Queue 1 item 7 (telemetry)",
+    "faults": "Queue 1 item 6 (faults)",
+    "plasticity": "Queue 1 item 8 (plasticity)",
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not in the PyTorch port yet; it arrives with ROADMAP.md "
+        f"{_NOT_PORTED[what]}")
+
+
+class ChipSimulator:
+    """Functional + energy simulation of the whole SoC for a feed-forward
+    SNN described by per-layer weight matrices, on a torch device.
+
+    * ``engine="compiled"`` (default) — `engine.CompiledEngine`: per
+      layer-step a dense `spikes @ w` against dequantized f32 weights plus
+      `lif_step`, batched over B, a Python loop over T.
+    * ``engine="fused"`` — `engine.FusedEngine`: each layer-step is one
+      fused-timestep kernel (kernels/fused_timestep.py) on bitpacked uint16
+      spike words with codebook-compressed weights.  This is the main path.
+
+    `device` defaults to the card (`repro_torch.resolve_device`); pass
+    ``device="cpu"`` to run the plain versions on the CPU.
+    """
+
+    def __init__(
+        self,
+        weights: Sequence,                     # [(n_pre, n_post) arrays] or
+                                               # [quant.QuantizedTensor, ...]
+        quant_cfg: CodebookConfig | None = None,
+        freq_hz: float = 100e6,
+        geometry: CoreGeometry | None = None,
+        zero_skip: bool = True,
+        partial_update: bool = True,
+        leak: float = 0.9,
+        threshold: float = 1.0,
+        mapping: Mapping | None = None,
+        mapping_strategy: str = "anneal",
+        engine: str = "compiled",
+        register_tables: Sequence[RegisterTable] | None = None,
+        lif=None,
+        trace=None,
+        faults=None,
+        plasticity=None,
+        device=None,
+    ):
+        from repro_torch.core import quant as Q
+        from repro_torch.core.neuron import LIFParams
+
+        if engine not in ("compiled", "fused", "sharded", "reference"):
+            raise ValueError(f"engine must be 'compiled', 'fused', "
+                             f"'sharded' or 'reference', got {engine!r}")
+        for what, given in (("reference", engine == "reference"),
+                            ("sharded", engine == "sharded"),
+                            ("trace", trace is not None),
+                            ("faults", faults is not None),
+                            ("plasticity", plasticity is not None)):
+            if given:
+                raise _not_ported(what)
+        self.device = resolve_device(device)
+        weights = list(weights)
+        n_quant = sum(isinstance(w, Q.QuantizedTensor) for w in weights)
+        if 0 < n_quant < len(weights):
+            raise TypeError(
+                "weights mix QuantizedTensor and raw arrays — quantize every "
+                "layer (or none) before building the simulator")
+        self.qweights: list | None = None
+        self._layer_qcfg: list | None = None
+        if n_quant:
+            # already-fitted codebooks: the chip runs the register-word
+            # round trip of each table, never a re-fit; N/W are per-core
+            # register fields, validated per layer against quant_cfg
+            self._layer_qcfg = []
+            for li, q in enumerate(weights):
+                n = int(q.codebook.shape[-1])
+                wb = Q.infer_bit_width(q)
+                if quant_cfg is not None:
+                    if n != quant_cfg.n_levels:
+                        raise ValueError(
+                            f"layer {li}: codebook has {n} levels but "
+                            f"quant_cfg says N={quant_cfg.n_levels}")
+                    if wb > quant_cfg.bit_width:
+                        raise ValueError(
+                            f"layer {li}: codebook words need W={wb} bits "
+                            f"but quant_cfg says W={quant_cfg.bit_width}")
+                    wb = quant_cfg.bit_width
+                self._layer_qcfg.append(
+                    CodebookConfig(n_levels=n, bit_width=wb))
+            quant_cfg = quant_cfg or self._layer_qcfg[0]
+            self.qweights = [Q.QuantizedTensor(
+                idx=q.idx.to(self.device), codebook=q.codebook.to(self.device),
+                scale=q.scale.to(self.device),
+                group_axis_size=q.group_axis_size) for q in weights]
+            self.weights = [Q.dequantize_via_registers(q, c.bit_width)
+                            for q, c in zip(self.qweights, self._layer_qcfg)]
+        else:
+            for li, w in enumerate(weights):
+                _reject_index_like(w, li, quant_cfg)
+            self.weights = [self._as_weight(w) for w in weights]
+        sizes = ([int(self.weights[0].shape[0])]
+                 + [int(w.shape[1]) for w in self.weights])
+        self.mapping = mapping or map_network(sizes, strategy=mapping_strategy)
+        self.quant_cfg = quant_cfg or CodebookConfig(n_levels=16, bit_width=8)
+        self.geom = geometry or CoreGeometry(freq_hz=freq_hz)
+        self.freq_hz = freq_hz
+        self.zero_skip = zero_skip
+        self.partial_update = partial_update
+        self.cycle_model = CycleModel(self.geom)
+        self.core_model = E.calibrate_core()
+        self.riscv = E.RiscvPowerModel()
+        self.router = NOC.RouterParams()
+        self.write_model = E.WeightWriteModel()
+        # a mapping with core ids beyond one domain (from the compiler's
+        # scale-up stage) runs on the matching multi-domain fabric, with
+        # level-2 hops priced at the off-chip rate
+        max_node = max(a.core_id for a in self.mapping.assignments)
+        if max_node >= NOC.N_NODES:
+            n_domains = max_node // NOC.DOMAIN_STRIDE + 1
+            self.adj = NOC.multi_domain_adjacency(n_domains)
+            self._level2 = frozenset(
+                int(x) for x in NOC.level2_node_ids(n_domains))
+            self.interconnect = E.InterconnectEnergyModel.from_router(
+                self.router)
+        else:
+            self.adj = NOC.fullerene_adjacency()
+            self._level2 = frozenset()
+            self.interconnect = None
+        self.routing = NOC.RoutingTable(self.adj)
+        # routes are compiled ONCE from the mapping; each timestep only
+        # replays them (no BFS in the simulation loop)
+        self._layer_routes = self._compile_layer_routes()
+        # a full LIFParams wins over the scalar threshold/leak conveniences
+        self.lif = (dataclasses.replace(lif, partial_update=partial_update)
+                    if lif is not None else
+                    LIFParams(threshold=threshold, leak=leak,
+                              partial_update=partial_update))
+        if quant_cfg is not None and self.qweights is None:
+            # float weights + a codebook config = post-training fit here
+            self.qweights = [Q.quantize(w, quant_cfg) for w in self.weights]
+            self._layer_qcfg = [quant_cfg] * len(self.weights)
+            self.weights = [Q.dequantize_via_registers(q, quant_cfg.bit_width)
+                            for q in self.qweights]
+        self.register_tables = (list(register_tables)
+                                if register_tables is not None
+                                else self._build_register_tables())
+        # connectivity masks for the partial-update touch set (see
+        # neuron.touch_mask): computed AFTER quantization so both engines
+        # see the synapses the chip actually programs
+        self.nonzero_weights = [(w != 0).to(torch.float32)
+                                for w in self.weights]
+        self.engine = engine
+        self._compiled = None    # CompiledEngine, built lazily
+        self._fused = None       # FusedEngine, built lazily
+
+    def _as_weight(self, w) -> torch.Tensor:
+        if isinstance(w, torch.Tensor):
+            return w.detach().to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(w, np.float32), device=self.device)
+
+    def compiled_engine(self):
+        """The lazily-built dense array engine for this mapping."""
+        if self._compiled is None:
+            from repro_torch.core.engine import CompiledEngine
+            self._compiled = CompiledEngine(self)
+        return self._compiled
+
+    def fused_engine(self):
+        """The lazily-built fused-kernel engine for this mapping."""
+        if self._fused is None:
+            from repro_torch.core.engine import FusedEngine
+            self._fused = FusedEngine(self)
+        return self._fused
+
+    def array_engine(self):
+        """The array engine selected at construction."""
+        if self.engine == "fused":
+            return self.fused_engine()
+        return self.compiled_engine()
+
+    def _build_register_tables(self) -> list[RegisterTable]:
+        """One programmed RegisterTable per core assignment: with quantized
+        weights the core's shared table is the layer codebook (the group
+        covering the core's slice), lowered to W-bit words."""
+        return build_register_tables(
+            self.mapping, qweights=self.qweights, lif=self.lif,
+            layer_cfgs=self._layer_qcfg, default_cfg=self.quant_cfg)
+
+    def _compile_layer_routes(self) -> dict[int, list[NOC.FlowRoute]]:
+        """Static routes for every layer->layer transition in the mapping:
+        the spikes layer `li` fires travel from each of its cores to every
+        core holding layer `li+1`."""
+        routes: dict[int, list[NOC.FlowRoute]] = {}
+        for li in range(1, len(self.weights)):
+            srcs = [a.core_id for a in self.mapping.cores_of_layer(li)]
+            dsts = sorted({a.core_id
+                           for a in self.mapping.cores_of_layer(li + 1)})
+            routes[li] = [NOC.compile_flow(self.routing, s, dsts, self._level2)
+                          for s in srcs]
+        return routes
+
+    # -- execution ----------------------------------------------------------
+
+    def run(self, spike_train) -> tuple[torch.Tensor, ChipReport]:
+        """spike_train: (T, n_in) binary -> (out_spike_counts, report)."""
+        return self.array_engine().run(spike_train)
+
+    def run_batch(self, spike_trains) -> tuple[torch.Tensor, list[ChipReport]]:
+        """spike_trains: (B, T, n_in) -> ((B, n_out) counts, one ChipReport
+        per sample), the batch run as one pass of the selected engine."""
+        return self.array_engine().run_batch(spike_trains)

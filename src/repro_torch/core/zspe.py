@@ -1,0 +1,111 @@
+"""ZSPE + SPE — zero-skip sparse spike processing (paper C1) and its cycle
+model, in torch.  Port of `repro.core.zspe`.
+
+Spike words are the chip's on-wire spike format: 16 spikes per uint16
+word, LSB first, the last word zero-padded.  torch has no shifts for
+`torch.uint16`, so the bit arithmetic runs in int32 and the words are
+stored as uint16 by reinterpreting the low half (`int16` then `.view`),
+which keeps the packed layout bit-for-bit that of the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+SPIKE_WORD_BITS = 16
+
+
+def spike_word_count(n: int) -> int:
+    """Words needed for `n` spikes (the last word zero-padded)."""
+    return -(-int(n) // SPIKE_WORD_BITS)
+
+
+def _bit_weights(device) -> torch.Tensor:
+    return torch.arange(SPIKE_WORD_BITS, dtype=torch.int32, device=device)
+
+
+def pack_spike_words(spikes: torch.Tensor) -> torch.Tensor:
+    """(..., K) {0,1} -> (..., ceil(K/16)) uint16, LSB-first per word."""
+    k = spikes.shape[-1]
+    kw = spike_word_count(k)
+    bits = (spikes != 0).to(torch.int32)
+    pad = kw * SPIKE_WORD_BITS - k
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    bits = bits.reshape(*bits.shape[:-1], kw, SPIKE_WORD_BITS)
+    words = (bits << _bit_weights(spikes.device)).sum(-1, dtype=torch.int32)
+    return words.to(torch.int16).contiguous().view(torch.uint16)
+
+
+def words_as_int32(packed: torch.Tensor) -> torch.Tensor:
+    """uint16 spike words -> the same values as int32 (0..65535)."""
+    return packed.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def unpack_spike_words(packed: torch.Tensor, n: int | None = None
+                       ) -> torch.Tensor:
+    """Inverse of `pack_spike_words` -> (..., n) f32 {0,1}.
+
+    `n` crops the trailing word's zero padding (defaults to all 16*Kw
+    lanes, which is the padded width the fused kernel consumes).
+    """
+    words = words_as_int32(packed)
+    bits = (words[..., None] >> _bit_weights(packed.device)) & 1
+    flat = bits.reshape(*packed.shape[:-1], packed.shape[-1] * SPIKE_WORD_BITS)
+    if n is not None:
+        flat = flat[..., :n]
+    return flat.to(torch.float32)
+
+
+def empty_spike_words(packed: torch.Tensor) -> torch.Tensor:
+    """Per-row count of all-zero 16-spike words (the ZSPE word-scan skip)."""
+    return (words_as_int32(packed) == 0).sum(-1, dtype=torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreGeometry:
+    """Per-core resources (register-table configurables + fixed datapath)."""
+
+    spike_lanes: int = 16        # ZSPE parallel spike window
+    spe_lanes: int = 4           # synapses processed per cycle (2 SPEs x 2)
+    freq_hz: float = 200e6       # nominal core clock
+    pipeline_depth: int = 4      # caches -> ZSPE -> SPE -> updater
+
+
+@dataclasses.dataclass(frozen=True)
+class CycleModel:
+    """Cycle/throughput model of one neuromorphic core.
+
+    Per core-timestep: spike-load cycles ceil(n_pre / 16) (ZSPE scan),
+    synapse cycles ceil(nnz * n_post / 4) (SPE, zero-skip), update cycles
+    ceil(n_touched) (neuron updater); the 4-stage pipeline overlaps them,
+    so a step costs the slowest stage plus the pipeline depth.
+    """
+
+    geom: CoreGeometry = CoreGeometry()
+
+    def stage_cycles_array(self, n_pre: int, n_post, nnz, touched,
+                           zero_skip: bool = True,
+                           partial_update: bool = True):
+        """(load, synapse, update) cycles of each core slice of a layer:
+        `n_post`/`touched` hold one entry per slice, `nnz` one per sample
+        (broadcast).  Integer-exact inputs make the ceils exact."""
+        g = self.geom
+        load = -(-n_pre // g.spike_lanes)
+        syn = torch.ceil((nnz if zero_skip else float(n_pre)) * n_post
+                         / g.spe_lanes)
+        upd = torch.ceil(touched) if partial_update else n_post
+        return load, syn, upd
+
+    def timestep_cycles_array(self, n_pre: int, n_post, nnz, touched,
+                              zero_skip: bool = True,
+                              partial_update: bool = True):
+        """Cycles of one core-timestep per slice: the slowest stage plus
+        the pipeline depth, in f32 like the reference."""
+        load, syn, upd = self.stage_cycles_array(
+            n_pre, n_post, nnz, touched, zero_skip, partial_update)
+        crit = torch.maximum(torch.clamp(syn, min=float(load)),
+                             torch.as_tensor(upd, dtype=torch.float32,
+                                             device=syn.device))
+        return crit + self.geom.pipeline_depth

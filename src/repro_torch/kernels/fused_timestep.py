@@ -1,0 +1,232 @@
+"""One fused ZSPE -> codebook-dequant -> LIF layer-timestep on Hopper.
+
+Port of `repro.kernels.fused_timestep` (the Pallas TPU kernel behind
+`fused_timestep_codebook` and `fused_timestep_dense`).  Each entry point
+has three parts:
+
+* the CUDA kernel in `csrc/fused_timestep.cu`, built by `build.py` and
+  launched on the current stream for CUDA tensors;
+* its plain version, `fused_timestep_plain`, the same function in plain
+  torch, expression for expression with the reference's `_unpack_words`,
+  `_dequant_columns` and `_lif_tile`; the wrapper uses it for CPU
+  tensors, and the tests and `chip_smoke.py` hold the kernel against it;
+* a launch count per variant (`launches`), raised by one exactly where
+  the kernel is launched, so a run can show that it went through it.
+
+Membrane state is read-modify-write: `v` and `elapsed` are updated in
+place on both devices, and the returned v' / elapsed' are those same
+tensors (the reference donates the buffers to XLA for the same effect).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.zspe import SPIKE_WORD_BITS, words_as_int32
+
+launches = {"fused_timestep_codebook": 0, "fused_timestep_dense": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _unpack_words(pk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bm, kw) uint16 -> ((bm, kw*16) f32 {0,1}, (bm,) int32 popcounts)."""
+    bm, kw = pk.shape
+    shifts = torch.arange(SPIKE_WORD_BITS, dtype=torch.int32, device=pk.device)
+    bits = (words_as_int32(pk)[:, :, None] >> shifts) & 1
+    s = bits.reshape(bm, kw * SPIKE_WORD_BITS).to(torch.float32)
+    nnz = bits.sum(dim=(1, 2), dtype=torch.int32)
+    return s, nnz
+
+
+def _dequant_columns(idx: torch.Tensor, cbw: torch.Tensor) -> torch.Tensor:
+    """Expand (K, bn) indexes against per-column level values (L, bn):
+    the f32 element `cbw[idx[k, n], n]` (the reference's gather form)."""
+    return torch.gather(cbw, 0, idx.long())
+
+
+def _lif_tile(v, el, cur, tcnt, *, threshold, leak, reset, partial_update):
+    """The neuron-updater stage: expression for expression the reference's
+    `_lif_tile` (hard reset)."""
+    if partial_update:
+        touched = tcnt > 0
+        pending = el + 1
+        decay = torch.where(touched, leak ** pending.to(v.dtype),
+                            torch.ones_like(v))
+        v_int = v * decay + cur
+        v_eff = torch.where(touched, v_int, torch.full_like(v, -torch.inf))
+        spikes = ((v_eff - threshold) >= 0.0).to(v.dtype)
+        v_new = torch.where(spikes > 0, torch.full_like(v, reset),
+                            torch.where(touched, v_int, v))
+        el_new = torch.where(touched, torch.zeros_like(pending), pending)
+    else:
+        v_int = v * leak + cur
+        spikes = ((v_int - threshold) >= 0.0).to(v.dtype)
+        touched = torch.ones(v.shape, dtype=torch.bool, device=v.device)
+        v_new = torch.where(spikes > 0, torch.full_like(v, reset), v_int)
+        el_new = torch.zeros_like(el)
+    return v_new, el_new, spikes, touched.to(torch.int32)
+
+
+def fused_timestep_plain(packed, w0, cbw, v, elapsed, *, threshold, leak,
+                         reset, partial_update, all_nonzero):
+    """The whole batch as one tile, like the reference at `block=None`.
+
+    `cbw=None` selects the dense variant (`w0` is then f32 weights).
+    Returns new tensors (v', elapsed', spikes, touched, nnz (M, 1),
+    empty words (M, 1)); it does not write `v` or `elapsed`.
+    """
+    pk = packed
+    s, nnz_rows = _unpack_words(pk)
+    nnz_col = nnz_rows[:, None]
+    ew = (words_as_int32(pk) == 0).sum(dim=1, dtype=torch.int32)[:, None]
+    lif = dict(threshold=threshold, leak=leak, reset=reset,
+               partial_update=partial_update)
+    if int(nnz_rows.sum()) == 0:
+        # ZSPE saw only empty words: no synaptic work, no touches; the
+        # partial-update bookkeeping (elapsed + 1) or the plain leak runs
+        vo, elo, sp, _ = _lif_tile(v, elapsed, torch.zeros_like(v),
+                                   torch.zeros_like(elapsed), **lif)
+        tc = (torch.zeros_like(elapsed) if partial_update
+              else torch.ones_like(elapsed))
+        return vo, elo, sp, tc, nnz_col, ew
+    w = _dequant_columns(w0, cbw) if cbw is not None else w0
+    cur = s @ w
+    if all_nonzero:
+        tcnt = nnz_col.to(torch.float32).expand(v.shape)
+    else:
+        tcnt = s @ (w != 0.0).to(torch.float32)
+    vo, elo, sp, tc = _lif_tile(v, elapsed, cur, tcnt, **lif)
+    return vo, elo, sp, tc, nnz_col, ew
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    "fused_timestep_codebook_launch": [_P] * 9 + [_I] * 4 + [_F] * 3
+    + [_I, _I, _P],
+    "fused_timestep_dense_launch": [_P] * 8 + [_I] * 3 + [_F] * 3
+    + [_I, _I, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import library
+
+    lib = library("fused_timestep")
+    if not getattr(lib, "_argtypes_set", False):
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.fused_timestep_error_string.argtypes = [ctypes.c_int]
+        lib.fused_timestep_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _check(name, packed, w0, cbw, v, elapsed):
+    """Validate what the kernel takes; returns (m, kw, n)."""
+    if packed.dim() != 2 or v.dim() != 2 or elapsed.shape != v.shape:
+        raise ValueError(f"{name}: packed (M, Kw), v and elapsed (M, N) "
+                         f"expected; got {tuple(packed.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(elapsed.shape)}")
+    m, kw = packed.shape
+    n = v.shape[1]
+    if v.shape[0] != m or w0.shape != (kw * SPIKE_WORD_BITS, n):
+        raise ValueError(f"{name}: weights must be ({kw * SPIKE_WORD_BITS}, "
+                         f"{n}) for packed {tuple(packed.shape)}, v "
+                         f"{tuple(v.shape)}; got {tuple(w0.shape)}")
+    want = [(packed, torch.uint16, "packed"), (v, torch.float32, "v"),
+            (elapsed, torch.int32, "elapsed"),
+            (w0, torch.int8 if cbw is not None else torch.float32,
+             "idx" if cbw is not None else "weights")]
+    if cbw is not None:
+        want.append((cbw, torch.float32, "cbw"))
+        if cbw.dim() != 2 or cbw.shape[1] != n:
+            raise ValueError(f"{name}: cbw must be (L, {n}); got "
+                             f"{tuple(cbw.shape)}")
+    dev = v.device
+    for t, dtype, what in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {what} on {t.device}, v on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    return m, kw, n
+
+
+def _run(name, packed, w0, cbw, v, elapsed, threshold, leak, reset,
+         partial_update, all_nonzero):
+    m, kw, n = _check(name, packed, w0, cbw, v, elapsed)
+    if v.device.type == "cpu":
+        vo, eo, sp, tc, nnz, ew = fused_timestep_plain(
+            packed, w0, cbw, v, elapsed, threshold=threshold, leak=leak,
+            reset=reset, partial_update=partial_update,
+            all_nonzero=all_nonzero)
+        v.copy_(vo)
+        elapsed.copy_(eo)
+        return v, elapsed, sp, tc, nnz, ew
+    if v.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {v.device}")
+    spikes = torch.empty_like(v)
+    touched = torch.empty_like(elapsed)
+    nnz = torch.empty((m, 1), dtype=torch.int32, device=v.device)
+    ew = torch.empty((m, 1), dtype=torch.int32, device=v.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    head = [packed.data_ptr(), w0.data_ptr()]
+    if cbw is not None:
+        head.append(cbw.data_ptr())
+    tail = [v.data_ptr(), elapsed.data_ptr(), spikes.data_ptr(),
+            touched.data_ptr(), nnz.data_ptr(), ew.data_ptr(), m, kw, n]
+    if cbw is not None:
+        tail.append(int(cbw.shape[0]))
+    tail += [float(threshold), float(leak), float(reset),
+             int(bool(partial_update)), int(bool(all_nonzero)), stream]
+    err = getattr(lib, f"{name}_launch")(*head, *tail)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed: "
+                           f"{lib.fused_timestep_error_string(err).decode()}")
+    launches[name] += 1
+    return v, elapsed, spikes, touched, nnz, ew
+
+
+def fused_timestep_codebook(packed, idx, cbw, v, elapsed, *,
+                            threshold: float = 1.0, leak: float = 0.9,
+                            reset: float = 0.0, partial_update: bool = True,
+                            all_nonzero: bool = False):
+    """One fused layer-timestep, codebook-compressed weights.
+
+    packed (M, Kw) uint16 spike words; idx (16*Kw, N) int8 indexes; cbw
+    (L, N) f32 per-column level values; v (M, N) f32 and elapsed (M, N)
+    int32, both updated in place.  `all_nonzero` states that every real
+    weight is nonzero, so touch counts are the row popcounts.
+
+    Returns (v', elapsed', spikes, touched, nnz (M, 1), empty words (M, 1)).
+    """
+    return _run("fused_timestep_codebook", packed, idx, cbw, v, elapsed,
+                threshold, leak, reset, partial_update, all_nonzero)
+
+
+def fused_timestep_dense(packed, weights, v, elapsed, *,
+                         threshold: float = 1.0, leak: float = 0.9,
+                         reset: float = 0.0, partial_update: bool = True,
+                         all_nonzero: bool = False):
+    """Dense-weight variant (float simulators): weights (16*Kw, N) f32,
+    otherwise as `fused_timestep_codebook`."""
+    return _run("fused_timestep_dense", packed, weights, None, v, elapsed,
+                threshold, leak, reset, partial_update, all_nonzero)

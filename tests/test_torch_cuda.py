@@ -1,0 +1,103 @@
+"""The port's CUDA kernels on the card: each fused-timestep kernel against
+its plain version at small shapes, and a fused run counting its launches.
+Marked `cuda`; every test skips without a card.  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import zspe as Z
+from repro_torch.kernels import fused_timestep as FT
+
+pytestmark = pytest.mark.cuda
+
+V_ATOL = V_RTOL = 1e-5      # the kernel sums set bits in k order, the
+TIE = 1e-4                  # plain version is a matmul
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _case(dev, seed, m, k, n, density, all_nonzero):
+    rng = np.random.default_rng(seed)
+    kp = Z.spike_word_count(k) * Z.SPIKE_WORD_BITS
+    s = (rng.random((m, k)) < density).astype(np.float32)
+    cb = np.sort(rng.normal(0, 0.3, 16)).astype(np.float32)
+    if all_nonzero:
+        cb[cb == 0] = 1e-3
+    else:
+        cb[np.argmin(np.abs(cb))] = 0.0
+    idx = np.zeros((kp, n), np.int8)
+    idx[:k] = rng.integers(0, 16, (k, n))
+    cbw = np.broadcast_to(cb[:, None], (16, n)).copy()
+    dense = (cb[idx] * (np.arange(kp) < k)[:, None]).astype(np.float32)
+
+    def t(x):
+        return torch.tensor(x, device=dev)
+
+    return dict(packed=Z.pack_spike_words(t(s)), idx=t(idx), cbw=t(cbw),
+                dense=t(dense), v=t(rng.normal(0.5, 0.5, (m, n))
+                                    .astype(np.float32)),
+                el=t(rng.integers(0, 6, (m, n)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.3, 1.0])
+@pytest.mark.parametrize("all_nonzero", [False, True])
+@pytest.mark.parametrize("partial_update", [True, False],
+                         ids=["partial", "full"])
+def test_kernel_matches_plain(dev, codebook, density, all_nonzero,
+                              partial_update):
+    c = _case(dev, 7, 9, 200, 300, density, all_nonzero)
+    lif = dict(threshold=1.0, leak=0.9, reset=0.0,
+               partial_update=partial_update, all_nonzero=all_nonzero)
+    w0, cbw = (c["idx"], c["cbw"]) if codebook else (c["dense"], None)
+    want = FT.fused_timestep_plain(c["packed"], w0, cbw, c["v"], c["el"],
+                                   **lif)
+    v, el = c["v"].clone(), c["el"].clone()
+    if codebook:
+        got = FT.fused_timestep_codebook(c["packed"], w0, cbw, v, el, **lif)
+    else:
+        got = FT.fused_timestep_dense(c["packed"], w0, v, el, **lif)
+    torch.cuda.synchronize()
+    assert got[0] is v and got[1] is el
+    for i in (1, 3, 4, 5):
+        assert torch.equal(got[i], want[i]), i
+    s = Z.unpack_spike_words(c["packed"])
+    w = FT._dequant_columns(w0, cbw) if codebook else w0
+    decay = (0.9 ** (c["el"] + 1).float()) if partial_update else 0.9
+    v_int = c["v"] * decay + s @ w
+    near = (v_int - 1.0).abs() < TIE
+    if partial_update:
+        near &= want[3] > 0
+    flip = got[2] != want[2]
+    assert not bool((flip & ~near).any())
+    keep = ~flip
+    torch.testing.assert_close(got[0][keep], want[0][keep], atol=V_ATOL,
+                               rtol=V_RTOL)
+
+
+def test_fused_run_counts_launches(dev):
+    from repro_torch import ChipSimulator, CodebookConfig
+
+    rng = np.random.default_rng(0)
+    ws = [rng.normal(0, 0.5, (64, 128)).astype(np.float32),
+          rng.normal(0, 0.5, (128, 10)).astype(np.float32)]
+    trains = (rng.random((4, 5, 64)) < 0.25).astype(np.float32)
+    for qcfg, name in ((CodebookConfig(zero_level=True),
+                        "fused_timestep_codebook"),
+                       (None, "fused_timestep_dense")):
+        sim = ChipSimulator(ws, quant_cfg=qcfg, engine="fused", device=dev)
+        FT.reset_launches()
+        counts, reports = sim.run_batch(trains)
+        torch.cuda.synchronize()
+        assert FT.launches[name] == 5 * 2
+        assert sum(FT.launches.values()) == 5 * 2
+        assert counts.device.type == "cuda" and counts.shape == (4, 10)
+        assert all(np.isfinite(r.energy_pj) for r in reports)

@@ -1,0 +1,134 @@
+"""The port's main path, `ChipSimulator(engine="fused").run_batch`, on the
+CPU: against the reference's fused engine on a tie-free fixture (spikes
+and integer counters equal, ChipReport fields within 1e-6 relative), and
+bit-exact against the port's own compiled engine at word-aligned widths."""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from repro.configs.snn_chip import SMOKE  # noqa: E402
+from repro.core.quant import CodebookConfig as RefCodebookConfig  # noqa: E402
+from repro.core.soc import ChipSimulator as RefChipSimulator  # noqa: E402
+from test_torch_harness import port_from_reference, tie_free_trains  # noqa: E402
+
+from repro_torch import ChipSimulator, CodebookConfig  # noqa: E402
+from repro_torch.kernels import fused_timestep as FT  # noqa: E402
+
+REL_TOL = 1e-6
+STAT_FIELDS = ("nominal_sops", "performed_sops", "spikes_in",
+               "spikes_routed", "neurons_touched", "noc_hops",
+               "noc_energy_pj", "noc_contention_cycles")
+REPORT_FIELDS = ("energy_pj", "core_energy_pj", "noc_energy_pj",
+                 "riscv_energy_pj", "wall_cycles")
+
+
+def _weights(sizes, seed=0, scale=0.5):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, scale, (sizes[i], sizes[i + 1])).astype(np.float32)
+            for i in range(len(sizes) - 1)]
+
+
+def _assert_reports_close(got, want, rel=REL_TOL):
+    assert len(got) == len(want)
+    for b, (g, w) in enumerate(zip(got, want)):
+        for f in STAT_FIELDS:
+            a, c = getattr(w.stats, f), getattr(g.stats, f)
+            assert abs(a - c) <= rel * max(abs(a), 1.0), (b, f, a, c)
+        for f in REPORT_FIELDS:
+            a, c = getattr(w, f), getattr(g, f)
+            assert abs(a - c) <= rel * max(abs(a), 1.0), (b, f, a, c)
+
+
+@pytest.mark.parametrize("quantized", [True, False],
+                         ids=["quantized", "float"])
+def test_smoke_run_batch_matches_reference(quantized):
+    from repro.core.neuron import LIFParams
+
+    sizes = SMOKE.layer_sizes
+    ws = _weights(sizes)
+    qcfg = (RefCodebookConfig(n_levels=SMOKE.weight_levels,
+                              bit_width=SMOKE.weight_bits, zero_level=True)
+            if quantized else None)
+    ref = RefChipSimulator([jax.numpy.asarray(w) for w in ws],
+                           quant_cfg=qcfg, engine="fused",
+                           freq_hz=SMOKE.freq_hz)
+    port = port_from_reference(ref, engine="fused")
+    assert port.fused_engine().codebook_layers == (len(ws) if quantized
+                                                   else 0)
+    trains = tie_free_trains([np.asarray(w) for w in ref.weights],
+                             LIFParams(), (3, SMOKE.timesteps, sizes[0]))
+    ref_ys = ref.fused_engine().run_raw(jax.numpy.asarray(trains))
+    ys, counts = port.fused_engine().run_raw(trains)
+    assert set(ys) == set(ref_ys) - {"out"}
+    for key in ys:
+        np.testing.assert_array_equal(ys[key].numpy(),
+                                      np.asarray(ref_ys[key]), err_msg=key)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(ref_ys["out"]).sum(axis=1))
+    ref_counts, ref_reports = ref.run_batch(jax.numpy.asarray(trains))
+    got_counts, got_reports = port.run_batch(trains)
+    np.testing.assert_array_equal(got_counts.numpy(), np.asarray(ref_counts))
+    _assert_reports_close(got_reports, ref_reports)
+    assert [r.stats.spike_words_skipped for r in got_reports] == \
+        [r.stats.spike_words_skipped for r in ref_reports]
+
+
+@pytest.mark.parametrize("quantized", [True, False],
+                         ids=["quantized", "float"])
+def test_fused_bit_exact_with_compiled(quantized):
+    sizes = (64, 128, 32)
+    ws = _weights(sizes, seed=3)
+    qcfg = CodebookConfig(16, 8, zero_level=True) if quantized else None
+    fused = ChipSimulator(ws, quant_cfg=qcfg, engine="fused", device="cpu")
+    comp = ChipSimulator(ws, quant_cfg=qcfg, engine="compiled",
+                         mapping=fused.mapping, device="cpu")
+    trains = (np.random.default_rng(4).random((5, 6, sizes[0]))
+              < 0.25).astype(np.float32)
+    ys_f, c_f = fused.fused_engine().run_raw(trains)
+    ys_c, c_c = comp.compiled_engine().run_raw(trains)
+    assert torch.equal(c_f, c_c) and float(c_f.sum()) > 0
+    for key in ys_c:
+        assert torch.equal(ys_f[key], ys_c[key]), key
+    _, rep_f = fused.run_batch(trains)
+    _, rep_c = comp.run_batch(trains)
+    _assert_reports_close(rep_f, rep_c, rel=0.0)
+
+
+def test_single_sample_run_and_cpu_launches_uncounted():
+    sim = ChipSimulator(_weights((48, 64, 10)), quant_cfg=CodebookConfig(),
+                        engine="fused", device="cpu")
+    train = (np.random.default_rng(0).random((4, 48)) < 0.3).astype(
+        np.float32)
+    before = dict(FT.launches)
+    counts, report = sim.run(train)
+    batch_counts, reports = sim.run_batch(train[None])
+    assert torch.equal(counts, batch_counts[0])
+    assert report.energy_pj == reports[0].energy_pj
+    assert FT.launches == before
+    with pytest.raises(ValueError, match="batch, T, n_in"):
+        sim.run_batch(train)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(engine="reference"), "Queue 1 item 9"),
+    (dict(engine="sharded"), "Queue 1 item 10"),
+    (dict(trace=object()), "Queue 1 item 7"),
+    (dict(faults=object()), "Queue 1 item 6"),
+    (dict(plasticity=object()), "Queue 1 item 8"),
+])
+def test_options_of_later_slices_raise(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        ChipSimulator(_weights((32, 16)), device="cpu", **kw)
+
+
+def test_unknown_engine_and_index_weights_rejected():
+    with pytest.raises(ValueError, match="engine must be"):
+        ChipSimulator(_weights((32, 16)), engine="dense", device="cpu")
+    with pytest.raises(TypeError, match="codebook indices"):
+        ChipSimulator([np.ones((32, 16), np.int8)], device="cpu")
+    idx_like = np.random.default_rng(0).integers(0, 16, (32, 16)).astype(
+        np.float32)
+    with pytest.raises(ValueError, match="look like codebook"):
+        ChipSimulator([idx_like], quant_cfg=CodebookConfig(), device="cpu")
