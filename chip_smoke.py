@@ -15,11 +15,27 @@ Phases, each of which must pass:
    `all_nonzero` settings (a codebook with a zero level when False) and
    both update modes; then their times beside the plain version's, a
    `torch.matmul` of the same product and the device-memory bound;
+   Then the kernel API's kernels (zspe_spmm, codebook_matmul,
+   lif_update) against their plain versions at the same layer shapes
+   with M = 32 (one step), 200 (edge row tiles) and 32 x 20 = 640 rows
+   (a whole run; spike densities 0, 0.02, 0.10, 1.0 and a
+   tile-structured case; Gaussian f32 and bf16 x for the codebook
+   product; (M, N) LIF states), and their times at M = 32 and 640;
 4. main path — `ChipSimulator(quantize(ARCH weights), engine="fused")
    .run_batch` at B=32, T=20, Bernoulli(0.10) input: exactly 60
    codebook-kernel launches, spike totals per layer within 0.1% and
    pJ/SOP within 1e-3 of the port's compiled engine, samples/s; then a
-   float ARCH simulator for T=2 through the dense kernel (6 launches).
+   float ARCH simulator for T=2 through the dense kernel (6 launches);
+5. kernel-API path — the paper's network as a loop over T of
+   `kernels.ops` calls at B=32, T=20: (a) `zspe_spmm` of the dequantized
+   weights then `lif_update`, (b) the same with `codebook_matmul` of the
+   indexes, (c) the padded `fused_timestep` of the indexes: exactly 60
+   launches of each kernel per loop; every layer-step's current and LIF
+   outputs held against the plain versions on the same inputs (loop (c)
+   against `ops.fused_timestep` on the CPU); spike totals per layer
+   within 0.1% of the same loop on the plain versions (a, b) and of each
+   other; one `codebook_matmul` backward at layer 1 against plain
+   autograd; ms per loop and the card's idle share.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
@@ -42,6 +58,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 DEVICE = "cuda"
 BATCH = 32
+RAGGED_ROWS = 200              # not a multiple of the 128-row zspe tile or
+                               # of the codebook kernel's 64-row tile
 DENSITIES = (0.0, 0.02, 0.10, 1.0)
 TIME_DENSITY = 0.10            # engine_bench's NMNIST-like input density
 H100_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -51,6 +69,10 @@ V_ATOL = V_RTOL = 1e-5         # kernel sums over set bits in k order, the
 TIE = 1e-4                     # a spike may flip where |v_int - theta| < TIE
 SPIKE_REL_TOL = 1e-3           # fused vs compiled spike totals per layer
 PJ_REL_TOL = 1e-3              # fused vs compiled pJ/SOP
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-2   # codebook backward, as the reference's
+                                    # own gradient test holds it
+LIF_BYTES = 25                 # lif_update: 3 x 4 bytes read, 3 x 4 + 1
+                               # (int8 `updated`) written per element
 
 
 def log(msg: str) -> None:
@@ -130,6 +152,42 @@ def _plain(c, all_nonzero, partial_update):
         all_nonzero=all_nonzero)
 
 
+FUSED_INTS = {1: "elapsed'", 3: "touched", 4: "nnz", 5: "empty words"}
+LIF_INTS = {1: "elapsed'", 3: "updated"}
+
+
+def _assert_close(what: str, got, want) -> float:
+    """Floats within V_ATOL + V_RTOL * |want|; returns the max difference."""
+    d = (got.float() - want.float()).abs()
+    if bool((d > V_ATOL + V_RTOL * want.float().abs()).any()):
+        raise AssertionError(f"{what}: off by up to {float(d.max())}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_step(what: str, got, want, ints: dict, v_int, threshold=1.0,
+               touched=None) -> float:
+    """A LIF step's outputs (v', elapsed', spikes, ...) against the plain
+    version's: the outputs named in `ints` exact, a spike may flip only
+    within TIE of the threshold (and only where `touched` > 0, if given),
+    v' within V_ATOL + V_RTOL * |want| where the spikes agree.  `v_int` is
+    the plain integrated potential.  Returns the max |v' difference|."""
+    import torch
+
+    for i, name in ints.items():
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(f"{what}: {name} differs in "
+                                 f"{int((got[i] != want[i]).sum())} elements")
+    flip_ok = (v_int - threshold).abs() < TIE
+    if touched is not None:
+        flip_ok &= touched > 0
+    flip = got[2] != want[2]
+    if bool((flip & ~flip_ok).any()):
+        raise AssertionError(
+            f"{what}: {int((flip & ~flip_ok).sum())} spikes differ away "
+            f"from the threshold")
+    return _assert_close(f"{what} v'", got[0][~flip], want[0][~flip])
+
+
 def compare_case(c, kernel_name, all_nonzero, partial_update,
                  desc: str = "") -> float:
     """Kernel vs plain on one case; raises on disagreement, returns the
@@ -137,32 +195,11 @@ def compare_case(c, kernel_name, all_nonzero, partial_update,
     import torch
 
     got = _launch(c, kernel_name, all_nonzero, partial_update)
-    kernel_name = f"{kernel_name} {desc}"
     want = _plain(c, all_nonzero, partial_update)
     torch.cuda.synchronize()
-    names = ("v'", "elapsed'", "spikes", "touched", "nnz", "empty words")
-    for i in (1, 3, 4, 5):                      # integers: exact
-        if not torch.equal(got[i], want[i]):
-            bad = int((got[i] != want[i]).sum())
-            raise AssertionError(f"{kernel_name}: {names[i]} differs in "
-                                 f"{bad} elements")
-    v_int = _plain_v_int(c, partial_update)
-    flip = got[2] != want[2]
-    if partial_update:
-        flip_ok = (want[3] > 0) & ((v_int - 1.0).abs() < TIE)
-    else:
-        flip_ok = (v_int - 1.0).abs() < TIE
-    if bool((flip & ~flip_ok).any()):
-        raise AssertionError(
-            f"{kernel_name}: {int((flip & ~flip_ok).sum())} spikes differ "
-            f"away from the threshold")
-    keep = ~flip
-    dv = (got[0] - want[0]).abs()
-    lim = V_ATOL + V_RTOL * want[0].abs()
-    if bool((dv > lim)[keep].any()):
-        raise AssertionError(f"{kernel_name}: v' off by up to "
-                             f"{float(dv[keep].max())}")
-    return float(dv[keep].max()) if bool(keep.any()) else 0.0
+    return check_step(f"{kernel_name} {desc}", got, want, FUSED_INTS,
+                      _plain_v_int(c, partial_update),
+                      touched=want[3] if partial_update else None)
 
 
 def _time_eager_ms(fn, reps: int = 20) -> float:
@@ -225,7 +262,12 @@ def _bound(c, codebook: bool) -> tuple[float, str]:
     state = m * n * 4 * 2 * 2            # v and elapsed, read + written
     outs = m * n * 4 * 2 + m * 4 * 2     # spikes, touched, nnz, empty words
     nbytes = c["packed"].numel() * 2 + w_bytes + state + outs
-    ops = int(nnz.sum()) * n
+    return _roof(nbytes, int(nnz.sum()) * n)
+
+
+def _roof(nbytes: int, ops: int) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and f32 operations over
+    the f32 rate, in ms, and which of the two it is."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -296,6 +338,163 @@ def kernel_phase(arch, seed: int) -> dict:
     return results
 
 
+def _api_spikes(rng, m: int, k: int, density, dev, tile=(128, 128)):
+    """(m, K) f32 spikes: one step's (B, K) spikes (m = 32) or a run's
+    (B, T, K) trains seen through the kernel API's leading dims.
+    `density=None` is tile-structured: about half of the `tile` spike
+    tiles, and always the first, hold no spike, the rest Bernoulli(0.10),
+    so the zspe skip counters are nonzero at full width."""
+    import torch
+
+    if density is None:
+        bm, bk = tile
+        keep = rng.random((-(-m // bm), -(-k // bk))) < 0.5
+        keep[0, 0] = False
+        mask = np.repeat(np.repeat(keep, bm, 0), bk, 1)[:m, :k]
+        s = (rng.random((m, k)) < 0.10) & mask
+    else:
+        s = rng.random((m, k)) < density
+    return torch.as_tensor(s.astype(np.float32), device=dev)
+
+
+def _lif_inputs(rng, m: int, n: int, dev):
+    import torch
+
+    cur = np.where(rng.random((m, n)) < 0.4, rng.normal(0, 0.6, (m, n)),
+                   0.0).astype(np.float32)
+    cur[rng.random((m, n)) < 0.05] = -0.0     # no input, like +0.0
+    return (torch.as_tensor(rng.normal(0.5, 0.4, (m, n)).astype(np.float32),
+                            device=dev),
+            torch.as_tensor(rng.integers(0, 6, (m, n)).astype(np.int32),
+                            device=dev),
+            torch.as_tensor(cur, device=dev))
+
+
+def _lif_v_int(v, el, cur, leak):
+    """The plain partial-update potential v * leak^(elapsed + 1) + current."""
+    return v * leak ** (el + 1).float() + cur
+
+
+def _time_api_case(m, k, n, kern, plain, lib, bound) -> dict:
+    b, by = bound
+    return {"shape": [m, k, n] if k else [m, n],
+            "ms": _time_graph_ms(kern), "eager_ms": _time_eager_ms(kern),
+            "plain_ms": _time_eager_ms(plain),
+            "library_ms": None if lib is None else _time_graph_ms(lib),
+            "bound_ms": b, "bound_by": by}
+
+
+def api_kernel_phase(arch, qws, seed: int) -> dict:
+    """The kernel API's three kernels against their plain versions on the
+    card at the ARCH layer shapes and three row counts: M = 32 (one step
+    of the kernel-API path), M = RAGGED_ROWS (edge row tiles in both
+    products) and M = 640 (a whole run through the leading dims).  Then
+    timed at density 0.10 at M = 32, the shape the path runs, which the
+    kernels line reports, and at M = 640."""
+    import torch
+
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.kernels import lif_update as LU
+    from repro_torch.kernels import zspe_spmm as ZS
+    from repro_torch.kernels.ops import _pick_block
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 3)
+    rows = BATCH * arch.timesteps
+    leak = 0.9
+    err = {"zspe_spmm": 0.0, "codebook_matmul": 0.0, "lif_update": 0.0}
+    n_cases = dict.fromkeys(err, 0)
+    timing = {name: [] for name in err}
+    for q in qws:
+        idx, cb = q.idx, q.codebook[0]
+        w = dequantize(q)
+        k, n = w.shape
+        for m in (BATCH, RAGGED_ROWS, rows):
+            block = _pick_block(m, k, n)
+            for density in (*DENSITIES, None):
+                s = _api_spikes(rng, m, k, density, dev, block[:2])
+                desc = f"[M={m} K={k} N={n} density={density}]"
+                for sd in ((s, s.to(torch.int8)) if density == TIME_DENSITY
+                           else (s,)):
+                    out, skipped = ZS.zspe_spmm(sd, w, block=block)
+                    want, want_skipped = ZS.zspe_spmm_plain(sd, w, block)
+                    torch.cuda.synchronize()
+                    if not torch.equal(skipped, want_skipped):
+                        raise AssertionError(f"zspe_spmm {desc}: skip "
+                                             f"counters differ")
+                    if density is None and int(skipped.sum()) == 0:
+                        raise AssertionError(f"zspe_spmm {desc}: no tile "
+                                             f"skipped")
+                    err["zspe_spmm"] = max(err["zspe_spmm"], _assert_close(
+                        f"zspe_spmm {desc} {sd.dtype}", out, want))
+                    n_cases["zspe_spmm"] += 1
+                gauss = torch.as_tensor(
+                    rng.normal(0, 1, s.shape).astype(np.float32), device=dev)
+                xs = ((s, gauss, gauss.to(torch.bfloat16))
+                      if density == TIME_DENSITY else (s,))
+                for x in xs:
+                    got = CBM.codebook_matmul(x, idx, cb)
+                    want = CBM.codebook_matmul_plain(x, idx, cb)
+                    torch.cuda.synchronize()
+                    err["codebook_matmul"] = max(
+                        err["codebook_matmul"],
+                        _assert_close(f"codebook_matmul {desc} x {x.dtype}",
+                                      got, want))
+                    n_cases["codebook_matmul"] += 1
+            v, el, cur = _lif_inputs(rng, m, n, dev)
+            got = LU.lif_update(v, el, cur, threshold=1.0, leak=leak)
+            want = LU.lif_update_plain(v, el, cur, threshold=1.0, leak=leak,
+                                       reset=0.0)
+            torch.cuda.synchronize()
+            err["lif_update"] = max(err["lif_update"], check_step(
+                f"lif_update [{m}, {n}]", got, want, LIF_INTS,
+                _lif_v_int(v, el, cur, leak)))
+            n_cases["lif_update"] += 1
+
+        for m in (BATCH, rows):
+            s = _api_spikes(rng, m, k, TIME_DENSITY, dev)
+            v, el, cur = _lif_inputs(rng, m, n, dev)
+            block = _pick_block(m, k, n)
+            nz = s != 0
+            zspe_bytes = (s.numel() * 4 + int(nz.any(0).sum()) * n * 4
+                          + m * n * 4
+                          + 4 * -(-m // block[0]) * -(-n // block[2]))
+            timing["zspe_spmm"].append(_time_api_case(
+                m, k, n, lambda: ZS.zspe_spmm(s, w, block=block),
+                lambda: ZS.zspe_spmm_plain(s, w, block),
+                lambda: torch.matmul(s, w),
+                _roof(zspe_bytes, int(nz.sum()) * n)))
+            timing["codebook_matmul"].append(_time_api_case(
+                m, k, n, lambda: CBM.codebook_matmul(s, idx, cb),
+                lambda: CBM.codebook_matmul_plain(s, idx, cb),
+                lambda: torch.matmul(s, cb[idx.long()]),
+                _roof(s.numel() * 4 + idx.numel() + cb.numel() * 4
+                      + m * n * 4, 2 * m * k * n)))
+            timing["lif_update"].append(_time_api_case(
+                m, 0, n,
+                lambda: LU.lif_update(v, el, cur, threshold=1.0, leak=leak),
+                lambda: LU.lif_update_plain(v, el, cur, threshold=1.0,
+                                            leak=leak, reset=0.0),
+                None, _roof(LIF_BYTES * v.numel(), 0)))
+    results = {}
+    for name, shapes in timing.items():
+        log(f"kernel {name}: {n_cases[name]} cases agree, max |diff| "
+            f"{err[name]:.3g}; per shape {json.dumps(shapes)}")
+        path = [r for r in shapes if r["shape"][0] == BATCH]
+        by = {"bytes": 0.0, "operations": 0.0}
+        for r in path:
+            by[r["bound_by"]] += r["bound_ms"]
+        lib = [r["library_ms"] for r in path]
+        results[name] = {
+            "max_abs_err": err[name], "ms": sum(r["ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path),
+            "library_ms": None if None in lib else sum(lib),
+            "bound_ms": sum(r["bound_ms"] for r in path),
+            "bound_by": max(by, key=by.get)}
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -306,6 +505,17 @@ def _arch_weights(arch, seed):
     return [rng.normal(0, 2.0 / np.sqrt(sizes[i]),
                        (sizes[i], sizes[i + 1])).astype(np.float32)
             for i in range(len(sizes) - 1)]
+
+
+def _arch_quantized(arch, seed):
+    """The ARCH weights of `_arch_weights`, 16-level quantized on the card
+    as the main path quantizes them."""
+    from repro_torch import CodebookConfig, quantize
+
+    qcfg = CodebookConfig(n_levels=arch.weight_levels,
+                          bit_width=arch.weight_bits, zero_level=True)
+    return [quantize(w, qcfg, device=DEVICE)
+            for w in _arch_weights(arch, seed)]
 
 
 def _layer_spikes(sim, trains) -> np.ndarray:
@@ -333,10 +543,17 @@ def _check_against_compiled(fused, compiled, trains, what: str) -> None:
         raise AssertionError(f"{what}: pJ/SOP differs by {prel.max():.3g}")
 
 
-def _device_breakdown(fn, wall_ms: float) -> dict:
+def _device_breakdown(fn, wall_ms: float,
+                      sums=(("fused_kernel_ms", "fused_timestep_kernel"),)
+                      ) -> dict:
     """Device time by kernel over one call of `fn` (torch.profiler), and
-    the card's idle share against the unprofiled wall time `wall_ms`."""
+    the card's idle share against the unprofiled wall time `wall_ms`;
+    `sums` names (key, substring) pairs: the device ms of the kernels whose
+    name holds the substring.  Only device events count: a CPU op (an
+    `aten::` op, an autograd node) also carries the device time of the
+    kernels it launched, so summing it too would count them twice."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -346,7 +563,7 @@ def _device_breakdown(fn, wall_ms: float) -> dict:
     by_kernel = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
-        if us > 0:
+        if us > 0 and e.device_type != DeviceType.CPU:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
     busy = sum(by_kernel.values())
     if busy == 0:
@@ -354,11 +571,11 @@ def _device_breakdown(fn, wall_ms: float) -> dict:
             "measured")
         return {}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    fused = sum(ms for name, ms in by_kernel.items()
-                if "fused_timestep_kernel" in name)
-    out = {"device_busy_ms": busy, "fused_kernel_ms": fused,
-           "idle_share": max(0.0, 1.0 - busy / wall_ms),
-           "device_kernels": len(by_kernel)}
+    out = {"device_busy_ms": busy}
+    for key, part in sums:
+        out[key] = sum(ms for name, ms in by_kernel.items() if part in name)
+    out.update(idle_share=max(0.0, 1.0 - busy / wall_ms),
+               device_kernels=len(by_kernel))
     log(f"device breakdown of one run (profiled): {json.dumps(out)}; "
         f"top kernels (ms): {json.dumps(top)}")
     return out
@@ -462,6 +679,196 @@ def main_path(arch, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the kernel-API path
+# ---------------------------------------------------------------------------
+
+def _timed_ms(fn, reps: int = 5) -> float:
+    """Host-clock ms of `fn` ending in a synchronize: warmup, median."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out) * 1e3
+
+
+def api_path(arch, qws, seed: int) -> dict:
+    """The paper's network through `kernels.ops`, one call per layer-step:
+    (a) zspe_spmm of the dequantized weights, (b) codebook_matmul of the
+    indexes, each followed by lif_update, (c) fused_timestep of the
+    indexes and a per-column level table, padded to `_pick_block`'s
+    (bm, bn)."""
+    import torch
+
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.kernels import fused_timestep as FT
+    from repro_torch.kernels import lif_update as LU
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import zspe_spmm as ZS
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 2)
+    trains = torch.as_tensor(
+        (rng.random((BATCH, arch.timesteps, arch.layer_sizes[0]))
+         < TIME_DENSITY).astype(np.float32), device=dev)
+    ws = [dequantize(q) for q in qws]
+    blocks = [ops._pick_block(BATCH, *w.shape) for w in ws]
+    tables = [q.codebook[0][:, None].expand(-1, w.shape[1])
+              for q, w in zip(qws, ws)]
+    on_cpu = [(q.idx.cpu(), t.cpu()) for q, t in zip(qws, tables)]
+    lif = dict(threshold=arch.threshold, leak=arch.leak, reset=0.0)
+    currents = {
+        "zspe_spmm": lambda li, s: ops.zspe_spmm(s, ws[li]),
+        "codebook_matmul": lambda li, s: ops.codebook_matmul(
+            s, qws[li].idx, qws[li].codebook[0])}
+    plain_currents = {
+        "zspe_spmm": lambda li, s: ZS.zspe_spmm_plain(s, ws[li],
+                                                      blocks[li])[0],
+        "codebook_matmul": lambda li, s: CBM.codebook_matmul_plain(
+            s, qws[li].idx, qws[li].codebook[0])}
+
+    def fused(li, s, v, el, on=None):
+        idx, table = (qws[li].idx, tables[li]) if on is None else on[li]
+        return ops.fused_timestep(s, idx, v, el, codebook=table,
+                                  block=blocks[li][::2], **lif)
+
+    def api_step(name):
+        """One layer-step of loop `name` on the kernels: its outputs and
+        the current (None in the fused loop)."""
+        def step(li, s, v, el):
+            if name == "fused_timestep":
+                return fused(li, s, v, el), None
+            cur = currents[name](li, s)
+            return ops.lif_update(v, el, cur, **lif), cur
+        return step
+
+    def plain_step(name):
+        def step(li, s, v, el):
+            cur = plain_currents[name](li, s)
+            return LU.lif_update_plain(v, el, cur, **lif), cur
+        return step
+
+    def check(name, li, s, v, el, got, cur) -> float:
+        """One layer-step of loop `name` against the plain versions on the
+        same inputs: the current (a, b), then the LIF outputs."""
+        what = f"kernel-API loop {name}, layer {li + 1}"
+        if name == "fused_timestep":
+            want = [o.to(dev) for o in fused(li, s.cpu(), v.cpu(), el.cpu(),
+                                             on_cpu)]
+            return check_step(what, got, want, FUSED_INTS,
+                              _lif_v_int(v, el, s @ ws[li], arch.leak),
+                              arch.threshold, touched=want[3])
+        err = _assert_close(f"{what} current", cur,
+                            plain_currents[name](li, s))
+        want = LU.lif_update_plain(v, el, cur, **lif)
+        return max(err, check_step(what, got, want, LIF_INTS,
+                                   _lif_v_int(v, el, cur, arch.leak),
+                                   arch.threshold))
+
+    def run(step, name=None):
+        """Spike totals per layer of one B x T run; with `name`, every
+        layer-step is also held against the plain versions."""
+        states = [(torch.zeros(BATCH, n, device=dev),
+                   torch.zeros(BATCH, n, dtype=torch.int32, device=dev))
+                  for n in arch.layer_sizes[1:]]
+        totals = torch.zeros(len(qws), dtype=torch.float64, device=dev)
+        err = 0.0
+        for t in range(arch.timesteps):
+            s = trains[:, t].contiguous()
+            for li in range(len(qws)):
+                out, cur = step(li, s, *states[li])
+                if name is not None:
+                    err = max(err, check(name, li, s, *states[li], out, cur))
+                states[li] = (out[0], out[1])
+                s = out[2]
+                totals[li] += s.sum()
+        return totals.cpu().numpy(), err
+
+    mods = (ZS, CBM, LU, FT)
+    want = arch.timesteps * len(qws)
+    totals, perf = {}, {}
+    for name in (*currents, "fused_timestep"):
+        for mod in mods:
+            mod.reset_launches()
+        # each layer-step is held against the plain versions on the same
+        # inputs as it runs; the plain versions launch no kernel
+        got, err = run(api_step(name), name)
+        torch.cuda.synchronize()
+        launches = {}
+        for mod in mods:
+            launches.update(mod.launches)
+        expect = dict.fromkeys(launches, 0)
+        expect.update({"fused_timestep_codebook": want}
+                      if name == "fused_timestep"
+                      else {name: want, "lif_update": want})
+        if launches != expect:
+            raise AssertionError(f"kernel-API loop {name}: launches "
+                                 f"{launches}, expected {expect}")
+        log(f"kernel-API loop {name}: {launches}; every layer-step agrees "
+            f"with the plain versions (max |diff| {err:.3g})")
+        if name != "fused_timestep":
+            plain, _ = run(plain_step(name))
+            rel = np.abs(got - plain) / np.maximum(plain, 1.0)
+            log(f"kernel-API loop {name}: spikes per layer {got.tolist()} "
+                f"plain {plain.tolist()} (max rel {rel.max():.3g})")
+            if rel.max() > SPIKE_REL_TOL:
+                raise AssertionError(f"kernel-API loop {name}: spike totals "
+                                     f"differ from the plain loop by "
+                                     f"{rel.max():.3g} relative")
+        totals[name] = got
+        perf[name] = {"launches": launches, "max_abs_err": err}
+    b = totals["codebook_matmul"]
+    for name in ("zspe_spmm", "fused_timestep"):
+        rel = np.abs(totals[name] - b) / np.maximum(b, 1.0)
+        log(f"kernel-API loop {name}: spikes per layer "
+            f"{totals[name].tolist()}, loop codebook_matmul {b.tolist()} "
+            f"(max rel {rel.max():.3g})")
+        if rel.max() > SPIKE_REL_TOL:
+            raise AssertionError(f"kernel-API loops {name} and "
+                                 f"codebook_matmul differ by "
+                                 f"{rel.max():.3g} relative")
+    if b[0] == 0:
+        raise AssertionError("kernel-API path: layer 1 never spiked")
+
+    for name in perf:
+        step = api_step(name)
+        ms = _timed_ms(lambda: run(step))
+        perf[name].update(ms_per_loop=ms, **_device_breakdown(
+            lambda: run(step), ms,
+            tuple((f"{k}_kernel_ms", f"{k}_")
+                  for k in ("zspe", "codebook", "lif", "fused_timestep"))))
+        log(f"kernel-API loop {name}: {json.dumps(perf[name])}")
+
+    # one codebook_matmul backward at layer 1 against plain autograd
+    q = qws[0]
+    x0 = torch.as_tensor(rng.normal(0, 1, (BATCH * arch.timesteps,
+                                           q.idx.shape[0]))
+                         .astype(np.float32), device=dev)
+    grads = []
+    for fwd in (lambda x, c: ops.codebook_matmul(x, q.idx, c),
+                lambda x, c: x @ CBM.dequantize(q.idx, c)):
+        x = x0.clone().requires_grad_()
+        c = q.codebook[0].clone().requires_grad_()
+        (fwd(x, c) ** 2).sum().backward()
+        grads.append((x.grad, c.grad))
+    torch.cuda.synchronize()
+    for got_g, want_g, what in zip(*grads, ("gx", "gcb")):
+        torch.testing.assert_close(got_g, want_g, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, msg=f"codebook {what}")
+        rel = float(((got_g - want_g).abs()
+                     / want_g.abs().clamp(min=GRAD_ATOL)).max())
+        log(f"codebook_matmul backward at layer 1: {what} agrees with "
+            f"plain autograd (max rel {rel:.3g})")
+    return perf
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -497,21 +904,37 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     # 3. kernels
+    t0 = time.perf_counter()
     kern = kernel_phase(ARCH, args.seed)
+    qws = _arch_quantized(ARCH, args.seed)
+    kern.update(api_kernel_phase(ARCH, qws, args.seed))
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     # 4. main path
     mp = main_path(ARCH, args.seed)
 
-    # 5. kernels line, then the result
-    replaces = {
-        "fused_timestep_codebook":
-            "src/repro/kernels/fused_timestep.py:231",
-        "fused_timestep_dense": "src/repro/kernels/fused_timestep.py:266"}
+    # 5. kernel-API path
+    api = api_path(ARCH, qws, args.seed)
+
+    # kernels line, then the result; launches from phase 4 (fused) and
+    # phase 5 (kernel API, all three loops)
+    launches = dict(mp["launches"])
+    for loop in api.values():
+        for kname, count in loop["launches"].items():
+            launches[kname] = launches.get(kname, 0) + count
+    csrc = "src/repro_torch/kernels/csrc"
+    kernels = {
+        "fused_timestep_codebook": ("fused_timestep.cu",
+                                    "fused_timestep.py:231"),
+        "fused_timestep_dense": ("fused_timestep.cu", "fused_timestep.py:266"),
+        "lif_update": ("lif_update.cu", "lif_update.py:47"),
+        "zspe_spmm": ("zspe_spmm.cu", "zspe_spmm.py:61"),
+        "codebook_matmul": ("codebook_matmul.cu", "codebook_matmul.py:62")}
     line = {"kernels": [
-        {"name": kname, "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/fused_timestep.cu",
-         "replaces": replaces[kname], "launches": mp["launches"][kname],
-         **kern[kname]} for kname in replaces]}
+        {"name": kname, "route": "cuda", "source": f"{csrc}/{src}",
+         "replaces": f"src/repro/kernels/{rep}",
+         "launches": launches[kname], **kern[kname]}
+        for kname, (src, rep) in kernels.items()]}
     for entry in line["kernels"]:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']} never ran on the main "

@@ -140,16 +140,23 @@ def from_conv_config(cfg, spike_rates: Sequence[float] | None = None
 
 
 def measure_spike_rates(weights: Sequence, spike_train,
-                        lif=None) -> tuple[float, ...]:
+                        lif=None, device=None) -> tuple[float, ...]:
     """Run a dense SNN on a real spike train (T, n_in) and measure the mean
     spikes/timestep each layer emits — the profile-guided traffic input to
-    placement.  Runs on the device the weights lie on."""
+    placement.  Runs on `device` (default: the card, see
+    `repro_torch.resolve_device`), unless the weights are already tensors
+    and no device is given: then it runs where they lie."""
     import torch
 
     from repro_torch.core.neuron import LIFParams, init_state, lif_step
+    from repro_torch.device import resolve_device
 
     lif = lif or LIFParams()
-    ws = [torch.as_tensor(w, dtype=torch.float32) for w in weights]
+    ws = [w.to(torch.float32)
+          if isinstance(w, torch.Tensor) and device is None
+          else torch.as_tensor(w, dtype=torch.float32,
+                               device=resolve_device(device))
+          for w in weights]
     spike_train = torch.as_tensor(spike_train, dtype=torch.float32,
                                   device=ws[0].device)
     T = int(spike_train.shape[0])

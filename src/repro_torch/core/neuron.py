@@ -35,10 +35,14 @@ class LIFState(NamedTuple):
 
 def init_state(n: int, batch: tuple[int, ...] = (), device=None
                ) -> LIFState:
+    """Zero state on `device` (default: the card, see
+    `repro_torch.resolve_device`)."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
     shape = tuple(batch) + (n,)
-    return LIFState(v=torch.zeros(shape, dtype=torch.float32, device=device),
-                    elapsed=torch.zeros(shape, dtype=torch.int32,
-                                        device=device))
+    return LIFState(v=torch.zeros(shape, dtype=torch.float32, device=dev),
+                    elapsed=torch.zeros(shape, dtype=torch.int32, device=dev))
 
 
 def lif_step(state: LIFState, current: torch.Tensor, p: LIFParams,

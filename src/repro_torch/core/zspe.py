@@ -13,6 +13,23 @@ import dataclasses
 
 import torch
 
+
+def zspe_matmul(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Spike-driven synaptic integration: (B, n_pre) {0,1} x (n_pre, n_post).
+
+    Zero-skip is a *performance* feature; semantics are the plain product
+    (the zspe kernel, kernels/zspe_spmm.py, must match it).
+    """
+    return spikes.to(weights.dtype) @ weights
+
+
+def zspe_matmul_q(spikes: torch.Tensor, q) -> torch.Tensor:
+    """`zspe_matmul` against a `QuantizedTensor`'s dequantized weights."""
+    from repro_torch.core.quant import dequantize
+
+    return zspe_matmul(spikes, dequantize(q))
+
+
 SPIKE_WORD_BITS = 16
 
 

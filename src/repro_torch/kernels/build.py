@@ -96,5 +96,46 @@ def library(name: str) -> ctypes.CDLL:
         job = _start(name)
         if job is not None:
             _finish(name, *job)
-        _loaded[name] = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(_target(name)))
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def check_operands(name: str, *specs) -> "torch.device":
+    """Validate what a kernel takes.  Each spec is (tensor, dtype or tuple
+    of dtypes, what); every tensor must have an allowed dtype, lie on the
+    first one's device and be contiguous.  Returns that device, which
+    decides the path: "cpu" runs the plain version, "cuda" the kernel, and
+    any other device raises."""
+    dev = specs[0][0].device
+    for t, dtypes, what in specs:
+        dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {what} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {what} on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return dev
+
+
+def launch(name: str, fn: str, argtypes: list, *args) -> None:
+    """Call the C launch function `fn` of `csrc/<name>.cu` (which returns a
+    `cudaError_t`), binding its argument types on first use; raises with
+    CUDA's message when the launch failed.  Every pointer and the stream
+    are `c_void_p`, or ctypes would pass them as 32-bit ints."""
+    lib = library(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    err = f(*args)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn}: launch failed: {msg}")

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.core.zspe import SPIKE_WORD_BITS, words_as_int32
+from repro_torch.kernels.build import check_operands, launch
 
 launches = {"fused_timestep_codebook": 0, "fused_timestep_dense": 0}
 
@@ -116,29 +117,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "fused_timestep_codebook_launch": [_P] * 9 + [_I] * 4 + [_F] * 3
+    "fused_timestep_codebook": [_P] * 9 + [_I] * 4 + [_F] * 3
     + [_I, _I, _P],
-    "fused_timestep_dense_launch": [_P] * 8 + [_I] * 3 + [_F] * 3
+    "fused_timestep_dense": [_P] * 8 + [_I] * 3 + [_F] * 3
     + [_I, _I, _P],
 }
 
 
-def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import library
-
-    lib = library("fused_timestep")
-    if not getattr(lib, "_argtypes_set", False):
-        for fn, argtypes in _ARGTYPES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.fused_timestep_error_string.argtypes = [ctypes.c_int]
-        lib.fused_timestep_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
-
-
 def _check(name, packed, w0, cbw, v, elapsed):
-    """Validate what the kernel takes; returns (m, kw, n)."""
+    """Validate what the kernel takes; returns (m, kw, n, device)."""
     if packed.dim() != 2 or v.dim() != 2 or elapsed.shape != v.shape:
         raise ValueError(f"{name}: packed (M, Kw), v and elapsed (M, N) "
                          f"expected; got {tuple(packed.shape)}, "
@@ -149,7 +136,7 @@ def _check(name, packed, w0, cbw, v, elapsed):
         raise ValueError(f"{name}: weights must be ({kw * SPIKE_WORD_BITS}, "
                          f"{n}) for packed {tuple(packed.shape)}, v "
                          f"{tuple(v.shape)}; got {tuple(w0.shape)}")
-    want = [(packed, torch.uint16, "packed"), (v, torch.float32, "v"),
+    want = [(v, torch.float32, "v"), (packed, torch.uint16, "packed"),
             (elapsed, torch.int32, "elapsed"),
             (w0, torch.int8 if cbw is not None else torch.float32,
              "idx" if cbw is not None else "weights")]
@@ -158,21 +145,14 @@ def _check(name, packed, w0, cbw, v, elapsed):
         if cbw.dim() != 2 or cbw.shape[1] != n:
             raise ValueError(f"{name}: cbw must be (L, {n}); got "
                              f"{tuple(cbw.shape)}")
-    dev = v.device
-    for t, dtype, what in want:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"{name}: {what} on {t.device}, v on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
-    return m, kw, n
+    dev = check_operands(name, *want)
+    return m, kw, n, dev
 
 
 def _run(name, packed, w0, cbw, v, elapsed, threshold, leak, reset,
          partial_update, all_nonzero):
-    m, kw, n = _check(name, packed, w0, cbw, v, elapsed)
-    if v.device.type == "cpu":
+    m, kw, n, dev = _check(name, packed, w0, cbw, v, elapsed)
+    if dev.type == "cpu":
         vo, eo, sp, tc, nnz, ew = fused_timestep_plain(
             packed, w0, cbw, v, elapsed, threshold=threshold, leak=leak,
             reset=reset, partial_update=partial_update,
@@ -180,13 +160,10 @@ def _run(name, packed, w0, cbw, v, elapsed, threshold, leak, reset,
         v.copy_(vo)
         elapsed.copy_(eo)
         return v, elapsed, sp, tc, nnz, ew
-    if v.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {v.device}")
     spikes = torch.empty_like(v)
     touched = torch.empty_like(elapsed)
     nnz = torch.empty((m, 1), dtype=torch.int32, device=v.device)
     ew = torch.empty((m, 1), dtype=torch.int32, device=v.device)
-    lib = _lib()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     head = [packed.data_ptr(), w0.data_ptr()]
     if cbw is not None:
@@ -197,10 +174,7 @@ def _run(name, packed, w0, cbw, v, elapsed, threshold, leak, reset,
         tail.append(int(cbw.shape[0]))
     tail += [float(threshold), float(leak), float(reset),
              int(bool(partial_update)), int(bool(all_nonzero)), stream]
-    err = getattr(lib, f"{name}_launch")(*head, *tail)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed: "
-                           f"{lib.fused_timestep_error_string(err).decode()}")
+    launch("fused_timestep", f"{name}_launch", _ARGTYPES[name], *head, *tail)
     launches[name] += 1
     return v, elapsed, spikes, touched, nnz, ew
 

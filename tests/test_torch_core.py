@@ -172,5 +172,12 @@ def test_touch_mask_and_init_state():
     np.testing.assert_array_equal(
         N.touch_mask(torch.as_tensor(s), torch.as_tensor(nz)).numpy(),
         np.asarray(REF_N.touch_mask(jnp.asarray(s), jnp.asarray(nz))))
-    st = N.init_state(5, (2,))
+    st = N.init_state(5, (2,), device="cpu")
     assert st.v.shape == (2, 5) and st.elapsed.dtype == torch.int32
+
+
+def test_init_state_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        N.init_state(5, (2,))

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on the card: each fused-timestep kernel against
-its plain version at small shapes, and a fused run counting its launches.
+"""The port's CUDA kernels on the card: each kernel (fused timestep,
+zspe_spmm, codebook_matmul, lif_update) against its plain version at small
+shapes, the padded `ops.fused_timestep` against itself on the CPU, and a
+fused run counting its launches.
 Marked `cuda`; every test skips without a card.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -83,6 +85,47 @@ def test_kernel_matches_plain(dev, codebook, density, all_nonzero,
                                rtol=V_RTOL)
 
 
+@pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
+@pytest.mark.parametrize("block", [None, (8, 128)], ids=["whole", "block"])
+def test_ops_fused_timestep_matches_plain(dev, codebook, block):
+    """The padded entry point on the card (K to whole spike words, M and N
+    to the block) against the same entry point on the CPU."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(11)
+    m, k, n = 9, 200, 300
+    s = (rng.random((m, k)) < 0.3).astype(np.float32)
+    cb = np.sort(rng.normal(0, 0.3, 16)).astype(np.float32)
+    cb[np.argmin(np.abs(cb))] = 0.0
+    idx = rng.integers(0, 16, (k, n)).astype(np.int8)
+    table = np.broadcast_to(cb[:, None], (16, n)).copy()
+    v = rng.normal(0.5, 0.5, (m, n)).astype(np.float32)
+    el = rng.integers(0, 6, (m, n)).astype(np.int32)
+    cpu = [torch.tensor(x) for x in (s, idx if codebook else cb[idx], v, el)]
+    tb = torch.tensor(table) if codebook else None
+    card = [x.to(dev) for x in cpu]
+
+    name = "fused_timestep_codebook" if codebook else "fused_timestep_dense"
+    before = dict(FT.launches)
+    got = ops.fused_timestep(*card, block=block,
+                             codebook=None if tb is None else tb.to(dev))
+    torch.cuda.synchronize()
+    assert FT.launches == {**before, name: before[name] + 1}
+    assert torch.equal(card[2].cpu(), cpu[2])       # v, elapsed not written
+    assert torch.equal(card[3].cpu(), cpu[3])
+    want = ops.fused_timestep(*cpu, codebook=tb, block=block)
+    got = [t.cpu() for t in got]
+    for i in (1, 3, 4, 5):
+        assert torch.equal(got[i], want[i]), i
+    v_int = torch.tensor(v * 0.9 ** (el + 1).astype(np.float32)
+                         + s @ cb[idx])
+    flip = got[2] != want[2]
+    assert not bool((flip & ~(((v_int - 1.0).abs() < TIE)
+                              & (want[3] > 0))).any())
+    torch.testing.assert_close(got[0][~flip], want[0][~flip], atol=V_ATOL,
+                               rtol=V_RTOL)
+
+
 def test_fused_run_counts_launches(dev):
     from repro_torch import ChipSimulator, CodebookConfig
 
@@ -101,3 +144,74 @@ def test_fused_run_counts_launches(dev):
         assert sum(FT.launches.values()) == 5 * 2
         assert counts.device.type == "cuda" and counts.shape == (4, 10)
         assert all(np.isfinite(r.energy_pj) for r in reports)
+
+
+# ---------------------------------------------------------------------------
+# the kernel API's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,block", [(100, 300, 50, (64, 128, 32)),
+                                         (9, 40, 130, (8, 32, 128)),
+                                         (128, 256, 128, (64, 64, 64))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8],
+                         ids=["f32", "int8"])
+def test_zspe_spmm_matches_plain(dev, m, k, n, block, dtype):
+    from repro_torch.kernels import zspe_spmm as ZS
+
+    rng = np.random.default_rng(m + k + n)
+    s = (rng.random((m, k)) < 0.05).astype(np.float32)
+    s[:, : k // 2] = 0                        # empty tiles beside busy ones
+    st = torch.tensor(s, device=dev).to(dtype)
+    w = torch.tensor(rng.normal(0, 1, (k, n)).astype(np.float32), device=dev)
+    before = ZS.launches["zspe_spmm"]
+    out, skipped = ZS.zspe_spmm(st, w, block=block)
+    torch.cuda.synchronize()
+    assert ZS.launches["zspe_spmm"] == before + 1
+    want, want_skipped = ZS.zspe_spmm_plain(st, w, block)
+    assert int(want_skipped.sum()) > 0
+    assert torch.equal(skipped, want_skipped)
+    torch.testing.assert_close(out, want, atol=V_ATOL, rtol=V_RTOL)
+
+
+@pytest.mark.parametrize("m,k,n,levels", [(1, 1, 1, 4), (37, 200, 180, 8),
+                                          (130, 70, 3, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_codebook_matmul_matches_plain(dev, m, k, n, levels, dtype):
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    rng = np.random.default_rng(m + k + n)
+    x = torch.tensor(rng.normal(0, 1, (m, k)).astype(np.float32),
+                     device=dev).to(dtype)
+    idx = torch.tensor(rng.integers(0, levels, (k, n)).astype(np.int8),
+                       device=dev)
+    cb = torch.tensor(np.sort(rng.normal(0, 1, levels)).astype(np.float32),
+                      device=dev)
+    out = CBM.codebook_matmul(x, idx, cb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, CBM.codebook_matmul_plain(x, idx, cb),
+                               atol=V_ATOL, rtol=V_RTOL)
+
+
+def test_lif_update_matches_plain(dev):
+    from repro_torch.kernels import lif_update as LU
+
+    rng = np.random.default_rng(5)
+    shape = (37, 300)
+    v = torch.tensor(rng.normal(0.3, 0.6, shape).astype(np.float32),
+                     device=dev)
+    el = torch.tensor(rng.integers(0, 40, shape).astype(np.int32), device=dev)
+    cur = rng.normal(0, 1.5, shape).astype(np.float32)
+    cur[rng.random(shape) < 0.5] = 0.0
+    cur[rng.random(shape) < 0.1] = -0.0
+    cur = torch.tensor(cur, device=dev)
+    got = LU.lif_update(v, el, cur, threshold=1.0, leak=0.9)
+    torch.cuda.synchronize()
+    want = LU.lif_update_plain(v, el, cur, threshold=1.0, leak=0.9, reset=0.0)
+    for i in (1, 3):
+        assert torch.equal(got[i], want[i]), i
+    v_int = v * 0.9 ** (el + 1).float() + cur
+    flip = got[2] != want[2]
+    assert not bool((flip & ((v_int - 1.0).abs() >= TIE)).any())
+    torch.testing.assert_close(got[0][~flip], want[0][~flip], atol=V_ATOL,
+                               rtol=V_RTOL)

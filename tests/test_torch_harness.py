@@ -98,7 +98,7 @@ def min_tie_margin(weights, lif, trains) -> float:
     ws = [torch.tensor(np.asarray(w, np.float32)) for w in weights]
     trains = torch.tensor(np.asarray(trains, np.float32))
     B, T, _ = trains.shape
-    states = [init_state(int(w.shape[1]), (B,)) for w in ws]
+    states = [init_state(int(w.shape[1]), (B,), device="cpu") for w in ws]
     margin = np.inf
     for t in range(T):
         spikes = trains[:, t]

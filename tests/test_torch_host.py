@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -139,7 +140,20 @@ def test_measure_spike_rates_match():
     ws = [rng.normal(0, 0.5, (48, 64)).astype(np.float32),
           rng.normal(0, 0.5, (64, 16)).astype(np.float32)]
     train = (rng.random((6, 48)) < 0.3).astype(np.float32)
-    got = CC.measure_spike_rates(ws, train)
+    got = CC.measure_spike_rates(ws, train, device="cpu")
     want = REF_CC.measure_spike_rates([jax.numpy.asarray(w) for w in ws],
                                       train)
     assert got == want
+
+
+def test_measure_spike_rates_defaults_to_the_card():
+    from repro_torch import compiler as CC
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    ws = [np.ones((4, 3), np.float32)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CC.measure_spike_rates(ws, np.ones((2, 4), np.float32))
+    # tensors stay on the device they lie on
+    got = CC.measure_spike_rates([torch.ones(4, 3)], np.ones((2, 4)))
+    assert got == CC.measure_spike_rates(ws, np.ones((2, 4)), device="cpu")
