@@ -20,7 +20,9 @@ Phases, each of which must pass:
    with M = 32 (one step), 200 (edge row tiles) and 32 x 20 = 640 rows
    (a whole run; spike densities 0, 0.02, 0.10, 1.0 and a
    tile-structured case; Gaussian f32 and bf16 x for the codebook
-   product; (M, N) LIF states), and their times at M = 32 and 640;
+   product; (M, N) LIF states), and their times at M = 32 and 640.  The
+   two products are held against the plain product in f64, which they
+   compute (f64 sums, one rounding), not against an f32 matmul's rounding;
 4. main path — `ChipSimulator(quantize(ARCH weights), engine="fused")
    .run_batch` at B=32, T=20, Bernoulli(0.10) input: exactly 60
    codebook-kernel launches, spike totals per layer within 0.1% and
@@ -30,12 +32,25 @@ Phases, each of which must pass:
    `kernels.ops` calls at B=32, T=20: (a) `zspe_spmm` of the dequantized
    weights then `lif_update`, (b) the same with `codebook_matmul` of the
    indexes, (c) the padded `fused_timestep` of the indexes: exactly 60
-   launches of each kernel per loop; every layer-step's current and LIF
-   outputs held against the plain versions on the same inputs (loop (c)
+   launches of each kernel per loop; every layer-step's current (against
+   the f64 product) and LIF outputs held against the plain versions on the
+   same inputs (loop (c)
    against `ops.fused_timestep` on the CPU); spike totals per layer
    within 0.1% of the same loop on the plain versions (a, b) and of each
    other; one `codebook_matmul` backward at layer 1 against plain
-   autograd; ms per loop and the card's idle share.
+   autograd; ms per loop and the card's idle share;
+6. LM serving path — (a) the flash-attention kernel against its plain
+   version (B 2, H 8, S = T in {128, 1024}, hd 16 / 64 / 128, group 1
+   and 4, causal and not, f32 and bf16, plus the served shape B 4, H 32,
+   KV 8, S = T = 512, hd 64, bf16) and timed at the served shape beside
+   `scaled_dot_product_attention`; (b) `Server` on granite-3-2b ARCH
+   (40 layers, d 2048, bf16, random weights from --seed): 8 requests of
+   512 prompt tokens, 4 slots, 16 new tokens each, exactly 80 flash
+   launches (2 prefill batches x 40 layers), tokens/s, prefill and decode
+   ms, peak memory, the idle share over one batch; (c) last-token logits of a 512-token
+   prefill (flash route) against a 511-token prefill plus one decode step
+   (plain route), and every layer's flash call of that prefill against
+   the plain version on the same q / k / v.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
@@ -162,6 +177,17 @@ def _assert_close(what: str, got, want) -> float:
     if bool((d > V_ATOL + V_RTOL * want.float().abs()).any()):
         raise AssertionError(f"{what}: off by up to {float(d.max())}")
     return float(d.max()) if d.numel() else 0.0
+
+
+def _exact_product(x, w):
+    """The plain product x @ w in f64, where the inputs are exact: what
+    the zspe and codebook kernels compute, since they sum in f64 and round
+    once.  Their plain versions' f32 matmul rounds over up to K = 4096
+    terms, and that rounding moves from run to run with the codebook the
+    card's k-means finds (its `index_add_` adds in no fixed order): on an
+    H100 it reached 1.47e-05 at M=640 K=4096 N=1024 density 1.0, past
+    V_ATOL + V_RTOL * |want|."""
+    return x.double() @ w.double()
 
 
 def check_step(what: str, got, want, ints: dict, v_int, threshold=1.0,
@@ -418,7 +444,7 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
                 for sd in ((s, s.to(torch.int8)) if density == TIME_DENSITY
                            else (s,)):
                     out, skipped = ZS.zspe_spmm(sd, w, block=block)
-                    want, want_skipped = ZS.zspe_spmm_plain(sd, w, block)
+                    _, want_skipped = ZS.zspe_spmm_plain(sd, w, block)
                     torch.cuda.synchronize()
                     if not torch.equal(skipped, want_skipped):
                         raise AssertionError(f"zspe_spmm {desc}: skip "
@@ -427,7 +453,8 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
                         raise AssertionError(f"zspe_spmm {desc}: no tile "
                                              f"skipped")
                     err["zspe_spmm"] = max(err["zspe_spmm"], _assert_close(
-                        f"zspe_spmm {desc} {sd.dtype}", out, want))
+                        f"zspe_spmm {desc} {sd.dtype}", out,
+                        _exact_product(sd, w)))
                     n_cases["zspe_spmm"] += 1
                 gauss = torch.as_tensor(
                     rng.normal(0, 1, s.shape).astype(np.float32), device=dev)
@@ -435,7 +462,7 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
                       if density == TIME_DENSITY else (s,))
                 for x in xs:
                     got = CBM.codebook_matmul(x, idx, cb)
-                    want = CBM.codebook_matmul_plain(x, idx, cb)
+                    want = _exact_product(x, CBM.dequantize(idx, cb))
                     torch.cuda.synchronize()
                     err["codebook_matmul"] = max(
                         err["codebook_matmul"],
@@ -732,6 +759,10 @@ def api_path(arch, qws, seed: int) -> dict:
                                                       blocks[li])[0],
         "codebook_matmul": lambda li, s: CBM.codebook_matmul_plain(
             s, qws[li].idx, qws[li].codebook[0])}
+    exact_weights = {
+        "zspe_spmm": ws,
+        "codebook_matmul": [CBM.dequantize(q.idx, q.codebook[0])
+                            for q in qws]}
 
     def fused(li, s, v, el, on=None):
         idx, table = (qws[li].idx, tables[li]) if on is None else on[li]
@@ -765,7 +796,7 @@ def api_path(arch, qws, seed: int) -> dict:
                               _lif_v_int(v, el, s @ ws[li], arch.leak),
                               arch.threshold, touched=want[3])
         err = _assert_close(f"{what} current", cur,
-                            plain_currents[name](li, s))
+                            _exact_product(s, exact_weights[name][li]))
         want = LU.lif_update_plain(v, el, cur, **lif)
         return max(err, check_step(what, got, want, LIF_INTS,
                                    _lif_v_int(v, el, cur, arch.leak),
@@ -869,6 +900,260 @@ def api_path(arch, qws, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the LM serving path
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "granite-3-2b"       # configs/granite_3_2b.py ARCH, full width
+LM_SLOTS = 4
+LM_REQUESTS = 8
+LM_PROMPT = 512
+LM_NEW = 16
+LM_CACHE = 640
+FLASH_F32_TOL = 2e-5           # online vs one-pass softmax: abs + rel
+FLASH_BF16_TOL = 2e-2          # p and the output rounded to bf16: abs
+H100_BF16_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+# Last-token logits of one bf16 prefill over 512 tokens (flash route)
+# against a prefill over 511 plus one decode step (plain SDPA): the two
+# round in other places (GEMM shapes, flash vs one-pass softmax, each
+# rounded to bf16) through 40 layers.  Logits are O(1) to O(4), where a
+# bf16 ulp is 2^-7 to 2^-5; the bound allows a few ulp at the top.
+LM_LOGIT_TOL = 0.125
+
+
+def _flash_case(rng, b, h, kv, s, t, hd, dtype, dev):
+    import torch
+
+    return [torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                            device=dev).to(dtype)
+            for shape in ((b, h, s, hd), (b, kv, t, hd), (b, kv, t, hd))]
+
+
+def _flash_diff(got, want) -> float:
+    """Max |got - want|; raises beyond the tolerance of the input type."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        bad = d > FLASH_F32_TOL + FLASH_F32_TOL * want.float().abs()
+    else:
+        bad = d > FLASH_BF16_TOL
+    if bool(bad.any()):
+        raise AssertionError(f"flash_attention {tuple(got.shape)} "
+                             f"{got.dtype}: off by up to {float(d.max())}")
+    return float(d.max())
+
+
+def _flash_bound(q, k, causal: bool) -> tuple[float, str]:
+    """q, k, v read once and o written once, or the score and PV products
+    of the pairs the mask keeps at the tensor-core rate of the type."""
+    b, h, s, hd = q.shape
+    t = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    pairs = sum(min(r + 1, t) for r in range(s)) if causal else s * t
+    ops = 4 * b * h * pairs * hd
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    rate = H100_BF16_PER_S if q.element_size() == 2 else H100_F32_PER_S
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_kernel_phase(seed: int) -> dict:
+    """The flash kernel against its plain version over the cases, then
+    timed at the served prefill shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 6)
+    cfg_shape = (4, 32, 8, LM_PROMPT, LM_PROMPT, 64)    # B H KV S T hd
+    cases = [(cfg_shape, torch.bfloat16, True)]
+    for s in (128, 1024):
+        for hd in (16, 64, 128):
+            for group in (1, 4):
+                for causal in (True, False):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        cases.append(((2, 8, 8 // group, s, s, hd), dtype,
+                                      causal))
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape, dtype, causal in cases:
+        q, k, v = _flash_case(rng, *shape, dtype, dev)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err[dtype] = max(err[dtype], _flash_diff(got, want))
+    log(f"kernel flash_attention: {len(cases)} cases agree, max |diff| "
+        f"f32 {err[torch.float32]:.3g} (tolerance {FLASH_F32_TOL} abs + "
+        f"rel), bf16 {err[torch.bfloat16]:.3g} (tolerance "
+        f"{FLASH_BF16_TOL} abs)")
+
+    q, k, v = _flash_case(rng, *cfg_shape, torch.bfloat16, dev)
+    bound, by = _flash_bound(q, k, True)
+    res = {"max_abs_err": max(err.values()),
+           "ms": _time_graph_ms(lambda: FA.flash_attention(q, k, v)),
+           "plain_ms": _time_eager_ms(
+               lambda: FA.flash_attention_plain(q, k, v)),
+           "library_ms": _time_graph_ms(
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True)),
+           "bound_ms": bound, "bound_by": by}
+    log(f"kernel flash_attention at the served shape (B, H, KV, S, T, hd) = "
+        f"{cfg_shape} bf16 causal: {json.dumps(res)}")
+    return res
+
+
+def _serve_once(cfg, model, prompts, instrument=None):
+    """One `Server.run` over fresh requests; `instrument` maps "prefill" /
+    "decode" to lists that receive each call's host-clock ms (each call
+    synchronised on both sides)."""
+    import torch
+
+    from repro_torch.serve.server import Request, Server
+
+    srv = Server(cfg, model, device=DEVICE, batch_slots=LM_SLOTS,
+                 cache_len=LM_CACHE)
+    if instrument is not None:
+        def timed(fn, key):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                instrument[key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+        srv.prefill = timed(srv.prefill, "prefill")
+        srv.decode = timed(srv.decode, "decode")
+    for uid, p in enumerate(prompts):
+        srv.submit(Request(uid=uid, prompt=p, max_new_tokens=LM_NEW))
+    return srv.run()
+
+
+def serving_path(seed: int) -> dict:
+    """granite-3-2b at full width, bf16, random weights from the port's
+    init: 8 requests of 512 prompt tokens through a 4-slot `Server`, 16
+    new tokens each; then prefill + decode held against a prefill over
+    one more token, and every layer's flash call against the plain
+    version on the same q / k / v."""
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import transformer as T
+
+    dev = torch.device(DEVICE)
+    cfg = R.get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    norms = 2 * cfg.d_model * cfg.n_layers    # not in the analytic count
+    if n_params != cfg.param_count() + norms:
+        raise AssertionError(f"{n_params} parameters, ArchConfig says "
+                             f"{cfg.param_count()} + {norms} norm weights")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    _serve_once(cfg, model, prompts[:LM_SLOTS])          # warm up
+    torch.cuda.synchronize()
+
+    # (b) the served run: the counts from 0 just before, read just after.
+    # Each prefill / decode call is timed between two synchronisations;
+    # the server crosses to the host after each call anyway, so the run's
+    # wall time is the same as without them.
+    torch.cuda.reset_peak_memory_stats()
+    phase = {"prefill": [], "decode": []}
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    done = _serve_once(cfg, model, prompts, phase)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(FA.launches)
+    want = -(-LM_REQUESTS // LM_SLOTS) * cfg.n_layers
+    if launches != {"flash_attention": want}:
+        raise AssertionError(f"served run launches {launches}, expected "
+                             f"{want} flash launches")
+    toks = [r.out_tokens for r in done]
+    if len(done) != LM_REQUESTS or any(
+            len(t) != LM_NEW or min(t) < 0 or max(t) >= cfg.vocab
+            for t in toks):
+        raise AssertionError(f"bad served tokens {toks}")
+    n_tok = sum(len(t) for t in toks)
+    perf = {"tokens_per_s": n_tok / wall, "ms_per_run": wall * 1e3,
+            "tokens": n_tok, "launches": launches,
+            "prefill_ms_per_batch": statistics.median(phase["prefill"]),
+            "decode_ms_per_step": statistics.median(phase["decode"]),
+            "prefill_batches": len(phase["prefill"]),
+            "decode_steps": len(phase["decode"]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "init_s": init_s, "n_params": n_params}
+    log(f"served run: {LM_REQUESTS} requests x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each, {LM_SLOTS} slots: {json.dumps(perf)}; first "
+        f"tokens {[t[:4] for t in toks[:2]]}")
+    # the device breakdown of one batch (a prefill and its decode steps),
+    # against the same batch unprofiled: the profiler's own host cost
+    # grows with the ~5,000 ops of every decode step
+    batch = prompts[:LM_SLOTS]
+    t0 = time.perf_counter()
+    _serve_once(cfg, model, batch)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    perf.update(batch_ms=batch_ms, **_device_breakdown(
+        lambda: _serve_once(cfg, model, batch), batch_ms,
+        (("flash_kernel_ms", "flash_attention_kernel"),)))
+
+    # (c) the path held together at full width
+    tokens = torch.as_tensor(np.stack(prompts[:LM_SLOTS]), device=dev)
+    flash = ATT.flash_attention
+    layer_err = []
+
+    def checked(q, k, v, *, causal=True):
+        out = flash(q, k, v, causal=causal)
+        layer_err.append(_flash_diff(
+            out, FA.flash_attention_plain(q, k, v, causal)))
+        return out
+
+    ATT.flash_attention = checked
+    try:
+        full, _ = T.forward_prefill(model, cfg, {"tokens": tokens}, LM_CACHE)
+    finally:
+        ATT.flash_attention = flash
+    if len(layer_err) != cfg.n_layers:
+        raise AssertionError(f"{len(layer_err)} flash calls in one prefill")
+    log(f"every layer's flash call agrees with the plain version on its "
+        f"q / k / v (max |diff| {max(layer_err):.3g})")
+    FA.reset_launches()
+    _, st = T.forward_prefill(model, cfg,
+                              {"tokens": tokens[:, :LM_PROMPT - 1]}, LM_CACHE)
+    got, st = T.forward_decode(model, cfg, st, tokens[:, LM_PROMPT - 1:])
+    torch.cuda.synchronize()
+    if FA.launches["flash_attention"] != 0:
+        raise AssertionError("prefill over 511 tokens took the flash route")
+    full, got = full.float(), got.float()
+    if not (bool(full.isfinite().all()) and full.shape == (LM_SLOTS,
+                                                           cfg.vocab)):
+        raise AssertionError(f"bad logits {tuple(full.shape)}")
+    diff = float((full - got).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flipped = full.argmax(-1) != got.argmax(-1)
+    log(f"prefill(512) vs prefill(511) + decode: max |logit diff| {diff:.4g} "
+        f"(tolerance {LM_LOGIT_TOL}, logits up to "
+        f"{float(full.abs().max()):.3g}); greedy tokens differ in "
+        f"{int(flipped.sum())} of {LM_SLOTS} rows; top-2 gaps "
+        f"{[round(float(g), 4) for g in gap]}")
+    if diff > LM_LOGIT_TOL:
+        raise AssertionError(f"prefill and decode logits differ by {diff}")
+    if bool((flipped & (gap >= LM_LOGIT_TOL)).any()):
+        raise AssertionError("a greedy token differs away from a near-tie")
+    perf.update(layer_max_abs_err=max(layer_err), decode_logit_diff=diff)
+    return perf
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -916,12 +1201,21 @@ def main() -> int:
     # 5. kernel-API path
     api = api_path(ARCH, qws, args.seed)
 
-    # kernels line, then the result; launches from phase 4 (fused) and
-    # phase 5 (kernel API, all three loops)
+    # 6. LM serving path
+    t0 = time.perf_counter()
+    kern["flash_attention"] = flash_kernel_phase(args.seed)
+    t1 = time.perf_counter()
+    lm = serving_path(args.seed)
+    log(f"LM serving phase: {time.perf_counter() - t0:.1f} s (kernel "
+        f"checks {t1 - t0:.1f} s)")
+
+    # kernels line, then the result; launches from phase 4 (fused), phase
+    # 5 (kernel API, all three loops) and phase 6 (the served run)
     launches = dict(mp["launches"])
     for loop in api.values():
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
+    launches.update(lm["launches"])
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {
         "fused_timestep_codebook": ("fused_timestep.cu",
@@ -929,7 +1223,8 @@ def main() -> int:
         "fused_timestep_dense": ("fused_timestep.cu", "fused_timestep.py:266"),
         "lif_update": ("lif_update.cu", "lif_update.py:47"),
         "zspe_spmm": ("zspe_spmm.cu", "zspe_spmm.py:61"),
-        "codebook_matmul": ("codebook_matmul.cu", "codebook_matmul.py:62")}
+        "codebook_matmul": ("codebook_matmul.cu", "codebook_matmul.py:62"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:69")}
     line = {"kernels": [
         {"name": kname, "route": "cuda", "source": f"{csrc}/{src}",
          "replaces": f"src/repro/kernels/{rep}",

@@ -19,7 +19,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.core.quant import (CodebookConfig, QuantizedTensor,  # noqa: E402
                                     quantize)
 from repro_torch.core.soc import ChipSimulator  # noqa: E402
-from repro_torch.convert import convert  # noqa: E402
+from repro_torch.convert import convert, convert_lm  # noqa: E402
 
 __all__ = ["ChipSimulator", "CodebookConfig", "QuantizedTensor", "convert",
-           "quantize", "resolve_device"]
+           "convert_lm", "quantize", "resolve_device"]

@@ -1,0 +1,50 @@
+"""Architecture registry of the port: the reference's names, dense family.
+
+`get_arch` serves the four dense configs (copies of `repro.configs`); the
+other families' names are listed in `ARCH_NAMES` but raise
+`NotImplementedError` naming the ROADMAP item that ports them.
+`input_specs` (jax.ShapeDtypeStruct stand-ins for the dry run) has no
+counterpart: the port runs, it does not lower.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import SHAPES, ArchConfig, ShapeConfig
+
+_MODULES = {
+    "granite-3-8b": "granite_3_8b",
+    "mistral-large-123b": "mistral_large_123b",
+    "yi-9b": "yi_9b",
+    "granite-3-2b": "granite_3_2b",
+}
+
+# name -> the ROADMAP item (Queue 1) that brings its family to the port
+_NOT_PORTED = {
+    "moonshot-v1-16b-a3b": "#16 (moe family, models/moe.py)",
+    "granite-moe-1b-a400m": "#16 (moe family, models/moe.py)",
+    "zamba2-2.7b": "#17 (ssm and hybrid families, models/mamba2.py)",
+    "mamba2-130m": "#17 (ssm and hybrid families, models/mamba2.py)",
+    "whisper-tiny": "#18 (audio family: encoder, cross-attention)",
+    "phi-3-vision-4.2b": "#19 (vlm family: patch embeddings)",
+}
+
+ARCH_NAMES = ["moonshot-v1-16b-a3b", "granite-moe-1b-a400m", "zamba2-2.7b",
+              "granite-3-8b", "mistral-large-123b", "yi-9b", "granite-3-2b",
+              "mamba2-130m", "whisper-tiny", "phi-3-vision-4.2b"]
+
+
+def get_arch(name: str, smoke: bool = False) -> ArchConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name}: its family is not ported yet (ROADMAP Queue 1 "
+            f"{_NOT_PORTED[name]}); the port serves the dense configs "
+            f"{sorted(_MODULES)}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.SMOKE if smoke else mod.ARCH
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -4,6 +4,7 @@
 another package — so anything that can export its quantized tensors,
 mapping and register tables as arrays (the JAX reference, a checkpoint)
 hands the port the very same network, and both compute the same thing.
+`convert_lm` does the same for the LM's nested parameter dict.
 """
 from __future__ import annotations
 
@@ -71,3 +72,34 @@ def convert(layers: Sequence, mapping: Sequence[tuple] | None = None,
             k: (tuple(int(x) for x in v) if k == "codebook_words" else v)
             for k, v in fields.items()}) for fields in register_tables]
     return Converted(weights, mp, tables)
+
+
+def _lm_tensor(a, dev) -> torch.Tensor:
+    """One array as a tensor of the same type, bit for bit: a bf16 array
+    (`ml_dtypes.bfloat16`, which `torch.tensor` does not take) travels as
+    its 16-bit patterns through an int16 view."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def convert_lm(params: _Map, cfg, device=None):
+    """The port's `Transformer` from the reference's nested parameter dict
+    as numpy arrays: `embed`, `unembed`, `final_norm` and `blocks` of
+    stacked (L, ...) per-layer arrays.  Types are kept, bf16 included;
+    tensors go to `device` (default: the card)."""
+    from repro_torch.models.transformer import Transformer
+
+    dev = resolve_device(device)
+    blocks = params["blocks"]
+    counts = {name: len(arr) for name, arr in blocks.items()}
+    if set(counts.values()) != {cfg.n_layers}:
+        raise ValueError(f"stacked blocks {counts} do not hold "
+                         f"{cfg.n_layers} layers")
+    layers = [{name: _lm_tensor(arr[i], dev) for name, arr in blocks.items()}
+              for i in range(cfg.n_layers)]
+    return Transformer(cfg, _lm_tensor(params["embed"], dev),
+                       _lm_tensor(params["unembed"], dev),
+                       _lm_tensor(params["final_norm"], dev), layers)

@@ -1,6 +1,5 @@
 """Plain torch oracles of the Pallas kernels: the semantics each kernel
-must match.  Port of `repro.kernels.ref`; `flash_attention_ref` comes with
-the LM stack.
+must match.  Port of `repro.kernels.ref`.
 """
 from __future__ import annotations
 
@@ -54,3 +53,21 @@ def lif_update_ref(v: torch.Tensor, elapsed: torch.Tensor,
     v_new = torch.where(spikes > 0, torch.full_like(v, reset),
                         torch.where(has_input, v_int, v))
     return v_new, new_elapsed, spikes, has_input
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Oracle for kernels/flash_attention.py: plain SDPA, f32 softmax.
+
+    q/k/v: (B, H, S|T, hd) with kv heads pre-broadcast to H.
+    """
+    s, hd = q.shape[2], q.shape[3]
+    t = k.shape[2]
+    scores = (q.float() @ k.float().transpose(-1, -2)) / (hd ** 0.5)
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(s, device=q.device)[:, None])
+        scores = torch.where(mask[None, None], scores,
+                             torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return (probs @ v.float()).to(q.dtype)

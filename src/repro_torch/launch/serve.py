@@ -1,0 +1,80 @@
+"""Serving launcher: batched prefill + greedy decode on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --prompt-len 512 --cache-len 640
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --smoke --device cpu
+
+Port of `repro.launch.serve` with the same options, plus `--device`
+(the card unless "cpu" is asked for) and `--seed` (random weights from
+the port's init; prompts from numpy).
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--quant", action="store_true",
+                    help="serve with C3 codebook-quantized weights")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the CUDA card")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.server import Request, Server
+
+    if args.quant:
+        raise NotImplementedError("--quant (C3 codebook-quantized serving) "
+                                  "comes with quant/lm_quant.py, ROADMAP "
+                                  "Queue 1 #15")
+    dev = resolve_device(args.device)
+    cfg = R.get_arch(args.arch, smoke=args.smoke)
+    if args.smoke:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed))
+    srv = Server(cfg, params, device=dev, batch_slots=args.slots,
+                 cache_len=args.cache_len)
+
+    rng = np.random.default_rng(args.seed)
+    for uid in range(args.requests):
+        srv.submit(Request(
+            uid=uid,
+            prompt=rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32),
+            max_new_tokens=args.max_new))
+    if dev.type == "cuda":
+        build.library("flash_attention")     # compile before the clock
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = srv.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out_tokens) for r in done)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"served {len(done)} requests / {toks} tokens in {dt:.1f}s "
+          f"({toks/dt:.1f} tok/s) on {where}")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,193 @@
+"""Shared LM substrate: architecture configs, norms, RoPE, init.
+
+Port of `repro.models.common` for the dense serving path.  The reference's
+logical-axis specs feed its mesh sharding rules, which have no counterpart
+on one card, so `init_dense` / `init_ones` return plain tensors.
+`cross_entropy_loss` comes with LM training.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Architecture configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 1024   # tokens per dispatch group (mesh-TF style)
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    # hybrid (zamba2): one *shared* attention block every `attn_every` layers
+    attn_every: int = 0
+    # enc-dec (whisper): encoder layers + frame count from the stub frontend
+    enc_layers: int = 0
+    enc_frames: int = 1500
+    # vlm (phi-3-vision): patch embeddings from the stub CLIP frontend
+    n_patches: int = 0
+    # misc
+    rope_theta: float = 10000.0
+    sliding_window: int = 0      # 0 = full causal attention
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    # perf options (0/False = paper-faithful baseline)
+    attn_chunk: int = 0          # >0: query-chunked attention (flash-style)
+    kv_cache_dtype: Any = None   # e.g. torch.int8 for quantized KV cache
+    quant_serving: Any = False   # C3 codebook weights in decode: True|"4bit"
+    constrain_ffn_out: bool = False  # mesh sharding hint; no effect here
+    remat_policy: str = "nothing"    # training; no effect here
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic path exists (ssm / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    # --- derived sizes -----------------------------------------------------
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-flops in roofline)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        hd = self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        dense_mlp = 3 * d * ff
+        emb = v * d
+        if self.family == "moe":
+            moe = self.n_experts * 3 * d * ff + d * self.n_experts
+            total = self.n_layers * (attn + moe) + 2 * emb + d
+        elif self.family == "ssm":
+            total = self.n_layers * self._ssm_layer_params() + 2 * emb + d
+        elif self.family == "hybrid":
+            total = (self.n_layers * self._ssm_layer_params()
+                     + (attn + dense_mlp) + 2 * emb + d)  # one shared block
+        elif self.family == "audio":
+            enc = self.enc_layers * (attn + dense_mlp)
+            dec = self.n_layers * (2 * attn + dense_mlp)  # self + cross
+            total = enc + dec + 2 * emb + d
+        else:  # dense, vlm
+            total = self.n_layers * (attn + dense_mlp) + 2 * emb + d
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        hd = self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        act_moe = self.top_k * 3 * d * ff + d * self.n_experts
+        return int(self.n_layers * (attn + act_moe) + 2 * self.vocab * d + d)
+
+    def _ssm_layer_params(self) -> int:
+        d = self.d_model
+        d_in = self.ssm_expand * d
+        nh = d_in // self.ssm_head_dim
+        n = self.ssm_state
+        in_proj = d * (2 * d_in + 2 * n + nh)
+        out_proj = d_in * d
+        conv = (d_in + 2 * n) * self.ssm_conv
+        return in_proj + out_proj + conv + 2 * nh + d_in
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                   # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def init_dense(gen: torch.Generator, shape: tuple[int, ...], dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """Normal(0, scale) drawn in f32 on `gen`'s device, cast to `dtype`;
+    `scale` defaults to fan_in ** -0.5 (the reference's
+    `Initializer.dense`, one layer at a time instead of stacked)."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * std).to(dtype)
+
+
+def init_ones(gen: torch.Generator, shape: tuple[int, ...], dtype
+              ) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers (pure functions)
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd), positions: broadcastable to (..., S); f32
+    angles, split-halves layout."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, wi, wg, wo):
+    return ((x @ wi) * F.silu(x @ wg)) @ wo

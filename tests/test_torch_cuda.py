@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel (fused timestep,
-zspe_spmm, codebook_matmul, lif_update) against its plain version at small
-shapes, the padded `ops.fused_timestep` against itself on the CPU, and a
-fused run counting its launches.
+zspe_spmm, codebook_matmul, lif_update, flash_attention) against its plain
+version at small shapes, the padded `ops.fused_timestep` against itself on
+the CPU, a fused run and an LM prefill counting their launches.
 Marked `cuda`; every test skips without a card.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -215,3 +215,92 @@ def test_lif_update_matches_plain(dev):
     assert not bool((flip & ((v_int - 1.0).abs() >= TIE)).any())
     torch.testing.assert_close(got[0][~flip], want[0][~flip], atol=V_ATOL,
                                rtol=V_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+FLASH_F32_TOL = 2e-5    # online against one-pass softmax, f32
+FLASH_BF16_TOL = 2e-2   # p and the output rounded to bf16 in the kernel
+
+
+def _flash_inputs(dev, seed, b, h, kv, s, t, hd, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(0, 1, shape).astype(np.float32),
+                         device=dev).to(dtype)
+            for shape in ((b, h, s, hd), (b, kv, t, hd), (b, kv, t, hd))]
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_matches_plain(dev, hd, group, causal, dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(dev, hd + group, 2, 8, 8 // group, 256, 384, hd,
+                            dtype)
+    before = FA.launches["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = FA.flash_attention_plain(q, k, v, causal)
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    rtol = tol if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
+
+
+def test_flash_attention_counts_only_kernel_launches(dev):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(dev, 0, 1, 2, 2, 128, 128, 64, torch.bfloat16)
+    FA.reset_launches()
+    FA.flash_attention(q, k, v)
+    FA.flash_attention(q, k, v, causal=False)
+    FA.flash_attention_plain(q, k, v)
+    FA.flash_attention(q.cpu(), k.cpu(), v.cpu())     # plain version
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 2}
+
+
+def test_flash_attention_rejects_bad_operands(dev):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(dev, 1, 1, 2, 2, 256, 256, 64, torch.float32)
+    FA.reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v)
+    with pytest.raises(TypeError, match="q must be"):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="multiples of 128"):
+        FA.flash_attention(q[:, :, :200].contiguous(), k, v)
+    with pytest.raises(ValueError, match="head dim 48"):
+        FA.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    assert FA.launches == {"flash_attention": 0}
+
+
+def test_lm_prefill_takes_the_flash_kernel(dev):
+    """The SMOKE granite model at S = 256 launches the kernel once per
+    layer; decode at S = 1 takes the plain SDPA."""
+    import dataclasses
+
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch("granite-3-2b", smoke=True),
+                              dtype=torch.float32)
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    FA.reset_launches()
+    logits, st = T.forward_prefill(model, cfg, {"tokens": toks}, 264)
+    T.forward_decode(model, cfg, st, toks[:, :1])
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": cfg.n_layers}
+    assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all())
