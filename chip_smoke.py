@@ -7,7 +7,9 @@ Phases, each of which must pass:
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA source under src/repro_torch/kernels/csrc, one
-   `nvcc` each, all started together;
+   `nvcc` each, all started together; ptxas registers and spills per
+   kernel, and the flash library's SASS must hold `HGMMA` (wgmma) and
+   `UTMALDG` (TMA) instructions;
 3. kernels — each fused-timestep kernel against its plain torch version
    on the card, at the three layer shapes of the paper's network
    (configs/snn_chip.py ARCH: 2312-4096-1024-10) with a batch of 32, over
@@ -22,7 +24,11 @@ Phases, each of which must pass:
    tile-structured case; Gaussian f32 and bf16 x for the codebook
    product; (M, N) LIF states), and their times at M = 32 and 640.  The
    two products are held against the plain product in f64, which they
-   compute (f64 sums, one rounding), not against an f32 matmul's rounding;
+   compute (f64 sums, one rounding), not against an f32 matmul's rounding.
+   The codebook product also at the edges of its plan and lookup table:
+   int8 indexes outside [0, L) (negative ones, and 16 with L = 8) at the
+   three layer shapes with M = 32, and shapes whose K the split does not
+   divide (K = 1, 999, 1000, 4100; N = 10 and 37);
 4. main path — `ChipSimulator(quantize(ARCH weights), engine="fused")
    .run_batch` at B=32, T=20, Bernoulli(0.10) input: exactly 60
    codebook-kernel launches, spike totals per layer within 0.1% and
@@ -40,17 +46,19 @@ Phases, each of which must pass:
    other; one `codebook_matmul` backward at layer 1 against plain
    autograd; ms per loop and the card's idle share;
 6. LM serving path — (a) the flash-attention kernel against its plain
-   version (B 2, H 8, S = T in {128, 1024}, hd 16 / 64 / 128, group 1
-   and 4, causal and not, f32 and bf16, plus the served shape B 4, H 32,
-   KV 8, S = T = 512, hd 64, bf16) and timed at the served shape beside
-   `scaled_dot_product_attention`; (b) `Server` on granite-3-2b ARCH
-   (40 layers, d 2048, bf16, random weights from --seed): 8 requests of
-   512 prompt tokens, 4 slots, 16 new tokens each, exactly 80 flash
-   launches (2 prefill batches x 40 layers), tokens/s, prefill and decode
-   ms, peak memory, the idle share over one batch; (c) last-token logits of a 512-token
-   prefill (flash route) against a 511-token prefill plus one decode step
-   (plain route), and every layer's flash call of that prefill against
-   the plain version on the same q / k / v.
+   version (B 2, H 8, S = T in {128, 1024}, hd 16 / 32 / 64 / 128, group
+   1 and 4, causal and not, f32 and bf16; T > S and S > T causal; the
+   served shape B 4, H 32, KV 8, S = T = 512, hd 64, bf16, and
+   granite-3-8b's, the same with hd 128) and timed at both beside
+   `scaled_dot_product_attention` (the kernels line reports the served
+   one); (b) `Server` on granite-3-2b ARCH (40 layers, d 2048, bf16,
+   random weights from --seed): 8 requests of 512 prompt tokens, 4 slots,
+   16 new tokens each, exactly 80 flash launches (2 prefill batches x 40
+   layers), every one on the tensor-core kernel, tokens/s, prefill and
+   decode ms, peak memory, the idle share over one batch; (c) last-token
+   logits of a 512-token prefill (flash route) against a 511-token
+   prefill plus one decode step (plain route), and every layer's flash
+   call of that prefill against the plain version on the same q / k / v.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
@@ -410,6 +418,46 @@ def _time_api_case(m, k, n, kern, plain, lib, bound) -> dict:
             "bound_ms": b, "bound_by": by}
 
 
+# (M, K, N) of the codebook product's plan edges: K = 1 (one stage, no
+# split), K = 1000 and 4100 (the split's last block takes a shorter
+# slice), K = 999 and N = 37 (rows not 16-byte aligned: element loads)
+CODEBOOK_EDGE_SHAPES = ((BATCH, 1, 64), (BATCH, 1000, 10), (BATCH, 4100, 1024),
+                        (RAGGED_ROWS, 999, 37))
+
+
+def _codebook_edge_cases(rng, arch, dev) -> tuple[float, int]:
+    """The codebook kernel at the edges of its lookup table and its plan,
+    against the f64 product: int8 indexes drawn from [-20, 20] with an
+    8-level codebook (negative bytes and 8..20 contribute 0) at the ARCH
+    layer shapes with M = 32, and CODEBOOK_EDGE_SHAPES with 16 levels;
+    Gaussian x in f32 and bf16, levels at the ARCH scale N(0, 2/sqrt(K))."""
+    import torch
+
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    sizes = arch.layer_sizes
+    cases = [((BATCH, sizes[i], sizes[i + 1]), 8, (-20, 21))
+             for i in range(len(sizes) - 1)]
+    cases += [(shape, 16, (0, 16)) for shape in CODEBOOK_EDGE_SHAPES]
+    err, n = 0.0, 0
+    for (m, k, nn), levels, (lo, hi) in cases:
+        idx = torch.as_tensor(rng.integers(lo, hi, (k, nn)).astype(np.int8),
+                              device=dev)
+        cb = torch.as_tensor(np.sort(rng.normal(0, 2.0 / np.sqrt(k), levels))
+                             .astype(np.float32), device=dev)
+        x = torch.as_tensor(rng.normal(0, 1, (m, k)).astype(np.float32),
+                            device=dev)
+        for xt in (x, x.to(torch.bfloat16)):
+            got = CBM.codebook_matmul(xt, idx, cb)
+            want = _exact_product(xt, CBM.dequantize(idx, cb))
+            torch.cuda.synchronize()
+            err = max(err, _assert_close(
+                f"codebook_matmul [M={m} K={k} N={nn} L={levels} idx in "
+                f"[{lo}, {hi})] x {xt.dtype}", got, want))
+            n += 1
+    return err, n
+
+
 def api_kernel_phase(arch, qws, seed: int) -> dict:
     """The kernel API's three kernels against their plain versions on the
     card at the ARCH layer shapes and three row counts: M = 32 (one step
@@ -504,6 +552,9 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
                 lambda: LU.lif_update_plain(v, el, cur, threshold=1.0,
                                             leak=leak, reset=0.0),
                 None, _roof(LIF_BYTES * v.numel(), 0)))
+    edge_err, edge_n = _codebook_edge_cases(rng, arch, dev)
+    err["codebook_matmul"] = max(err["codebook_matmul"], edge_err)
+    n_cases["codebook_matmul"] += edge_n
     results = {}
     for name, shapes in timing.items():
         log(f"kernel {name}: {n_cases[name]} cases agree, max |diff| "
@@ -968,14 +1019,20 @@ def flash_kernel_phase(seed: int) -> dict:
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 6)
     cfg_shape = (4, 32, 8, LM_PROMPT, LM_PROMPT, 64)    # B H KV S T hd
-    cases = [(cfg_shape, torch.bfloat16, True)]
+    hd128_shape = cfg_shape[:5] + (128,)                # granite-3-8b's
+    cases = [(cfg_shape, torch.bfloat16, True),
+             (hd128_shape, torch.bfloat16, True)]
     for s in (128, 1024):
-        for hd in (16, 64, 128):
+        for hd in (16, 32, 64, 128):
             for group in (1, 4):
                 for causal in (True, False):
                     for dtype in (torch.float32, torch.bfloat16):
                         cases.append(((2, 8, 8 // group, s, s, hd), dtype,
                                       causal))
+    for s, t in ((128, 512), (384, 256)):      # T > S and S > T, causal
+        for hd in (32, 64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                cases.append(((2, 8, 2, s, t, hd), dtype, True))
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape, dtype, causal in cases:
         q, k, v = _flash_case(rng, *shape, dtype, dev)
@@ -988,19 +1045,22 @@ def flash_kernel_phase(seed: int) -> dict:
         f"rel), bf16 {err[torch.bfloat16]:.3g} (tolerance "
         f"{FLASH_BF16_TOL} abs)")
 
-    q, k, v = _flash_case(rng, *cfg_shape, torch.bfloat16, dev)
-    bound, by = _flash_bound(q, k, True)
-    res = {"max_abs_err": max(err.values()),
-           "ms": _time_graph_ms(lambda: FA.flash_attention(q, k, v)),
-           "plain_ms": _time_eager_ms(
-               lambda: FA.flash_attention_plain(q, k, v)),
-           "library_ms": _time_graph_ms(
-               lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, enable_gqa=True)),
-           "bound_ms": bound, "bound_by": by}
-    log(f"kernel flash_attention at the served shape (B, H, KV, S, T, hd) = "
-        f"{cfg_shape} bf16 causal: {json.dumps(res)}")
-    return res
+    timed = {}
+    for shape in (cfg_shape, hd128_shape):
+        q, k, v = _flash_case(rng, *shape, torch.bfloat16, dev)
+        bound, by = _flash_bound(q, k, True)
+        timed[shape] = {
+            "max_abs_err": max(err.values()),
+            "ms": _time_graph_ms(lambda: FA.flash_attention(q, k, v)),
+            "plain_ms": _time_eager_ms(
+                lambda: FA.flash_attention_plain(q, k, v)),
+            "library_ms": _time_graph_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)),
+            "bound_ms": bound, "bound_by": by}
+        log(f"kernel flash_attention at (B, H, KV, S, T, hd) = {shape} "
+            f"bf16 causal: {json.dumps(timed[shape])}")
+    return timed[cfg_shape]
 
 
 def _serve_once(cfg, model, prompts, instrument=None):
@@ -1073,9 +1133,10 @@ def serving_path(seed: int) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(FA.launches)
     want = -(-LM_REQUESTS // LM_SLOTS) * cfg.n_layers
-    if launches != {"flash_attention": want}:
+    if launches != {"flash_attention": want, "flash_attention_wgmma": want}:
         raise AssertionError(f"served run launches {launches}, expected "
-                             f"{want} flash launches")
+                             f"{want} flash launches, all on the "
+                             f"tensor-core kernel")
     toks = [r.out_tokens for r in done]
     if len(done) != LM_REQUESTS or any(
             len(t) != LM_NEW or min(t) < 0 or max(t) >= cfg.vocab
@@ -1103,7 +1164,7 @@ def serving_path(seed: int) -> dict:
     batch_ms = (time.perf_counter() - t0) * 1e3
     perf.update(batch_ms=batch_ms, **_device_breakdown(
         lambda: _serve_once(cfg, model, batch), batch_ms,
-        (("flash_kernel_ms", "flash_attention_kernel"),)))
+        (("flash_kernel_ms", "flash_attention"),)))
 
     # (c) the path held together at full width
     tokens = torch.as_tensor(np.stack(prompts[:LM_SLOTS]), device=dev)
@@ -1153,6 +1214,21 @@ def serving_path(seed: int) -> dict:
     return perf
 
 
+def _sass_counts(build) -> dict:
+    """Tensor-core (HGMMA) and TMA (UTMALDG) instructions in the built
+    flash library, by `cuobjdump -sass`; raises if either is missing."""
+    lib = build._target("flash_attention")
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: sum(op in line for line in sass.splitlines())
+              for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention SASS lacks wgmma or TMA: "
+                             f"{counts}")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1187,6 +1263,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    log(f"flash_attention SASS: {json.dumps(_sass_counts(build))}")
 
     # 3. kernels
     t0 = time.perf_counter()
@@ -1215,7 +1292,7 @@ def main() -> int:
     for loop in api.values():
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
-    launches.update(lm["launches"])
+    launches["flash_attention"] = lm["launches"]["flash_attention"]
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {
         "fused_timestep_codebook": ("fused_timestep.cu",

@@ -3,11 +3,14 @@ with a plain C interface, loaded with `ctypes`.
 
 Every `.cu` file under `csrc/` is compiled at first use for `sm_90a`
 into `_build/` beside this module (listed in `.gitignore`), under a name
-that carries a hash of the source, so an edited source is never served a
-stale library.  `build_all()` starts one `nvcc` per source at once and
-waits for all of them; `library(name)` loads one, building it if needed.
-Nothing here runs at import time: the CPU tests import the port without
-`nvcc`.
+that carries a hash of the source, of every shared header `csrc/*.cuh`
+and of the flags, so an edited source or header is never served a stale
+library.  The tensor-core kernels look `cuTensorMapEncodeTiled` up at
+run time through `cudaGetDriverEntryPoint`, so no library beyond the
+CUDA runtime is linked.  `build_all()` starts one
+`nvcc` per source at once and waits for all of them; `library(name)`
+loads one, building it if needed.  Nothing here runs at import time: the
+CPU tests import the port without `nvcc`.
 """
 from __future__ import annotations
 
@@ -38,9 +41,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

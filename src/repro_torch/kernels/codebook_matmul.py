@@ -13,10 +13,15 @@ Port of `repro.kernels.codebook_matmul` (the Pallas TPU kernel behind
 
 Dequantization follows the reference's compare-and-select: an index
 outside [0, L) contributes 0 (a gather would clamp or fail instead).
+
+`_plan` sizes a launch: the row tile (32 rows when M <= 32, else 64), and
+how many blocks of a thread-block cluster split K between them, so that
+a one-step call (M = 32) still fills the card.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,11 +29,38 @@ from repro_torch.kernels.build import check_operands, launch
 
 launches = {"codebook_matmul": 0}
 
-MAX_LEVELS = 16      # the kernel's compare-and-select table
+MAX_LEVELS = 16      # the reference's codebook size
+BN = 64              # output columns per block
+STAGE_K = 32         # K rows per pipeline stage of the kernel
+MAX_SPLIT = 8        # blocks per cluster (the portable limit)
+TARGET_BLOCKS = 256  # about two blocks for each of the H100's 132 SMs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _P, _P] + [_I] * 4 + [_P]
+_ARGTYPES = [_P, _I, _P, _P, _P] + [_I] * 7 + [_P]
+
+
+class Plan(NamedTuple):
+    """Block r of a tile's cluster sums rows [r k_chunk, (r + 1) k_chunk)
+    of K, cut at K; its output tile is (bm, BN)."""
+    bm: int        # output rows per block
+    split: int     # blocks of a cluster sharing one output tile along K
+    k_chunk: int   # K rows per block of the cluster, a multiple of STAGE_K
+
+
+def _plan(m: int, k: int, n: int) -> Plan:
+    """Row tile to fit M, then the smallest power-of-two split of K (at
+    most MAX_SPLIT, and no more than K has stages) that brings the grid to
+    TARGET_BLOCKS."""
+    bm = 32 if m <= 32 else 64
+    tiles = -(-m // bm) * -(-n // BN)
+    stages = max(1, -(-k // STAGE_K))
+    split = 1
+    while (split < MAX_SPLIT and split * 2 <= stages
+           and tiles * split < TARGET_BLOCKS):
+        split *= 2
+    k_chunk = -(-stages // split) * STAGE_K
+    return Plan(bm, split, k_chunk)
 
 
 def reset_launches() -> None:
@@ -71,10 +103,12 @@ def codebook_matmul(x: torch.Tensor, idx: torch.Tensor,
         return codebook_matmul_plain(x, idx, codebook)
     m, k = x.shape
     n = idx.shape[1]
+    plan = _plan(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     launch("codebook_matmul", "codebook_matmul_launch", _ARGTYPES,
            x.data_ptr(), int(x.dtype == torch.bfloat16), idx.data_ptr(),
            codebook.data_ptr(), out.data_ptr(), m, k, n, codebook.shape[0],
+           plan.bm, plan.split, plan.k_chunk,
            torch.cuda.current_stream(dev).cuda_stream)
     launches["codebook_matmul"] += 1
     return out

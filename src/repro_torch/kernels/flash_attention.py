@@ -14,7 +14,12 @@ kernel modules:
 
 The shape contract is the reference's (S and T multiples of its 128-row
 blocks, H a multiple of KV), raised as `ValueError` where the reference
-asserts.  The kernel takes f32 or bf16 and head dims 16, 32, 64 and 128.
+asserts.  Two instantiations of the kernel, chosen by `_route` from the
+type and head dim: bf16 at head dims 64 and 128 (every dense config of
+the port) runs the tensor-core kernel (`wgmma` fed by TMA); f32 at head
+dims 16, 32, 64 and 128, and bf16 at 16 and 32, run the SIMT kernel.
+`launches["flash_attention"]` counts every launch,
+`launches["flash_attention_wgmma"]` those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -25,20 +30,30 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import check_operands, launch
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 BLOCK = 128                   # the reference's bq = bk: S, T multiples of it
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_GRID_Y = 65535            # B * H rides in the grid's y dimension
+WGMMA_HEAD_DIMS = (64, 128)   # 64-column swizzled panels of bf16
+MAX_GRID_Y = 65535            # B * H rides in the SIMT grid's y dimension
+TMA_ALIGN = 16                # bytes: a tensor map's base address
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+_WGMMA_ARGTYPES = [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def _route(dtype: torch.dtype, hd: int) -> str:
+    """Which instantiation a launch takes: "wgmma" (bf16 tensor cores) or
+    "simt" (f32 FMAs; the reference's f32 dots rule out TF32)."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            else "simt")
 
 
 def flash_attention_plain(q, k, v, causal: bool = True) -> torch.Tensor:
@@ -90,10 +105,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: B * H = {b * h} above "
                          f"{MAX_GRID_Y}")
     out = torch.empty_like(q)
-    launch("flash_attention", "flash_attention_launch", _ARGTYPES,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-           kvh, s, t, hd, int(causal), int(q.dtype == torch.bfloat16),
-           hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if _route(q.dtype, hd) == "wgmma":
+        for what, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"flash_attention: {what} must be "
+                                 f"{TMA_ALIGN}-byte aligned for TMA")
+        launch("flash_attention", "flash_attention_wgmma_launch",
+               _WGMMA_ARGTYPES, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), b, h, kvh, s, t, hd, int(causal), hd ** -0.5,
+               stream)
+        launches["flash_attention_wgmma"] += 1
+    else:
+        launch("flash_attention", "flash_attention_launch", _ARGTYPES,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+               h, kvh, s, t, hd, int(causal), int(q.dtype == torch.bfloat16),
+               hd ** -0.5, stream)
     launches["flash_attention"] += 1
     return out
 

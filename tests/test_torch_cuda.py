@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card: each kernel (fused timestep,
 zspe_spmm, codebook_matmul, lif_update, flash_attention) against its plain
-version at small shapes, the padded `ops.fused_timestep` against itself on
-the CPU, a fused run and an LM prefill counting their launches.
-Marked `cuda`; every test skips without a card.  Run on the card with
+version at small shapes and at the shapes that reach its plan's edges
+(the codebook product's split of K and lookup table, the flash kernel's
+tensor-core and SIMT instantiations), the padded `ops.fused_timestep`
+against itself on the CPU, a fused run and an LM prefill counting their
+launches.  Marked `cuda`; every test skips without a card.  Run on the
+card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -193,6 +196,61 @@ def test_codebook_matmul_matches_plain(dev, m, k, n, levels, dtype):
                                atol=V_ATOL, rtol=V_RTOL)
 
 
+# the paper's network (configs/snn_chip.py ARCH) at one step, M = 32
+ARCH_SHAPES = [(32, 2312, 4096), (32, 4096, 1024), (32, 1024, 10)]
+
+
+@pytest.mark.parametrize("m,k,n", ARCH_SHAPES + [(32, 1000, 10),
+                                                 (32, 4100, 1024),
+                                                 (200, 999, 37), (32, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_codebook_matmul_plan_edges_match_exact(dev, m, k, n, dtype):
+    """The split-K plan at the ARCH shapes and at K that the split does
+    not divide, against the f64 product the kernel computes (f64 sums,
+    one rounding); levels at the ARCH scale N(0, 2/sqrt(K))."""
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    rng = np.random.default_rng(m + k + n)
+    x = torch.tensor(rng.normal(0, 1, (m, k)).astype(np.float32),
+                     device=dev).to(dtype)
+    idx = torch.tensor(rng.integers(0, 16, (k, n)).astype(np.int8),
+                       device=dev)
+    cb = torch.tensor(np.sort(rng.normal(0, 2 / np.sqrt(k), 16))
+                      .astype(np.float32), device=dev)
+    before = CBM.launches["codebook_matmul"]
+    out = CBM.codebook_matmul(x, idx, cb)
+    torch.cuda.synchronize()
+    assert CBM.launches["codebook_matmul"] == before + 1
+    want = (x.double() @ CBM.dequantize(idx, cb).double()).float()
+    torch.testing.assert_close(out, want, atol=V_ATOL, rtol=V_RTOL)
+
+
+@pytest.mark.parametrize("m,k,n", ARCH_SHAPES + [(37, 200, 180)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_codebook_matmul_out_of_range_indexes_contribute_zero(dev, m, k, n,
+                                                              dtype):
+    """Indexes outside [0, L) — negative bytes and 8..20 with L = 8 — hit
+    the zero entries of the kernel's 256-entry lookup table."""
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    rng = np.random.default_rng(k + n)
+    x = torch.tensor(rng.normal(0, 1, (m, k)).astype(np.float32),
+                     device=dev).to(dtype)
+    ix = rng.integers(-20, 21, (k, n)).astype(np.int8)
+    ix[0, :2] = (16, -128)
+    idx = torch.tensor(ix, device=dev)
+    cb = torch.tensor(np.sort(rng.normal(0, 2 / np.sqrt(k), 8))
+                      .astype(np.float32), device=dev)
+    out = CBM.codebook_matmul(x, idx, cb)
+    torch.cuda.synchronize()
+    want = (x.double() @ CBM.dequantize(idx, cb).double()).float()
+    torch.testing.assert_close(out, want, atol=V_ATOL, rtol=V_RTOL)
+    torch.testing.assert_close(out, CBM.codebook_matmul_plain(x, idx, cb),
+                               atol=V_ATOL, rtol=V_RTOL)
+
+
 def test_lif_update_matches_plain(dev):
     from repro_torch.kernels import lif_update as LU
 
@@ -253,6 +311,34 @@ def test_flash_attention_matches_plain(dev, hd, group, causal, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
 
 
+@pytest.mark.parametrize("b,h,kv,s,t,hd,dtype", [
+    (2, 8, 2, 256, 256, 32, torch.bfloat16),       # SIMT bf16
+    (2, 8, 2, 256, 256, 32, torch.float32),
+    (4, 32, 8, 512, 512, 64, torch.bfloat16),      # the served shape
+    (4, 32, 8, 512, 512, 128, torch.bfloat16),     # granite-3-8b's
+    (2, 8, 2, 128, 512, 64, torch.bfloat16),       # T > S
+    (2, 8, 2, 128, 512, 128, torch.bfloat16),
+    (2, 8, 8, 384, 256, 64, torch.bfloat16),       # S > T
+], ids=["hd32-bf16", "hd32-f32", "served", "hd128-served", "t>s-hd64",
+        "t>s-hd128", "s>t-hd64"])
+def test_flash_attention_causal_shapes_match_plain(dev, b, h, kv, s, t, hd,
+                                                   dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(dev, s + t + hd, b, h, kv, s, t, hd, dtype)
+    before = dict(FA.launches)
+    got = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    wgmma = FA._route(dtype, hd) == "wgmma"
+    assert FA.launches == {
+        "flash_attention": before["flash_attention"] + 1,
+        "flash_attention_wgmma": before["flash_attention_wgmma"] + wgmma}
+    want = FA.flash_attention_plain(q, k, v, True)
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    rtol = tol if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
+
+
 def test_flash_attention_counts_only_kernel_launches(dev):
     from repro_torch.kernels import flash_attention as FA
 
@@ -263,7 +349,10 @@ def test_flash_attention_counts_only_kernel_launches(dev):
     FA.flash_attention_plain(q, k, v)
     FA.flash_attention(q.cpu(), k.cpu(), v.cpu())     # plain version
     torch.cuda.synchronize()
-    assert FA.launches == {"flash_attention": 2}
+    assert FA.launches == {"flash_attention": 2, "flash_attention_wgmma": 2}
+    FA.flash_attention(q.float(), k.float(), v.float())   # the SIMT kernel
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 3, "flash_attention_wgmma": 2}
 
 
 def test_flash_attention_rejects_bad_operands(dev):
@@ -281,7 +370,10 @@ def test_flash_attention_rejects_bad_operands(dev):
     with pytest.raises(ValueError, match="head dim 48"):
         FA.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                            v[..., :48].contiguous())
-    assert FA.launches == {"flash_attention": 0}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        qb = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+        FA.flash_attention(qb[1:].view(q.shape), k.bfloat16(), v.bfloat16())
+    assert FA.launches == {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 
 def test_lm_prefill_takes_the_flash_kernel(dev):
@@ -302,5 +394,6 @@ def test_lm_prefill_takes_the_flash_kernel(dev):
     logits, st = T.forward_prefill(model, cfg, {"tokens": toks}, 264)
     T.forward_decode(model, cfg, st, toks[:, :1])
     torch.cuda.synchronize()
-    assert FA.launches == {"flash_attention": cfg.n_layers}
+    assert FA.launches == {"flash_attention": cfg.n_layers,
+                           "flash_attention_wgmma": 0}   # f32: SIMT
     assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all())

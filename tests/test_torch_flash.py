@@ -87,6 +87,17 @@ def test_gqa_unexpanded_equals_expanded():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, hd, route):
+    """bf16 at the dense configs' head dims (64, 128) runs the wgmma
+    kernel; f32 stays on the SIMT kernel (f32 dots, no TF32)."""
+    assert FA._route(dtype, hd) == route
+
+
 def test_plain_version_is_the_oracle():
     q, k, v = (torch.tensor(a) for a in _qkv(9, 1, 2, 2, 128, 128, 16))
     assert torch.equal(FA.flash_attention_plain(q, k, v, causal=False),

@@ -19,6 +19,7 @@ from test_torch_harness import assert_step_close  # noqa: E402
 
 from repro_torch.core import quant as Q  # noqa: E402
 from repro_torch.core import zspe as Z  # noqa: E402
+from repro_torch.kernels import codebook_matmul as CBM  # noqa: E402
 from repro_torch.kernels import lif_update as LU  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -96,6 +97,75 @@ def test_codebook_out_of_range_index_contributes_zero():
         ops.codebook_matmul(x, idx, torch.zeros(17))
     with pytest.raises(TypeError, match="idx must be torch.int8"):
         ops.codebook_matmul(x, idx.long(), cb)
+
+
+def test_codebook_out_of_range_matches_reference():
+    """Indexes outside [0, L) (negative bytes, and 8..20 with L = 8)
+    contribute 0 in both packages: the reference's compare-and-select and
+    the port's lookup table (zero past L)."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(0, 1, (9, 70)).astype(np.float32)
+    idx = rng.integers(-20, 21, (70, 33)).astype(np.int8)
+    idx[0, :2] = (16, -128)
+    cb = np.sort(rng.normal(0, 1, 8)).astype(np.float32)
+    want = REF_OPS.codebook_matmul(jnp.asarray(x), jnp.asarray(idx),
+                                   jnp.asarray(cb))
+    got = ops.codebook_matmul(_t(x), _t(idx), _t(cb))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+# the codebook kernel's launch plan (kernels/codebook_matmul.py `_plan`) at
+# the paper's network (configs/snn_chip.py ARCH, 2312-4096-1024-10)
+ARCH_LAYERS = [(2312, 4096), (4096, 1024), (1024, 10)]
+
+
+def _blocks(m, n, plan):
+    return -(-m // plan.bm) * -(-n // CBM.BN) * plan.split
+
+
+def _k_ranges(k, plan):
+    """The rows of K each block of a cluster sums, as the kernel cuts them
+    (`k0 = rank * k_chunk`, `k_end = min(K, k0 + k_chunk)`)."""
+    return [(min(k, r * plan.k_chunk), min(k, (r + 1) * plan.k_chunk))
+            for r in range(plan.split)]
+
+
+def _coverage(k, plan):
+    seen = np.zeros(k, np.int64)
+    for lo, hi in _k_ranges(k, plan):
+        seen[lo:hi] += 1
+    return seen
+
+
+@pytest.mark.parametrize("m", [32, 200, 640])
+@pytest.mark.parametrize("k,n", ARCH_LAYERS)
+def test_codebook_plan_at_arch_layers(m, k, n):
+    plan = CBM._plan(m, k, n)
+    assert 1 <= plan.split <= CBM.MAX_SPLIT == 8     # one cluster
+    assert plan.bm == (32 if m <= 32 else 64)
+    assert plan.k_chunk % CBM.STAGE_K == 0
+    assert plan.split * plan.k_chunk >= k
+    assert (_coverage(k, plan) == 1).all()           # every row once
+
+
+def test_codebook_plan_fills_the_card_at_one_step():
+    """At M = 32 (one step of the kernel-API path) layers 1 and 2 launch
+    at least 128 blocks, and the 10-wide layer 3 is no longer one block."""
+    for k, n in ARCH_LAYERS[:2]:
+        assert _blocks(32, n, CBM._plan(32, k, n)) >= 128
+    k, n = ARCH_LAYERS[2]
+    assert _blocks(32, n, CBM._plan(32, k, n)) > 1
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 33, 999, 2312, 4100])
+@pytest.mark.parametrize("m,n", [(32, 10), (32, 1024), (640, 4096)])
+def test_codebook_k_ranges_cover_every_row_once(k, m, n):
+    """K = 2312 is no multiple of 16 x split, K = 1 has one row: each row
+    of K is summed by exactly one block of the cluster."""
+    plan = CBM._plan(m, k, n)
+    assert (_coverage(k, plan) == 1).all()
+    assert all(lo <= hi for lo, hi in _k_ranges(k, plan))
 
 
 # ---------------------------------------------------------------------------
