@@ -28,7 +28,12 @@ Phases, each of which must pass:
    The codebook product also at the edges of its plan and lookup table:
    int8 indexes outside [0, L) (negative ones, and 16 with L = 8) at the
    three layer shapes with M = 32, and shapes whose K the split does not
-   divide (K = 1, 999, 1000, 4100; N = 10 and 37);
+   divide (K = 1, 999, 1000, 4100; N = 10 and 37); the zspe product also
+   at its plan's edges (K = 1, 999, 1000, 2312 with N = 64, 10, 37, 1024
+   and M = 32 or RAGGED_ROWS) with {0, 1} spikes, other spike values
+   ({0, 0.5, 1, 2} in f32, {0, 1, 2, -3} in int8), all-zero and all-one
+   tiles, and every zspe case called twice and held bitwise equal; its
+   plan (BM, BN, split, grid) per ARCH layer at M = 32 and 640 is logged;
 4. main path — `ChipSimulator(quantize(ARCH weights), engine="fused")
    .run_batch` at B=32, T=20, Bernoulli(0.10) input: exactly 60
    codebook-kernel launches, spike totals per layer within 0.1% and
@@ -458,6 +463,62 @@ def _codebook_edge_cases(rng, arch, dev) -> tuple[float, int]:
     return err, n
 
 
+# (M, K, N) of the zspe kernel's plan edges: K = 1 (one k, no split),
+# K = 999 and 1000 (no split divides them), N = 10 and 37 (rows not 16-byte
+# aligned: 4-byte copies), M = RAGGED_ROWS (a ragged last row tile)
+ZSPE_EDGE_SHAPES = ((BATCH, 1, 64), (BATCH, 999, 10), (BATCH, 1000, 37),
+                    (RAGGED_ROWS, 999, 37), (RAGGED_ROWS, 2312, 1024))
+# spike values besides {0, 1}: the kernel multiplies by them (int8 spikes
+# take the integer levels)
+ZSPE_LEVELS = {"float32": (0.0, 0.5, 1.0, 2.0), "int8": (0.0, 1.0, 2.0, -3.0)}
+
+
+def _zspe_edge_cases(rng, dev) -> tuple[float, int]:
+    """The zspe kernel at the edges of its plan, with {0, 1} spikes
+    (density 0.10), other spike values, an all-zero and an all-one tile,
+    in f32 and int8: against the f64 product, counters equal to the plain
+    version's, and a second call bitwise equal to the first."""
+    import torch
+
+    from repro_torch.kernels import zspe_spmm as ZS
+    from repro_torch.kernels.ops import _pick_block
+
+    err, n_cases = 0.0, 0
+    for m, k, n in ZSPE_EDGE_SHAPES:
+        w = torch.as_tensor(rng.normal(0, 1, (k, n)).astype(np.float32),
+                            device=dev)
+        block = _pick_block(m, k, n)
+        for kind in ("binary", "levels", "zeros", "ones"):
+            for dtype in (torch.float32, torch.int8):
+                nz = rng.random((m, k)) < 0.10
+                if kind == "levels":
+                    lv = np.asarray(ZSPE_LEVELS[str(dtype).split(".")[1]],
+                                    np.float32)
+                    s = nz * lv[rng.integers(1, len(lv), (m, k))]
+                elif kind == "zeros":
+                    s = np.zeros((m, k), np.float32)
+                elif kind == "ones":
+                    s = np.ones((m, k), np.float32)
+                else:
+                    s = nz.astype(np.float32)
+                st = torch.as_tensor(s.astype(np.float32), device=dev)
+                st = st.to(dtype)
+                desc = (f"zspe_spmm [M={m} K={k} N={n} {kind} {dtype}]")
+                out, skipped = ZS.zspe_spmm(st, w, block=block)
+                again, skipped_again = ZS.zspe_spmm(st, w, block=block)
+                _, want_skipped = ZS.zspe_spmm_plain(st, w, block)
+                torch.cuda.synchronize()
+                if not (torch.equal(skipped, want_skipped)
+                        and torch.equal(skipped_again, want_skipped)):
+                    raise AssertionError(f"{desc}: skip counters differ")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{desc}: two calls differ")
+                err = max(err, _assert_close(desc, out,
+                                             _exact_product(st, w)))
+                n_cases += 1
+    return err, n_cases
+
+
 def api_kernel_phase(arch, qws, seed: int) -> dict:
     """The kernel API's three kernels against their plain versions on the
     card at the ARCH layer shapes and three row counts: M = 32 (one step
@@ -484,6 +545,11 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
         idx, cb = q.idx, q.codebook[0]
         w = dequantize(q)
         k, n = w.shape
+        for m in (BATCH, rows):
+            plan = ZS._plan(m, k, n)
+            log(f"zspe plan [M={m} K={k} N={n}]: BM {ZS.BM}, BN {ZS.BN}, "
+                f"split {plan.split}, K slice {plan.k_chunk}, grid "
+                f"({-(-n // ZS.BN) * plan.split}, {-(-m // ZS.BM)})")
         for m in (BATCH, RAGGED_ROWS, rows):
             block = _pick_block(m, k, n)
             for density in (*DENSITIES, None):
@@ -492,11 +558,15 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
                 for sd in ((s, s.to(torch.int8)) if density == TIME_DENSITY
                            else (s,)):
                     out, skipped = ZS.zspe_spmm(sd, w, block=block)
+                    again, _ = ZS.zspe_spmm(sd, w, block=block)
                     _, want_skipped = ZS.zspe_spmm_plain(sd, w, block)
                     torch.cuda.synchronize()
                     if not torch.equal(skipped, want_skipped):
                         raise AssertionError(f"zspe_spmm {desc}: skip "
                                              f"counters differ")
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"zspe_spmm {desc}: two "
+                                             f"calls differ")
                     if density is None and int(skipped.sum()) == 0:
                         raise AssertionError(f"zspe_spmm {desc}: no tile "
                                              f"skipped")
@@ -555,6 +625,9 @@ def api_kernel_phase(arch, qws, seed: int) -> dict:
     edge_err, edge_n = _codebook_edge_cases(rng, arch, dev)
     err["codebook_matmul"] = max(err["codebook_matmul"], edge_err)
     n_cases["codebook_matmul"] += edge_n
+    edge_err, edge_n = _zspe_edge_cases(rng, dev)
+    err["zspe_spmm"] = max(err["zspe_spmm"], edge_err)
+    n_cases["zspe_spmm"] += edge_n
     results = {}
     for name, shapes in timing.items():
         log(f"kernel {name}: {n_cases[name]} cases agree, max |diff| "

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// addresses, mbarriers, TMA tile loads, cp.async with zero fill, and the
-// bf16 `wgmma` m64n64k16 product with A from shared memory or registers.
+// addresses, mbarriers, TMA tile loads, cp.async with zero fill (16 and 4
+// bytes), and the bf16 `wgmma` m64n64k16 product with A from shared memory
+// or registers.
 //
 // Most helpers wrap one PTX instruction and are named after it.
 // `build.py` hashes this header with each source, so an edit here rebuilds
@@ -86,6 +87,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            uint32_t src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared (4-byte aligned), zero when `src_bytes`
+// is 0 (then `src` must still be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");

@@ -49,9 +49,20 @@ def _pick_block(m: int, k: int, n: int) -> tuple[int, int, int]:
 # codebook matmul
 # ---------------------------------------------------------------------------
 
+def _gather_weights(idx: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """codebook[idx] by JAX's gather rule: a negative index wraps by +L,
+    then clamps into [0, L - 1] (src/repro/kernels/ops.py:110-111)."""
+    n_levels = codebook.shape[0]
+    ix = idx.long()
+    ix = torch.where(ix < 0, ix + n_levels, ix).clamp(0, n_levels - 1)
+    return codebook[ix]
+
+
 class _CodebookMatmul(torch.autograd.Function):
     """Forward by the kernel; backward in plain torch, as the reference's
-    custom VJP (`_cbm_bwd`) is jnp outside any kernel."""
+    custom VJP (`_cbm_bwd`) is jnp outside any kernel.  The forward gives
+    0 for an index outside [0, L), as the Pallas kernel does; the
+    reference's backward gathers instead, so gx does too."""
 
     @staticmethod
     def forward(ctx, x, idx, codebook):
@@ -69,7 +80,8 @@ class _CodebookMatmul(torch.autograd.Function):
         k, n = idx.shape
         gx = gcb = None
         if ctx.needs_input_grad[0]:
-            gx = (g @ _cbm.dequantize(idx, codebook).t()).to(x.dtype)
+            w = _gather_weights(idx, codebook).to(torch.float32)
+            gx = (g @ w.t()).to(x.dtype)
         if ctx.needs_input_grad[2]:
             # dL/dcb[l] = sum over positions with idx == l of (x^T g); the
             # reference's (K, N, L) one-hot would be 606 MB at the paper's

@@ -17,34 +17,87 @@ reference's kernel, this one takes shapes that are not block multiples
 and counts the missing part of an edge tile as zero padding, which is
 what the reference's padded call (`ops.zspe_spmm`) counts; so no caller
 has to pad.
+
+`_plan` sizes a launch: how many blocks of a thread-block cluster split
+K between them, so that a one-step call (M = 32) still fills the card
+with the kernel's (32, 64) output tiles.
+The kernel's two scratch buffers (the counters' bitmap, which starts
+zero and is left zero, and the scan's row masks) are
+allocated once per device and grown when a call needs more: calls on
+one device are ordered by their stream, and calls on two streams of one
+device must not overlap.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import check_operands, launch
+from repro_torch.kernels.build import check_operands, launch, library
 
 launches = {"zspe_spmm": 0}
 
-MAX_K = 32768        # the kernel stages a row's (k, value) list in shared
-MAX_M = 65535        # one grid row per spike row
+MAX_K = 32768        # the largest K and M the wrapper passes to the
+MAX_M = 65535        # kernel; past them it raises
+BM, BN = 32, 64      # a block's output tile: a k's row mask is one word
+K_GROUP = 32         # a K slice is a multiple of this
+MAX_SPLIT = 8        # blocks per cluster (the portable limit)
+TARGET_BLOCKS = 128  # about one block for each of the H100's 132 SMs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _I] + [_P] * 6 + [_I] * 6 + [_P]
+_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]
+
+_scratch: dict[tuple[torch.device, str], torch.Tensor] = {}
+
+
+class Plan(NamedTuple):
+    """Block r of a tile's cluster sums rows [r k_chunk, (r + 1) k_chunk)
+    of K, cut at K; its output tile is (BM, BN)."""
+    split: int     # blocks of a cluster sharing one output tile along K
+    k_chunk: int   # K rows per block of the cluster, a multiple of K_GROUP
+
+
+def _plan(m: int, k: int, n: int) -> Plan:
+    """The smallest power-of-two split of K (at most MAX_SPLIT, and no
+    more than K has groups of K_GROUP) that brings the grid of (BM, BN)
+    tiles to TARGET_BLOCKS."""
+    tiles = _tiles(m, BM) * _tiles(n, BN)
+    groups = max(1, _tiles(k, K_GROUP))
+    split = 1
+    while (split < MAX_SPLIT and split * 2 <= groups
+           and tiles * split < TARGET_BLOCKS):
+        split *= 2
+    return Plan(split, _tiles(groups, split) * K_GROUP)
+
+
+def _scratch_for(dev: torch.device, what: str, words: int) -> torch.Tensor:
+    """The device's scratch buffer `what` of at least `words` int32
+    words, allocated zero."""
+    buf = _scratch.get((dev, what))
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int32, device=dev)
+        _scratch[(dev, what)] = buf
+    return buf
+
+
+def _words(name: str, *args: int) -> int:
+    fn = getattr(library("zspe_spmm"), name)
+    fn.argtypes = [_I] * len(args)
+    fn.restype = ctypes.c_longlong
+    return fn(*args)
+
+
+def _tiles(d: int, b: int) -> int:
+    return -(-d // b)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def _tiles(d: int, b: int) -> int:
-    return -(-d // b)
 
 
 def zspe_spmm_plain(spikes, weights, block):
@@ -85,17 +138,18 @@ def zspe_spmm(spikes: torch.Tensor, weights: torch.Tensor, *,
     if k > MAX_K or m > MAX_M:
         raise ValueError(f"zspe_spmm: the kernel takes K <= {MAX_K} and "
                          f"M <= {MAX_M}; got M={m}, K={k}")
+    plan = _plan(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    skipped = torch.empty((_tiles(m, bm), _tiles(n, bn)), dtype=torch.int32,
-                          device=dev)
-    klist = torch.empty((m, k), dtype=torch.int16, device=dev)
-    nnz = torch.empty(m, dtype=torch.int32, device=dev)
-    occupied = torch.empty((_tiles(m, bm), _tiles(k, bk)), dtype=torch.int32,
-                           device=dev)
+    gm, gn = _tiles(m, bm), _tiles(n, bn)
+    skipped = torch.empty((gm, gn), dtype=torch.int32, device=dev)
+    bits = _scratch_for(dev, "bits",
+                        _words("zspe_spmm_bits_words", m, k, bm, bk))
+    masks = _scratch_for(dev, "masks", _words("zspe_spmm_masks_words", m, k))
     launch("zspe_spmm", "zspe_spmm_launch", _ARGTYPES, spikes.data_ptr(),
            int(spikes.dtype == torch.int8), weights.data_ptr(),
-           out.data_ptr(), skipped.data_ptr(), klist.data_ptr(),
-           nnz.data_ptr(), occupied.data_ptr(), m, k, n, bm, bk, bn,
+           out.data_ptr(), skipped.data_ptr(), bits.data_ptr(),
+           masks.data_ptr(), m, k, n,
+           bm, bk, bn, plan.split, plan.k_chunk,
            torch.cuda.current_stream(dev).cuda_stream)
     launches["zspe_spmm"] += 1
     return out, skipped

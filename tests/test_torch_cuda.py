@@ -153,27 +153,65 @@ def test_fused_run_counts_launches(dev):
 # the kernel API's kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m,k,n,block", [(100, 300, 50, (64, 128, 32)),
-                                         (9, 40, 130, (8, 32, 128)),
-                                         (128, 256, 128, (64, 64, 64))])
+# (M, K, N, caller's block): the first three as before (they hold empty
+# tiles beside busy ones, so some tile is skipped); then the kernel
+# plan's edges: K = 1, K = 999 (no split divides it) with N = 10, M = 200
+# (a ragged 32-row tile and caller tiles of 128 rows) with N = 37 (rows
+# not 16-byte aligned: element loads), and the ARCH layers 1 and 2 at one
+# step (M = 32), where the split fills the card
+ZSPE_CASES = [(100, 300, 50, (64, 128, 32)), (9, 40, 130, (8, 32, 128)),
+              (128, 256, 128, (64, 64, 64)), (32, 1, 64, (32, 8, 64)),
+              (32, 999, 10, (32, 128, 8)), (200, 1000, 37, (128, 128, 32)),
+              (32, 2312, 4096, (32, 128, 128)),
+              (32, 4096, 1024, (32, 128, 128))]
+# spike values: {0, 1}; other levels ({0, 0.5, 1, 2}, int8 {0, 1, 2, -3}),
+# which the kernel multiplies by; an all-zero and an all-one tile
+ZSPE_VALUES = ["binary", "levels", "zeros", "ones"]
+
+
+def _zspe_spikes(rng, m, k, kind, dtype):
+    s = (rng.random((m, k)) < 0.05).astype(np.float32)
+    s[:, : k // 2] = 0                        # empty tiles beside busy ones
+    if kind == "levels":
+        lv = ((0.0, 0.5, 1.0, 2.0) if dtype == torch.float32
+              else (0.0, 1.0, 2.0, -3.0))
+        s = s * np.asarray(lv, np.float32)[rng.integers(1, 4, (m, k))]
+    elif kind == "zeros":
+        s[:] = 0
+    elif kind == "ones":
+        s[:] = 1
+    return s
+
+
+@pytest.mark.parametrize("m,k,n,block", ZSPE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8],
                          ids=["f32", "int8"])
-def test_zspe_spmm_matches_plain(dev, m, k, n, block, dtype):
+@pytest.mark.parametrize("kind", ZSPE_VALUES)
+def test_zspe_spmm_matches_plain(dev, m, k, n, block, dtype, kind):
+    """Against the f64 product the kernel computes (f64 sums in k order,
+    one rounding), counters equal to the plain version's, one launch per
+    call, and two calls bitwise equal (the cluster adds its partial
+    tiles in rank order)."""
     from repro_torch.kernels import zspe_spmm as ZS
 
     rng = np.random.default_rng(m + k + n)
-    s = (rng.random((m, k)) < 0.05).astype(np.float32)
-    s[:, : k // 2] = 0                        # empty tiles beside busy ones
+    s = _zspe_spikes(rng, m, k, kind, dtype)
     st = torch.tensor(s, device=dev).to(dtype)
     w = torch.tensor(rng.normal(0, 1, (k, n)).astype(np.float32), device=dev)
     before = ZS.launches["zspe_spmm"]
     out, skipped = ZS.zspe_spmm(st, w, block=block)
+    again, skipped_again = ZS.zspe_spmm(st, w, block=block)
     torch.cuda.synchronize()
-    assert ZS.launches["zspe_spmm"] == before + 1
-    want, want_skipped = ZS.zspe_spmm_plain(st, w, block)
-    assert int(want_skipped.sum()) > 0
+    assert ZS.launches["zspe_spmm"] == before + 2
+    _, want_skipped = ZS.zspe_spmm_plain(st, w, block)
+    if kind == "zeros" or (kind != "ones" and (m, k, n, block)
+                           in ZSPE_CASES[:3]):
+        assert int(want_skipped.sum()) > 0
     assert torch.equal(skipped, want_skipped)
+    assert torch.equal(skipped_again, want_skipped)
+    want = (st.double() @ w.double()).float()
     torch.testing.assert_close(out, want, atol=V_ATOL, rtol=V_RTOL)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("m,k,n,levels", [(1, 1, 1, 4), (37, 200, 180, 8),

@@ -87,6 +87,30 @@ def test_codebook_matmul_grads_match_reference():
                                    atol=1e-2)
 
 
+@pytest.mark.parametrize("lo,hi,levels", [(-3, 11, 8), (-20, 21, 16)])
+def test_codebook_matmul_grads_match_reference_out_of_range(lo, hi, levels):
+    """Indexes outside [0, L): the forward gives 0 there (the Pallas
+    kernel's compare-and-select), but the reference's backward gathers
+    `codebook[idx]` (a negative index wraps by +L, then clamps), so gx
+    must gather the same way; gcb skips such positions in both."""
+    rng = np.random.default_rng(levels)
+    x = rng.normal(0, 1, (8, 16)).astype(np.float32)
+    idx = rng.integers(lo, hi, (16, 16)).astype(np.int8)
+    cb = np.sort(rng.normal(0, 1, levels)).astype(np.float32)
+    assert ((idx < 0) | (idx >= levels)).any() and (idx < 0).any()
+    g_ref = jax.grad(
+        lambda a, c: jnp.sum(REF_OPS.codebook_matmul(
+            a, jnp.asarray(idx), c, interpret=True) ** 2),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(cb))
+    xt = _t(x).requires_grad_()
+    cbt = _t(cb).requires_grad_()
+    (ops.codebook_matmul(xt, _t(idx), cbt) ** 2).sum().backward()
+    for got, want in zip((xt.grad, cbt.grad), g_ref):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 def test_codebook_out_of_range_index_contributes_zero():
     x = torch.ones(2, 3)
     idx = torch.tensor([[0], [-1], [4]], dtype=torch.int8)
@@ -166,6 +190,53 @@ def test_codebook_k_ranges_cover_every_row_once(k, m, n):
     plan = CBM._plan(m, k, n)
     assert (_coverage(k, plan) == 1).all()
     assert all(lo <= hi for lo, hi in _k_ranges(k, plan))
+
+
+# the zspe kernel's launch plan (kernels/zspe_spmm.py `_plan`)
+
+def _zspe_blocks(m, n, plan):
+    return -(-m // ZS.BM) * -(-n // ZS.BN) * plan.split
+
+
+@pytest.mark.parametrize("m", [32, 640])
+@pytest.mark.parametrize("k,n", ARCH_LAYERS)
+def test_zspe_plan_at_arch_layers(m, k, n):
+    plan = ZS._plan(m, k, n)
+    assert (ZS.BM, ZS.BN) == (32, 64)
+    assert 1 <= plan.split <= ZS.MAX_SPLIT == 8       # one cluster
+    assert plan.split & (plan.split - 1) == 0
+    assert plan.k_chunk % ZS.K_GROUP == 0
+    assert plan.split * plan.k_chunk >= k
+    assert (_coverage(k, plan) == 1).all()            # every row once
+    # the smallest split that reaches the target grid
+    if plan.split > 1:
+        half = plan._replace(split=plan.split // 2)
+        assert _zspe_blocks(m, n, half) < ZS.TARGET_BLOCKS
+
+
+def test_zspe_plan_fills_the_card_at_one_step():
+    """At M = 32 (one step of the kernel-API path) layers 1 and 2 launch
+    about one block per SM (the H100 has 132), and the 10-wide layer 3 is
+    no longer one block."""
+    for k, n in ARCH_LAYERS[:2]:
+        assert 100 <= _zspe_blocks(32, n, ZS._plan(32, k, n)) <= 264
+    assert ZS._plan(32, 2312, 4096).split == 2
+    assert ZS._plan(32, 4096, 1024).split == 8
+    k, n = ARCH_LAYERS[2]
+    assert _zspe_blocks(32, n, ZS._plan(32, k, n)) > 1
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 33, 999, 1025, 2312, 4100, 32768])
+@pytest.mark.parametrize("m,n", [(1, 10), (32, 37), (32, 1024), (200, 10),
+                                 (640, 4096)])
+def test_zspe_k_ranges_cover_every_row_once(k, m, n):
+    """K that no split divides (K = 1, 999, 2312, ...): each row of K is
+    summed by exactly one block of the cluster, and a slice is a multiple
+    of the kernel's 32-k groups."""
+    plan = ZS._plan(m, k, n)
+    assert (_coverage(k, plan) == 1).all()
+    assert all(lo <= hi for lo, hi in _k_ranges(k, plan))
+    assert plan.k_chunk % ZS.K_GROUP == 0 and plan.k_chunk > 0
 
 
 # ---------------------------------------------------------------------------
