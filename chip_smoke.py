@@ -15,8 +15,14 @@ Phases, each of which must pass:
    (configs/snn_chip.py ARCH: 2312-4096-1024-10) with a batch of 32, over
    input densities 0, 0.02, 0.10 and 1.0, random v / elapsed, both
    `all_nonzero` settings (a codebook with a zero level when False) and
-   both update modes; then their times beside the plain version's, a
-   `torch.matmul` of the same product and the device-memory bound;
+   both update modes; then both fused kernels at FUSED_EDGE_CASES (the
+   codebook plan's edges: Kw = 1 and 9, N = 10 and 37, M = 1,
+   RAGGED_ROWS and 640; L = 1, 2, 16 and 200; int8 indexes outside
+   [0, L), which add 0; all-zero and all-one spike tiles), every edge
+   call repeated and held bitwise equal; the codebook plan (BM, BN, grid)
+   is logged per ARCH layer at M = 32 and 640; then their times at M = 32
+   (the kernels line) and 640 beside the plain version's, a `torch.matmul`
+   of the same product and the device-memory bound;
    Then the kernel API's kernels (zspe_spmm, codebook_matmul,
    lif_update) against their plain versions at the same layer shapes
    with M = 32 (one step), 200 (edge row tiles) and 32 x 20 = 640 rows
@@ -111,25 +117,31 @@ def log(msg: str) -> None:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _case(rng, m, k, n, density, codebook, all_nonzero, dev):
-    """Inputs of one layer-step; a zero level exists unless all_nonzero."""
+def _case(rng, m, k, n, density, codebook, all_nonzero, dev, levels=16,
+          idx_range=None):
+    """Inputs of one layer-step; a zero level exists unless all_nonzero.
+    Indexes are drawn from [lo, hi) = `idx_range` (default [0, levels)),
+    and the dense variant's weights are their levels, 0 outside [0, L)."""
     import torch
 
     from repro_torch.core import zspe as Z
 
+    lo, hi = (0, levels) if idx_range is None else idx_range
     kw = Z.spike_word_count(k)
     kp = kw * Z.SPIKE_WORD_BITS
     s = (rng.random((m, k)) < density).astype(np.float32)
-    levels = np.sort(rng.normal(0, 2.0 / np.sqrt(k), 16)).astype(np.float32)
+    lv = np.sort(rng.normal(0, 2.0 / np.sqrt(k), levels)).astype(np.float32)
     if all_nonzero:
-        levels[levels == 0] = 1e-3
+        lv[lv == 0] = 1e-3
     else:
-        levels[np.argmin(np.abs(levels))] = 0.0
+        lv[np.argmin(np.abs(lv))] = 0.0
     idx = np.zeros((kp, n), np.int8)
-    idx[:k] = rng.integers(0, 16, (k, n))
-    cbw = np.broadcast_to(levels[:, None], (16, n)).copy()
+    idx[:k] = rng.integers(lo, hi, (k, n))
+    cbw = np.broadcast_to(lv[:, None], (levels, n)).copy()
+    ix = idx[:k].astype(np.int64)
     dense = np.zeros((kp, n), np.float32)
-    dense[:k] = levels[idx[:k]]
+    dense[:k] = np.where((ix >= 0) & (ix < levels),
+                         lv[np.clip(ix, 0, levels - 1)], 0.0)
     t = dict(
         packed=Z.pack_spike_words(torch.as_tensor(s, device=dev)),
         v=torch.as_tensor(rng.normal(0.5, 0.4, (m, n)).astype(np.float32),
@@ -228,13 +240,21 @@ def check_step(what: str, got, want, ints: dict, v_int, threshold=1.0,
 
 
 def compare_case(c, kernel_name, all_nonzero, partial_update,
-                 desc: str = "") -> float:
+                 desc: str = "", repeat: bool = False) -> float:
     """Kernel vs plain on one case; raises on disagreement, returns the
-    max |v' difference| where no spike flipped."""
+    max |v' difference| where no spike flipped.  With `repeat`, a second
+    call on the same inputs must give bitwise the same outputs."""
     import torch
 
     got = _launch(c, kernel_name, all_nonzero, partial_update)
     want = _plain(c, all_nonzero, partial_update)
+    if repeat:
+        again = _launch(c, kernel_name, all_nonzero, partial_update)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, again)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{kernel_name} {desc}: output {i} of "
+                                     f"two calls differs")
     torch.cuda.synchronize()
     return check_step(f"{kernel_name} {desc}", got, want, FUSED_INTS,
                       _plain_v_int(c, partial_update),
@@ -312,18 +332,107 @@ def _roof(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(arch, seed: int) -> dict:
-    """Compare both kernels with their plain versions over the cases, then
-    time them at the main path's shapes.  Returns per-kernel results."""
+# (M, K, N, L, [lo, hi) of the int8 indexes, spike density) of the
+# codebook kernel's edges: one spike word (Kw = 1); Kw = 9, which a split
+# of 8 does not divide; N = 10 and 37 (index rows not 16-byte aligned:
+# byte loads); one row, a ragged last row tile and a whole run's 640 rows;
+# L = 1, 2 and 200 (only 0..127 reachable); indexes outside [0, L), from
+# [-20, 20] with L = 8 at the ARCH shapes and from all of int8 with L = 16;
+# all-zero and all-one spike tiles
+FUSED_EDGE_CASES = (
+    (BATCH, 16, 128, 16, None, 0.10), (BATCH, 144, 256, 16, None, 0.10),
+    (BATCH, 1000, 10, 16, None, 0.10), (BATCH, 999, 37, 16, None, 0.10),
+    (1, 2312, 4096, 16, None, 0.10), (RAGGED_ROWS, 999, 37, 16, None, 0.10),
+    (RAGGED_ROWS, 4096, 1024, 16, None, 0.10),
+    (640, 2312, 4096, 16, None, 0.10),
+    (BATCH, 1024, 256, 1, None, 0.10), (BATCH, 1024, 256, 2, None, 0.10),
+    (BATCH, 1024, 256, 200, (0, 128), 0.10),
+    (BATCH, 1024, 256, 200, (-128, 128), 0.10),
+    (BATCH, 2312, 4096, 8, (-20, 21), 0.10),
+    (BATCH, 4096, 1024, 8, (-20, 21), 0.10),
+    (BATCH, 1024, 10, 8, (-20, 21), 0.10),
+    (BATCH, 999, 37, 16, (-128, 128), 0.10),
+    (BATCH, 2312, 4096, 16, None, 0.0), (BATCH, 2312, 4096, 16, None, 1.0),
+    (RAGGED_ROWS, 999, 37, 16, None, 0.0),
+    (RAGGED_ROWS, 999, 37, 16, (-20, 21), 1.0))
+
+
+def _fused_edge_cases(rng, dev, name) -> tuple[float, int]:
+    """Fused kernel `name` at FUSED_EDGE_CASES (the dense one on the
+    weights of the indexes, 0 outside [0, L)), both update modes, both
+    `all_nonzero` settings, against the plain version; every call
+    repeated and held bitwise equal."""
+    codebook = name == "fused_timestep_codebook"
+    err, n_cases = 0.0, 0
+    for m, k, n, levels, idx_range, density in FUSED_EDGE_CASES:
+        for all_nonzero in (False, True):
+            c = _case(rng, m, k, n, density, codebook, all_nonzero, dev,
+                      levels, idx_range)
+            for partial_update in (True, False):
+                desc = (f"[M={m} K={k} N={n} L={levels} idx in "
+                        f"{idx_range or (0, levels)} density={density} "
+                        f"all_nonzero={all_nonzero} "
+                        f"partial_update={partial_update}]")
+                err = max(err, compare_case(c, name, all_nonzero,
+                                            partial_update, desc,
+                                            repeat=True))
+                n_cases += 1
+    return err, n_cases
+
+
+def fused_timing(arch, seed: int, name: str, m: int) -> list[dict]:
+    """Times kernel `name` at each ARCH layer with M rows, density 0.10,
+    partial update: device time by CUDA-graph replay, eager time, the
+    plain version's, one `torch.matmul` of the same product, and the
+    bound."""
     import torch
 
     from repro_torch.kernels.fused_timestep import _dequant_columns, \
         _unpack_words
 
     dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 7 * m)
+    codebook = name == "fused_timestep_codebook"
+    per_shape = []
+    for k, n in zip(arch.layer_sizes[:-1], arch.layer_sizes[1:]):
+        c = _case(rng, m, k, n, TIME_DENSITY, codebook, False, dev)
+        v, el = c["v"].clone(), c["elapsed"].clone()
+
+        def run_kernel():
+            _launch(c, name, False, True, v, el)
+        s, _ = _unpack_words(c["packed"])
+        w = _dequant_columns(c["w0"], c["cbw"]) if codebook else c["w0"]
+        b, by = _bound(c, codebook)
+        per_shape.append({
+            "shape": [m, k, n], "ms": _time_graph_ms(run_kernel),
+            "eager_ms": _time_eager_ms(run_kernel),
+            "plain_ms": _time_eager_ms(lambda: _plain(c, False, True)),
+            "library_ms": _time_graph_ms(lambda: torch.matmul(s, w)),
+            "bound_ms": b, "bound_by": by})
+    log(f"kernel {name} timed at M={m}: per shape {json.dumps(per_shape)}")
+    return per_shape
+
+
+def kernel_phase(arch, seed: int) -> dict:
+    """Compare both kernels with their plain versions over the cases and
+    the edge cases, then time them at the main path's shapes (M = 32,
+    which the kernels line reports) and at a whole run's 640 rows."""
+    import torch
+
+    from repro_torch.core import zspe as Z
+    from repro_torch.kernels import fused_timestep as FT
+
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     shapes = [(arch.layer_sizes[i], arch.layer_sizes[i + 1])
               for i in range(len(arch.layer_sizes) - 1)]
+    for m in (BATCH, BATCH * arch.timesteps):
+        for k, n in shapes:
+            plan = FT._plan(m, n, 16)
+            log(f"fused codebook plan [M={m} K={k} N={n}]: BM {FT.BM}, BN "
+                f"{plan.bn}, all {Z.spike_word_count(k)} spike words per "
+                f"block, {plan.smem} B shared, grid "
+                f"({-(-n // plan.bn)}, {-(-m // FT.BM)})")
     results = {}
     for name, codebook in (("fused_timestep_codebook", True),
                            ("fused_timestep_dense", False)):
@@ -343,37 +452,20 @@ def kernel_phase(arch, seed: int) -> dict:
                         err = max(err, compare_case(c, name, all_nonzero,
                                                     partial_update, desc))
                         n_cases += 1
-        ms = plain_ms = lib_ms = bound_ms = 0.0
-        bound_parts = {"bytes": 0.0, "operations": 0.0}
-        per_shape = []
-        for k, n in shapes:
-            c = _case(rng, BATCH, k, n, TIME_DENSITY, codebook, False, dev)
-            v, el = c["v"].clone(), c["elapsed"].clone()
-
-            def run_kernel():
-                _launch(c, name, False, True, v, el)
-            s, _ = _unpack_words(c["packed"])
-            w = _dequant_columns(c["w0"], c["cbw"]) if codebook else c["w0"]
-            t_k = _time_graph_ms(run_kernel)
-            t_eager = _time_eager_ms(run_kernel)
-            t_p = _time_eager_ms(lambda: _plain(c, False, True))
-            t_l = _time_graph_ms(lambda: torch.matmul(s, w))
-            b, by = _bound(c, codebook)
-            ms += t_k
-            plain_ms += t_p
-            lib_ms += t_l
-            bound_ms += b
-            bound_parts[by] += b
-            per_shape.append({"shape": [BATCH, k, n], "ms": t_k,
-                              "eager_ms": t_eager,
-                              "plain_ms": t_p, "library_ms": t_l,
-                              "bound_ms": b, "bound_by": by})
-        log(f"kernel {name}: {n_cases} cases agree, max |dv'| {err:.3g}; "
-            f"per shape {json.dumps(per_shape)}")
+        edge_err, edge_n = _fused_edge_cases(rng, dev, name)
+        log(f"kernel {name}: {n_cases + edge_n} cases agree (every edge "
+            f"case called twice, bitwise equal), max |dv'| "
+            f"{max(err, edge_err):.3g}")
+        fused_timing(arch, seed, name, BATCH * arch.timesteps)  # logged
+        per_shape = fused_timing(arch, seed, name, BATCH)
+        by = {"bytes": 0.0, "operations": 0.0}
+        for p in per_shape:
+            by[p["bound_by"]] += p["bound_ms"]
         results[name] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": max(bound_parts, key=bound_parts.get)}
+            "max_abs_err": max(err, edge_err),
+            **{key: sum(p[key] for p in per_shape)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": max(by, key=by.get)}
     return results
 
 
@@ -695,7 +787,7 @@ def _check_against_compiled(fused, compiled, trains, what: str) -> None:
 
 
 def _device_breakdown(fn, wall_ms: float,
-                      sums=(("fused_kernel_ms", "fused_timestep_kernel"),)
+                      sums=(("fused_kernel_ms", "fused_timestep_"),)
                       ) -> dict:
     """Device time by kernel over one call of `fn` (torch.profiler), and
     the card's idle share against the unprofiled wall time `wall_ms`;
@@ -996,8 +1088,10 @@ def api_path(arch, qws, seed: int) -> dict:
         ms = _timed_ms(lambda: run(step))
         perf[name].update(ms_per_loop=ms, **_device_breakdown(
             lambda: run(step), ms,
-            tuple((f"{k}_kernel_ms", f"{k}_")
-                  for k in ("zspe", "codebook", "lif", "fused_timestep"))))
+            (("zspe_kernel_ms", "zspe_"),
+             ("codebook_kernel_ms", "codebook_matmul_"),
+             ("lif_kernel_ms", "lif_update_"),
+             ("fused_timestep_kernel_ms", "fused_timestep_"))))
         log(f"kernel-API loop {name}: {json.dumps(perf[name])}")
 
     # one codebook_matmul backward at layer 1 against plain autograd

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// addresses, mbarriers, TMA tile loads, cp.async with zero fill (16 and 4
-// bytes), and the bf16 `wgmma` m64n64k16 product with A from shared memory
-// or registers.
+// addresses, mbarriers, TMA tile loads, cp.async with zero fill (16, 8 and
+// 4 bytes), the f64 `mma.sync` m16n8k16 product, and the bf16 `wgmma`
+// m64n64k16 product with A from shared memory or registers.
 //
 // Most helpers wrap one PTX instruction and are named after it.
 // `build.py` hashes this header with each source, so an edit here rebuilds
@@ -92,6 +92,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes from global to shared (8-byte aligned), zero when `src_bytes`
+// is 0 (then `src` must still be a valid address)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // 4 bytes from global to shared (4-byte aligned), zero when `src_bytes`
 // is 0 (then `src` must still be a valid address)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -109,6 +119,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- f64 mma ---------------------------------------------------------------
+
+// d (16 x 8) += a (16 x 16, row-major) . b (16 x 8, column-major), in f64
+// on the tensor cores.  With g = lane / 4 and t = lane % 4, lane holds
+// a[2v + h] = A[g + 8h][t + 4v], b[v] = B[t + 4v][g] (v < 4, h < 2) and
+// d[2h + i] = D[g + 8h][2t + i].
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8],
+                                     const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // ---- wgmma -----------------------------------------------------------------

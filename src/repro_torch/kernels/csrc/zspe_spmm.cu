@@ -152,21 +152,6 @@ constexpr int kPartial = kBM * kBN * 8;       // f64 tile, after the loop
 constexpr int kRing = kRaw > kPartial ? kRaw : kPartial;
 constexpr int kGatherBytes = kRing + kChunk * 4 + kChunk * 2 + kSegs * 8 + 8;
 
-// d (16 x 8) += a (16 x 16, row-major) . b (16 x 8, column-major), in f64
-// on the tensor cores.  With g = lane / 4 and t = lane % 4, lane holds
-// a[2v + h] = A[g + 8h][t + 4v], b[v] = B[t + 4v][g] (v < 4, h < 2) and
-// d[2h + i] = D[g + 8h][2t + i].
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8],
-                                     const double (&b)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
-}
-
 // issue stage `st` of the chunk (list entries st * kSK ..) into `dst`:
 // 16-byte cp.async from every thread, or 4-byte ones when rows are not
 // 16-byte aligned; zero past the list or N
@@ -228,7 +213,7 @@ __device__ __forceinline__ void add_stage(
             x = (double)(float)spikes[(size_t)(row0 + r) * k + kk[v]];
           a[2 * v + h] = x;
         }
-      dmma(acc[tile], a, b);
+      hopper::dmma(acc[tile], a, b);
     }
   }
 }

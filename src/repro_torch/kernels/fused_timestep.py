@@ -16,10 +16,17 @@ has three parts:
 Membrane state is read-modify-write: `v` and `elapsed` are updated in
 place on both devices, and the returned v' / elapsed' are those same
 tensors (the reference donates the buffers to XLA for the same effect).
+
+An index outside [0, L) adds 0 and touches nothing, as in the
+reference's compare-and-select dequant, which it runs on a device.
+
+`_plan` sizes a codebook launch: the output tile's width, so that a
+one-step call (M = 32) still fills the card.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +34,45 @@ from repro_torch.core.zspe import SPIKE_WORD_BITS, words_as_int32
 from repro_torch.kernels.build import check_operands, launch
 
 launches = {"fused_timestep_codebook": 0, "fused_timestep_dense": 0}
+
+BM = 32              # rows of a codebook output tile: a k's row mask
+BNS = (16, 8)        # its widths: two or one n8 tile of the f64 product
+TARGET_BLOCKS = 128  # about one block for each of the H100's 132 SMs
+MAX_LEVELS = 128     # int8 indexes reach levels 0..127 only
+CHUNK_WORDS = 256    # spike words a block lists at once
+
+# csrc/fused_timestep.cu's shared-memory layout: per block (512 threads
+# for BN = 8, 256 for BN = 16) the level table ((min(L, 128) + 1) x BN
+# f64) and a ring of 8 stages of an index row of 16 bytes and its row mask
+# per thread, which the warps' (32, BN) f64 partial tiles and touched masks
+# reuse; then the chunk's spike words, row masks, k-list and counts
+_CHUNK_BYTES = (BM * (CHUNK_WORDS + 2) * 2 + CHUNK_WORDS * 16 * (4 + 2)
+                + CHUNK_WORDS // 2 * 4 * 2 + 2 * BM * 4 + 16)
+
+
+class Plan(NamedTuple):
+    """A block owns a (BM, bn) output tile over all of K."""
+    bn: int        # output columns per block
+    smem: int      # shared-memory bytes per block
+
+
+def _tiles(d: int, b: int) -> int:
+    return -(-d // b)
+
+
+def _smem_bytes(bn: int, n_levels: int) -> int:
+    threads = 512 if bn == 8 else 256
+    table = (min(n_levels, MAX_LEVELS) + 1) * bn * 8
+    ring = 8 * threads * (16 + 4)
+    partials = threads // 32 * (BM * bn * 8 + bn * 4)
+    return max(table + ring, partials) + _CHUNK_BYTES
+
+
+def _plan(m: int, n: int, n_levels: int) -> Plan:
+    """The wider tile, unless it leaves the grid short of TARGET_BLOCKS."""
+    wide = _tiles(m, BM) * _tiles(n, BNS[0]) >= TARGET_BLOCKS
+    bn = BNS[0] if wide else BNS[1]
+    return Plan(bn, _smem_bytes(bn, n_levels))
 
 
 def reset_launches() -> None:
@@ -50,8 +96,13 @@ def _unpack_words(pk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _dequant_columns(idx: torch.Tensor, cbw: torch.Tensor) -> torch.Tensor:
     """Expand (K, bn) indexes against per-column level values (L, bn):
-    the f32 element `cbw[idx[k, n], n]` (the reference's gather form)."""
-    return torch.gather(cbw, 0, idx.long())
+    the f32 element `cbw[idx[k, n], n]` where 0 <= idx < L, else 0."""
+    # 0 out of range: src/repro/kernels/fused_timestep.py:79-82, the
+    # dequant src/repro/kernels/ops.py:207 selects on a device
+    ix = idx.long()
+    ok = (ix >= 0) & (ix < cbw.shape[0])
+    w = torch.gather(cbw, 0, ix.clamp(0, cbw.shape[0] - 1))
+    return torch.where(ok, w, torch.zeros_like(w))
 
 
 def _lif_tile(v, el, cur, tcnt, *, threshold, leak, reset, partial_update):
@@ -117,7 +168,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "fused_timestep_codebook": [_P] * 9 + [_I] * 4 + [_F] * 3
+    "fused_timestep_codebook": [_P] * 9 + [_I] * 6 + [_F] * 3
     + [_I, _I, _P],
     "fused_timestep_dense": [_P] * 8 + [_I] * 3 + [_F] * 3
     + [_I, _I, _P],
@@ -171,7 +222,8 @@ def _run(name, packed, w0, cbw, v, elapsed, threshold, leak, reset,
     tail = [v.data_ptr(), elapsed.data_ptr(), spikes.data_ptr(),
             touched.data_ptr(), nnz.data_ptr(), ew.data_ptr(), m, kw, n]
     if cbw is not None:
-        tail.append(int(cbw.shape[0]))
+        n_levels = int(cbw.shape[0])
+        tail += [n_levels, *_plan(m, n, n_levels)]
     tail += [float(threshold), float(leak), float(reset),
              int(bool(partial_update)), int(bool(all_nonzero)), stream]
     launch("fused_timestep", f"{name}_launch", _ARGTYPES[name], *head, *tail)

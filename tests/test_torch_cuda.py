@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each kernel (fused timestep,
 zspe_spmm, codebook_matmul, lif_update, flash_attention) against its plain
 version at small shapes and at the shapes that reach its plan's edges
-(the codebook product's split of K and lookup table, the flash kernel's
-tensor-core and SIMT instantiations), the padded `ops.fused_timestep`
+(the fused codebook kernel's tiles, level table and out-of-range
+indexes, the codebook product's split of K and lookup table, the flash
+kernel's tensor-core and SIMT instantiations), the padded `ops.fused_timestep`
 against itself on the CPU, a fused run and an LM prefill counting their
 launches.  Marked `cuda`; every test skips without a card.  Run on the
 card with
@@ -29,19 +30,25 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, seed, m, k, n, density, all_nonzero):
+def _case(dev, seed, m, k, n, density, all_nonzero, levels=16, lo=0,
+          hi=None):
+    """Indexes from [lo, hi) (default [0, levels)); the dense weights are
+    their levels, 0 outside [0, L)."""
     rng = np.random.default_rng(seed)
     kp = Z.spike_word_count(k) * Z.SPIKE_WORD_BITS
     s = (rng.random((m, k)) < density).astype(np.float32)
-    cb = np.sort(rng.normal(0, 0.3, 16)).astype(np.float32)
+    cb = np.sort(rng.normal(0, 0.3, levels)).astype(np.float32)
     if all_nonzero:
         cb[cb == 0] = 1e-3
     else:
         cb[np.argmin(np.abs(cb))] = 0.0
     idx = np.zeros((kp, n), np.int8)
-    idx[:k] = rng.integers(0, 16, (k, n))
-    cbw = np.broadcast_to(cb[:, None], (16, n)).copy()
-    dense = (cb[idx] * (np.arange(kp) < k)[:, None]).astype(np.float32)
+    idx[:k] = rng.integers(lo, levels if hi is None else hi, (k, n))
+    cbw = np.broadcast_to(cb[:, None], (levels, n)).copy()
+    ix = idx.astype(np.int64)
+    dense = np.where((ix >= 0) & (ix < levels),
+                     cb[np.clip(ix, 0, levels - 1)], 0.0)
+    dense = (dense * (np.arange(kp) < k)[:, None]).astype(np.float32)
 
     def t(x):
         return torch.tensor(x, device=dev)
@@ -52,26 +59,49 @@ def _case(dev, seed, m, k, n, density, all_nonzero):
                 el=t(rng.integers(0, 6, (m, n)).astype(np.int32)))
 
 
+# (M, K, N, L, lo, hi of the int8 indexes): the first as before; then the
+# codebook kernel's plan edges (kernels/fused_timestep.py `_plan`): one
+# spike word, Kw = 9 (a split of 8 does not divide it), N = 10 and 37
+# (index rows not 16-byte aligned), one row, a ragged row tile, a whole
+# run's 640 rows; L = 1 and 200 (only 0..127 reachable); indexes outside
+# [0, L) (negative ones and ones >= L)
+FUSED_CASES = {
+    "base": (9, 200, 300, 16, 0, 16), "kw1": (32, 16, 128, 16, 0, 16),
+    "kw9": (32, 144, 256, 16, 0, 16), "n10": (32, 1000, 10, 16, 0, 16),
+    "n37": (32, 999, 37, 16, 0, 16), "m1": (1, 2312, 4096, 16, 0, 16),
+    "ragged": (200, 999, 37, 16, 0, 16), "m640": (640, 2312, 4096, 16, 0, 16),
+    "L1": (32, 1024, 256, 1, 0, 1), "L200": (32, 1024, 256, 200, -128, 128),
+    "out-of-range": (32, 999, 64, 8, -20, 21)}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
 @pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
 @pytest.mark.parametrize("density", [0.0, 0.05, 0.3, 1.0])
 @pytest.mark.parametrize("all_nonzero", [False, True])
 @pytest.mark.parametrize("partial_update", [True, False],
                          ids=["partial", "full"])
-def test_kernel_matches_plain(dev, codebook, density, all_nonzero,
+def test_kernel_matches_plain(dev, case, codebook, density, all_nonzero,
                               partial_update):
-    c = _case(dev, 7, 9, 200, 300, density, all_nonzero)
+    """Against the plain version at FUSED_CASES; a second call on the same
+    inputs bitwise equal to the first."""
+    m, k, n, levels, lo, hi = FUSED_CASES[case]
+    c = _case(dev, 7, m, k, n, density, all_nonzero, levels, lo, hi)
     lif = dict(threshold=1.0, leak=0.9, reset=0.0,
                partial_update=partial_update, all_nonzero=all_nonzero)
     w0, cbw = (c["idx"], c["cbw"]) if codebook else (c["dense"], None)
     want = FT.fused_timestep_plain(c["packed"], w0, cbw, c["v"], c["el"],
                                    **lif)
+    call = FT.fused_timestep_codebook if codebook else \
+        (lambda p, w, _, v, el, **kw: FT.fused_timestep_dense(p, w, v, el,
+                                                              **kw))
     v, el = c["v"].clone(), c["el"].clone()
-    if codebook:
-        got = FT.fused_timestep_codebook(c["packed"], w0, cbw, v, el, **lif)
-    else:
-        got = FT.fused_timestep_dense(c["packed"], w0, v, el, **lif)
+    got = call(c["packed"], w0, cbw, v, el, **lif)
+    again = call(c["packed"], w0, cbw, c["v"].clone(), c["el"].clone(),
+                 **lif)
     torch.cuda.synchronize()
     assert got[0] is v and got[1] is el
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
     for i in (1, 3, 4, 5):
         assert torch.equal(got[i], want[i]), i
     s = Z.unpack_spike_words(c["packed"])

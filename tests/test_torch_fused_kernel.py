@@ -1,7 +1,10 @@
 """The plain version of the port's fused-timestep kernel against the
 reference's Pallas entry points (interpret mode), teacher-forced: the same
-spike words, weights and state through both, held to the harness contract.
-Plus the wrapper's CPU behaviour: in place, uncounted, validated."""
+spike words, weights and state through both, held to the harness contract;
+int8 indexes outside [0, L) against the reference's device path
+(`gather=False`), also through the padded `ops.fused_timestep`.  Plus the
+wrapper's CPU behaviour (in place, uncounted, validated) and the codebook
+kernel's launch plan."""
 import numpy as np
 import pytest
 import torch
@@ -116,3 +119,160 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         FT.fused_timestep_codebook(c["packed"], idx, cbw[:, :8], v, el)
     with pytest.raises(TypeError, match="weights must be torch.float32"):
         FT.fused_timestep_dense(c["packed"], idx, v, el)
+
+
+# ---------------------------------------------------------------------------
+# indexes outside [0, L): the reference's device path gives them weight 0
+# ---------------------------------------------------------------------------
+
+OUT_OF_RANGE = [((-3, 20), 16), ((-128, 128), 8)]   # ([lo, hi), L)
+
+
+def _out_of_range_case(seed, m, k, n, lo, hi, levels, density=0.5):
+    rng = np.random.default_rng(seed)
+    kp = Z.spike_word_count(k) * Z.SPIKE_WORD_BITS
+    s = (rng.random((m, k)) < density).astype(np.float32)
+    idx = rng.integers(lo, hi, (kp, n)).astype(np.int8)
+    cbw = rng.normal(0, 0.4, (levels, n)).astype(np.float32)
+    cbw[levels // 2, : n // 2] = 0.0                 # a zero level as well
+    return dict(s=s, packed=Z.pack_spike_words(torch.as_tensor(s)), idx=idx,
+                cbw=cbw, v=rng.normal(0.5, 0.5, (m, n)).astype(np.float32),
+                el=rng.integers(0, 6, (m, n)).astype(np.int32))
+
+
+def _assert_matches_device_path(got, ref):
+    """Integers equal, v' within 1e-5 relative (the reference's float
+    program is the same up to the matmul's rounding)."""
+    got = [np.asarray(x) for x in got]
+    ref = [np.asarray(x) for x in ref]
+    for i in (1, 2, 3, 4, 5):
+        np.testing.assert_array_equal(got[i].reshape(ref[i].shape), ref[i],
+                                      err_msg=f"output {i}")
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rng_range,levels", OUT_OF_RANGE,
+                         ids=["-3..19-L16", "int8-L8"])
+@pytest.mark.parametrize("partial_update", [True, False],
+                         ids=["partial", "full"])
+def test_plain_out_of_range_matches_reference_device_path(
+        rng_range, levels, partial_update):
+    """The plain version against the reference's compare-and-select
+    dequant (`gather=False`, the path it runs on a device), with int8
+    indexes outside [0, L) among the spiking rows."""
+    (lo, hi) = rng_range
+    c = _out_of_range_case(3, 4, 32, 8, lo, hi, levels)
+    assert ((c["idx"] < 0) | (c["idx"] >= levels)).mean() > 0.1
+    lif = dict(threshold=1.0, leak=0.9, reset=0.0,
+               partial_update=partial_update, all_nonzero=False)
+    ref = REF.fused_timestep_codebook(
+        jnp.asarray(c["packed"].view(torch.int16).numpy().view(np.uint16)),
+        jnp.asarray(c["idx"]), jnp.asarray(c["cbw"]), jnp.asarray(c["v"]),
+        jnp.asarray(c["el"]), gather=False, interpret=True, **lif)
+    got = FT.fused_timestep_plain(
+        c["packed"], torch.as_tensor(c["idx"]), torch.as_tensor(c["cbw"]),
+        torch.as_tensor(c["v"]), torch.as_tensor(c["el"]), **lif)
+    _assert_matches_device_path(got, ref)
+
+
+@pytest.mark.parametrize("rng_range,levels", OUT_OF_RANGE,
+                         ids=["-3..19-L16", "int8-L8"])
+@pytest.mark.parametrize("partial_update", [True, False],
+                         ids=["partial", "full"])
+def test_ops_out_of_range_matches_reference_device_path(
+        rng_range, levels, partial_update):
+    """The port's padded `ops.fused_timestep` on the CPU against the
+    reference's raw `gather=False` call on the same padded inputs (the
+    reference's `ops.fused_timestep` passes `gather=True` in interpret
+    mode, so it cannot serve here)."""
+    from repro_torch.kernels import ops
+
+    (lo, hi) = rng_range
+    m, k, n, block = 5, 37, 12, (8, 16)
+    c = _out_of_range_case(4, m, k, n, lo, hi, levels)
+    kp = c["idx"].shape[0]
+    got = ops.fused_timestep(
+        torch.as_tensor(c["s"]), torch.as_tensor(c["idx"][:k]),
+        torch.as_tensor(c["v"]), torch.as_tensor(c["el"]),
+        codebook=torch.as_tensor(c["cbw"]), partial_update=partial_update,
+        block=block)
+
+    def pad(a, rows, cols):
+        return np.pad(a, ((0, rows - a.shape[0]), (0, cols - a.shape[1])))
+
+    packed = c["packed"].view(torch.int16).numpy().view(np.uint16)
+    idx = c["idx"].copy()
+    idx[k:] = 0                                      # ops pads K with 0
+    ref = REF.fused_timestep_codebook(
+        jnp.asarray(pad(packed, 8, packed.shape[1])),
+        jnp.asarray(pad(idx, kp, 16)), jnp.asarray(pad(c["cbw"], levels, 16)),
+        jnp.asarray(pad(c["v"], 8, 16)), jnp.asarray(pad(c["el"], 8, 16)),
+        threshold=1.0, leak=0.9, reset=0.0, partial_update=partial_update,
+        gather=False, block=block, interpret=True)
+    ref = [np.asarray(r)[:m, :n] for r in ref[:4]] + \
+        [np.asarray(r)[:m, 0] for r in ref[4:]]
+    _assert_matches_device_path(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the codebook kernel's launch plan (`_plan`), at the paper's network
+# (configs/snn_chip.py ARCH, 2312-4096-1024-10: Kw = 145, 256, 64)
+# ---------------------------------------------------------------------------
+
+ARCH_LAYERS = [(145, 4096), (256, 1024), (64, 10)]
+SMEM_LIMIT = 232448     # shared memory an H100 block may use
+SM_SMEM = 228 * 1024    # ... and an SM, 1 KB of it reserved per block
+
+
+def _blocks(m, n, plan):
+    return -(-m // FT.BM) * -(-n // plan.bn)
+
+
+@pytest.mark.parametrize("m", [32, 640])
+@pytest.mark.parametrize("kw,n", ARCH_LAYERS)
+def test_plan_at_arch_layers(m, kw, n):
+    plan = FT._plan(m, n, 16)
+    assert plan.bn in FT.BNS
+    assert plan.smem <= SMEM_LIMIT
+    # the narrow tile only where the wide one leaves the grid short
+    if plan.bn != max(FT.BNS):
+        wide = plan._replace(bn=max(FT.BNS))
+        assert _blocks(m, n, wide) < FT.TARGET_BLOCKS
+
+
+def test_plan_fills_the_card_at_one_step():
+    """At M = 32 (one step of the main path) layers 1 and 2 launch about
+    one block per SM (the H100 has 132), and the 10-wide layer 3 is no
+    longer one block."""
+    assert FT._plan(32, 4096, 16).bn == 16
+    assert FT._plan(32, 1024, 16).bn == 8
+    for _, n in ARCH_LAYERS[:2]:
+        assert 100 <= _blocks(32, n, FT._plan(32, n, 16)) <= 264
+    _, n = ARCH_LAYERS[2]
+    assert _blocks(32, n, FT._plan(32, n, 16)) > 1
+
+
+@pytest.mark.parametrize("kw", [1, 3, 145, 256, 4096])
+def test_word_chunks_cover_every_word_once(kw):
+    """The kernel lists the spike words CHUNK_WORDS at a time
+    (`for c0w = 0; c0w < Kw; c0w += CHUNK_WORDS`, each chunk cut at Kw):
+    Kw that the chunk does not divide (1, 3, 145) still sees each word
+    exactly once, and a chunk's k fit the kernel's 16-bit k-list."""
+    seen = np.zeros(kw, np.int64)
+    for c0w in range(0, kw, FT.CHUNK_WORDS):
+        seen[c0w:min(kw, c0w + FT.CHUNK_WORDS)] += 1
+    assert (seen == 1).all()
+    assert FT.CHUNK_WORDS * Z.SPIKE_WORD_BITS <= 2 ** 16
+
+
+@pytest.mark.parametrize("levels", [1, 16, 200])
+@pytest.mark.parametrize("m,n", [(32, 4096), (32, 1024), (32, 10),
+                                 (640, 4096), (1, 37)])
+def test_plan_staged_tiles_fit_shared_memory(levels, m, n):
+    """The level table (at most 128 levels plus the zero level, as f64),
+    the ring and the chunk's arrays fit the H100's 227 KB per block, and
+    two blocks fit one SM at the paper's 16 levels."""
+    plan = FT._plan(m, n, levels)
+    assert plan.smem == FT._smem_bytes(plan.bn, levels) <= SMEM_LIMIT
+    assert max(FT._smem_bytes(bn, 10**6) for bn in FT.BNS) <= SMEM_LIMIT
+    assert 2 * (FT._smem_bytes(max(FT.BNS), 16) + 1024) <= SM_SMEM
