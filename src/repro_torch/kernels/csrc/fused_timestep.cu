@@ -25,44 +25,49 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32) at the paper's widths,
 // B = 32, density 0.10: memory.  Layer 1 (2312 -> 4096) must read the
-// index rows some spike reaches (1 - 0.9^32 of them, about 9.2 MB) plus
-// about 3.1 MB of v / elapsed / spikes / touched traffic, about 3.7 us;
-// layer 2 (4096 -> 1024) about 5 MB, about 1.5 us.
+// weight rows some spike reaches (1 - 0.9^32 of them): about 9.2 MB of
+// index rows (codebook) or 37 MB of f32 rows (dense), plus about 3.1 MB of
+// v / elapsed / spikes / touched traffic, about 3.7 or 12 us; layer 2
+// (4096 -> 1024) about 5 or 17 MB, about 1.5 or 5 us.
 //
-// Codebook kernel.  A block owns a (32, BN) output tile over all of K: BN =
-// 16 with 256 threads, or, where 16 would leave the grid short of one block
-// per SM (the wrapper's `_plan` decides and the kernel trusts it), BN = 8
-// with 512 threads.  It stages the tile's level table once, as f64, with a
-// zero level that every index outside [0, L) selects (int8 reaches only
-// levels 0..127, so at most 128 levels are staged).  Per chunk of 256 spike
-// words it reads the 32 rows' words (each thread's loads in flight at
-// once); a warp per pair of word columns turns lane r's 32 bits (row r)
-// into lane j's 32-row mask of k = 32 p + j by five butterfly swaps and
-// ballots which of those k any row reaches; the reached k are compacted
-// into an ascending list.  Only those index rows idx[k, col0:col0+BN] are
-// streamed, by cp.async with their row masks beside them, through an
-// eight-stage ring of one row per thread, so each reached index row leaves
-// L2 once per 32-row tile, not once per spiking row.  The adds run on the
-// f64 tensor cores (mma.sync m16n8k16): warp w takes k-steps w and w + warps
-// of each stage; A is 1 or 0 from the row masks, B the level each index
-// selects, looked up in the staged table.  The touched mask of a column is
-// the OR of the row masks of the k whose level is not +-0, so the touch
-// flags need no second product.  The warps' f64 partial tiles are added in
-// warp order and rounded once to f32, so two runs are bitwise equal.  One
-// launch per call, no memset, no scratch.  At M = 32 and density 0.10 the
-// dense 32-row product does ten times the adds the spiking (row, k) pairs
-// need; on the tensor cores that still cost less than walking only the
-// pairs on the CUDA cores, whose per-pair level lookups set the pace, and
-// a split of the words over a thread-block cluster lost to one block per
+// One kernel body serves both variants, a template on the source of its B
+// operand (`Codebook` or `Dense` below).  A block owns a (32, BN) output
+// tile over all of K, BN / 8 n8 tiles of the f64 product; the wrapper's
+// `_plan` picks BN 16 where that still gives about one block per SM, else
+// BN 8, and the kernel trusts it.  BN = 8 runs 512 threads, BN = 16 256.
+// Per chunk of 256 spike words it reads the 32 rows' words (each thread's
+// loads in flight at once); a warp per pair of word columns turns lane r's
+// 32 bits (row r) into lane j's 32-row mask of k = 32 p + j by five
+// butterfly swaps and ballots which of those k any row reaches; the
+// reached k are compacted into an ascending list.  Only those weight rows
+// w[k, col0:col0+BN] are streamed, by cp.async with their row masks beside
+// them, through a ring of one row per thread and stage, so each reached
+// row leaves L2 once per 32-row tile, not once per spiking row (a warp's
+// copies cover whole rows).  The adds run on the f64 tensor cores
+// (mma.sync m16n8k16): warp w takes k-steps w and
+// w + warps of each stage; A is 1 or 0 from the row masks, B the row's
+// weights as f64.  The touched mask of a column is the OR of the row masks
+// of the k whose weight is not +-0, so the touch flags need no second
+// product.  The warps' f64 partial tiles are added in warp order and
+// rounded once to f32, so two runs are bitwise equal.  One launch per call,
+// no memset, no scratch.  At M = 32 and density 0.10 the dense 32-row
+// product does ten times the adds the spiking (row, k) pairs need; on the
+// tensor cores that still cost less than walking only the pairs on the
+// CUDA cores (per-pair loads and conversions set the pace there), and a
+// split of the words over a thread-block cluster lost to one block per
 // tile (cluster placement left SMs with two blocks beside idle ones).
 //
-// Dense kernel (float simulators).  One block of 128 threads per (row,
-// 128-column tile), one thread per column, so the weight row of a spike is
-// read as 128 consecutive floats.  Warp 0 scans the row's words, counts them
-// and compacts the set bits into an ascending list of k in shared memory;
-// every thread then walks that list with 8 independent loads in flight.  It
-// reads the weight row of a spiking k once per batch row that spikes there
-// (from L2 after the first).
+// The sources.  Codebook: 8- or 16-byte int8 index rows in an eight-stage
+// ring; the tile's level table is staged once, as f64, with a zero level
+// that every index outside [0, L) selects (int8 reaches only levels
+// 0..127, so at most 128 levels are staged), and B is the level each
+// index selects.  Dense (float simulators): f32 rows of 4 BN bytes, whole
+// 32-byte sectors, in a ring of three stages at BN 16 (two blocks of 256
+// threads share an SM, as two codebook blocks do) or four at BN 8, their
+// n8 tiles swizzled so a B load's four rows start in four bank groups; B
+// is cvt.f64.f32 of the weight, exact, so +-0 stays +-0.  A tile of 32
+// columns (whole 128-byte lines, one block of 256 threads per SM) lost to
+// BN 16 at both M = 32 and 640.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,99 +119,6 @@ __device__ __forceinline__ void lif_store(size_t o, float v0, int el0,
   touched[o] = tc;
 }
 
-// ---------------------------------------------------------------------------
-// dense kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kDenseN = 128;  // columns per block, one per thread
-constexpr int kUnroll = 8;    // independent weight loads in flight
-
-template <bool kPartialUpdate>
-__global__ void __launch_bounds__(kDenseN) fused_timestep_dense_kernel(
-    const uint16_t* __restrict__ packed,  // (M, Kw)
-    const float* __restrict__ weights,    // (16*Kw, N)
-    float* __restrict__ v,                // (M, N) in place
-    int* __restrict__ elapsed,            // (M, N) in place
-    float* __restrict__ spikes,           // (M, N)
-    int* __restrict__ touched,            // (M, N)
-    int* __restrict__ nnz_out,            // (M,)
-    int* __restrict__ empty_out,          // (M,)
-    int kw, int n, float threshold, float leak, float reset,
-    int all_nonzero) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  uint16_t* klist = reinterpret_cast<uint16_t*>(smem);
-  __shared__ int row_nnz;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int col = blockIdx.x * kDenseN + tid;
-  const int row = blockIdx.y;
-  const bool col_ok = col < n;
-
-  if (tid < 32) {  // ZSPE scan of the row: count, then compact set bits
-    const uint16_t* words = packed + (size_t)row * kw;
-    int base = 0, empties = 0;
-    for (int w0 = 0; w0 < kw; w0 += 32) {
-      const int w = w0 + lane;
-      unsigned x = w < kw ? words[w] : 0u;
-      const int c = __popc(x);
-      empties += (w < kw && x == 0u);
-      int incl = c;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, d);
-        if (lane >= d) incl += t;
-      }
-      int off = base + incl - c;
-      while (x) {
-        klist[off++] = (uint16_t)(w * 16 + __ffs(x) - 1);
-        x &= x - 1u;
-      }
-      base += __shfl_sync(kFull, incl, 31);
-    }
-    empties = __reduce_add_sync(kFull, empties);
-    if (lane == 0) {
-      row_nnz = base;
-      if (blockIdx.x == 0) {
-        nnz_out[row] = base;
-        empty_out[row] = empties;
-      }
-    }
-  }
-  __syncthreads();
-  if (!col_ok) return;
-
-  const float* w = weights + col;
-  const int nnz = row_nnz;
-  double acc = 0.0;
-  int cnt = 0;
-  int j = 0;
-  for (; j + kUnroll <= nnz; j += kUnroll) {
-    float wv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) wv[u] = w[(size_t)klist[j + u] * n];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      acc += wv[u];
-      cnt += wv[u] != 0.f;
-    }
-  }
-  for (; j < nnz; ++j) {
-    const float wk = w[(size_t)klist[j] * n];
-    acc += wk;
-    cnt += wk != 0.f;
-  }
-  if (all_nonzero) cnt = nnz;
-  const size_t o = (size_t)row * n + col;
-  lif_store<kPartialUpdate>(o, v[o], kPartialUpdate ? elapsed[o] : 0,
-                            (float)acc, cnt > 0, v, elapsed, spikes, touched,
-                            threshold, leak, reset);
-}
-
-// ---------------------------------------------------------------------------
-// codebook kernel
-// ---------------------------------------------------------------------------
-
 constexpr int kBM = 32;                    // a k's row mask is one word
 constexpr int kMTiles = kBM / 16;          // m16 tiles of the f64 product
 constexpr int kChunkWords = 256;           // spike words listed at once
@@ -214,18 +126,14 @@ constexpr int kChunk = kChunkWords * 16;   // their k
 constexpr int kWordsLd = kChunkWords + 2;  // a row of staged words, padded:
                                            // lane = row hits 32 banks
 constexpr int kSegs = kChunk / 32;         // 32-k segments of a chunk
-constexpr int kLd = 16;                    // a staged index row (BN <= 16
-                                           // bytes): the four rows of a B
-                                           // load start in four banks
-constexpr int kStages = 8;                 // ring: seven stages in flight
 constexpr int kBatch = 8;                  // global loads a thread has in
                                            // flight while staging
 constexpr int kMaxLevels = 128;            // int8 reaches levels 0..127
 constexpr int kSmemMax = 232448;           // an H100 block's shared memory
 static_assert(kSegs == 4 * 32, "a lane of warp 0 scans four segments");
 
-// A block of a tile one n8 tile wide has 512 threads, two n8 tiles wide 256:
-// a stage holds an index row per thread, two k-steps of 16 for each warp.
+// A block of a tile one n8 tile wide has 512 threads, two wide 256: a
+// stage holds a weight row per thread, two k-steps of 16 for each warp.
 __host__ __device__ constexpr int block_threads(int bn) {
   return bn == 8 ? 512 : 256;
 }
@@ -233,65 +141,176 @@ template <int kNT>
 struct Shape {
   static constexpr int kThreads = block_threads(8 * kNT);
   static constexpr int kWarps = kThreads / 32;
-  static constexpr int kSK = kThreads;  // index rows per stage
-  static constexpr int kMinBlocks = 65536 / (kThreads * 128);  // on an SM,
-                                                 // at 128 registers a thread
+  static constexpr int kSK = kThreads;  // weight rows per stage
   static_assert(kSK / 16 == 2 * kWarps, "two k-steps of a stage per warp");
 };
 
-// Bytes of the block's shared memory: the level table and the ring of index
-// rows and their row masks, which the warps' f64 partial tiles and touched
-// masks reuse after the loop; then the staged spike words, the chunk's row
-// masks and k-list, the segment counts and the per-row spike and empty-word
-// counts.
-// `fused_timestep.py` `_smem_bytes` computes the same.
-__host__ __device__ constexpr int region_bytes(int bn, int ls) {
-  return (ls + 1) * bn * 8 + kStages * block_threads(bn) * (kLd + 4) >
-                 block_threads(bn) / 32 * (kBM * bn * 8 + bn * 4)
-             ? (ls + 1) * bn * 8 + kStages * block_threads(bn) * (kLd + 4)
-             : block_threads(bn) / 32 * (kBM * bn * 8 + bn * 4);
-}
-constexpr int kFixedBytes = kBM * kWordsLd * 2 + kChunk * 4 + kChunk * 2 +
-                            kSegs * 4 * 2 + 2 * kBM * 4 + 16;
-__host__ __device__ constexpr int smem_bytes(int bn, int n_levels) {
-  return region_bytes(bn, n_levels < kMaxLevels ? n_levels : kMaxLevels) +
-         kFixedBytes;
-}
+// ---------------------------------------------------------------------------
+// the B operand's sources: a staged row's bytes, and the f64 values a lane
+// takes from it.  Lane (g, t) of the product takes column 8 nt + g of each
+// n8 tile nt.
+// ---------------------------------------------------------------------------
 
-// start stage `st` of the chunk (list entries st * kSK ..) into `dst`, a
-// row per thread: a cp.async of the tile's kBN bytes, or, when index rows
-// are not kBN-byte aligned, byte loads of its columns before N; and the
-// row's mask into `dmask`.  A row past the list gets mask 0 and index
-// bytes 0xff, which select the zero level.
-template <int kNT, bool kVec>
-__device__ __forceinline__ void load_stage(const int8_t* __restrict__ idx,
-                                           uint8_t* dst, uint32_t* dmask,
-                                           const uint16_t* list,
-                                           const uint32_t* kmask, int st,
-                                           int n_reach, int k0, int col0,
-                                           int n) {
-  constexpr int kBN = 8 * kNT, kSK = Shape<kNT>::kSK;
-  const int r = threadIdx.x, j = st * kSK + r;
-  if (j >= n_reach) {
-    *reinterpret_cast<uint4*>(dst + r * kLd) = make_uint4(~0u, ~0u, ~0u, ~0u);
-    dmask[r] = 0u;
-    return;
+// int8 index rows; B is the level an index selects in the tile's f64 level
+// table ([column][level], ls + 1 levels, the last one zero).
+struct Codebook {
+  using Elem = int8_t;
+  static constexpr bool kTable = true;
+  // ring stages: seven in flight
+  __host__ __device__ static constexpr int stages(int) { return 8; }
+  // staged row bytes (BN <= 16): the four rows of a B load start in four
+  // banks
+  __host__ __device__ static constexpr int ld(int) { return 16; }
+  // blocks an SM holds, at 128 registers a thread
+  __host__ __device__ static constexpr int min_blocks(int bn) {
+    return 65536 / (block_threads(bn) * 128);
   }
-  const int kl = list[j];
-  dmask[r] = kmask[kl];
-  const int8_t* src = idx + (size_t)(k0 + kl) * n + col0;
-  if constexpr (kVec) {
-    if constexpr (kBN == 16)
-      hopper::cp_async16(dst + r * kLd, src, 16);
-    else
-      hopper::cp_async8(dst + r * kLd, src, 8);
-  } else {  // its columns before N, the loads in flight together
+  // the slot of n8 tile nt in staged row r: rows are not permuted
+  __device__ __forceinline__ static int slot(int, int nt, int) { return nt; }
+  template <int kNT>
+  __device__ __forceinline__ static void fetch(double (&b)[kNT],
+                                               const uint8_t* row, int g,
+                                               const double* table, int lp,
+                                               uint32_t ls, int) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      // index bytes past ls, which every negative int8 is as unsigned,
+      // select the zero level
+      const uint32_t ix = row[8 * nt + g];
+      b[nt] = table[(8 * nt + g) * lp + min(ix, ls)];
+    }
+  }
+  // a row whose columns are not all in bounds or not aligned: byte loads of
+  // its columns before N, all in flight together
+  template <int kBN>
+  __device__ __forceinline__ static void load_row(uint8_t* dst,
+                                                  const Elem* src, int col0,
+                                                  int n, int) {
     uint8_t x[kBN];
 #pragma unroll
     for (int c = 0; c < kBN; ++c)
       x[c] = col0 + c < n ? (uint8_t)src[c] : (uint8_t)0;
 #pragma unroll
-    for (int c = 0; c < kBN; ++c) dst[r * kLd + c] = x[c];
+    for (int c = 0; c < kBN; ++c) dst[c] = x[c];
+  }
+};
+
+// f32 weight rows; B is the weight, converted exactly to f64.
+struct Dense {
+  using Elem = float;
+  static constexpr bool kTable = false;
+  // ring stages of 16 KB of rows: BN 16 keeps three, so that two blocks
+  // of 256 threads fit an SM, BN 8 (512 threads, one block) four
+  __host__ __device__ static constexpr int stages(int bn) {
+    return bn == 16 ? 3 : 4;
+  }
+  // staged row bytes: 4 BN, unpadded (`slot` spreads the banks)
+  __host__ __device__ static constexpr int ld(int bn) { return 4 * bn; }
+  // blocks an SM holds: two at BN 16 (128 registers a thread)
+  __host__ __device__ static constexpr int min_blocks(int bn) {
+    return bn == 16 ? 2 : 1;
+  }
+  // The slot of n8 tile nt in staged row r, so that the four rows of a B
+  // load (r = t + 4 v, t < 4) start in four groups of eight banks: the two
+  // tiles of a 64-byte row swap places where bit 1 of r is set (a 32-byte
+  // row spreads them as it is).
+  __device__ __forceinline__ static int slot(int r, int nt, int n_tiles) {
+    return n_tiles == 2 ? nt ^ (r >> 1 & 1) : nt;
+  }
+  template <int kNT>
+  __device__ __forceinline__ static void fetch(double (&b)[kNT],
+                                               const uint8_t* row, int g,
+                                               const double*, int, uint32_t,
+                                               int r) {
+    const float* w = reinterpret_cast<const float*>(row) + g;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+      b[nt] = (double)w[8 * slot(r, nt, kNT)];
+  }
+  // a row that is not 16-byte aligned or runs past N: 4-byte copies of its
+  // columns, zero past N
+  template <int kBN>
+  __device__ __forceinline__ static void load_row(uint8_t* dst,
+                                                  const Elem* src, int col0,
+                                                  int n, int r) {
+#pragma unroll
+    for (int c = 0; c < kBN; ++c) {
+      const bool in = col0 + c < n;
+      hopper::cp_async4(dst + 4 * (8 * slot(r, c / 8, kBN / 8) + c % 8),
+                        in ? src + c : src, in ? 4 : 0);
+    }
+  }
+};
+
+// Bytes of the block's shared memory: the level table (codebook) and the
+// ring of weight rows and their row masks, which the warps' f64 partial
+// tiles and touched masks reuse after the loop; then the staged spike
+// words, the chunk's row masks and k-list, the segment counts and the
+// per-row spike and empty-word counts.
+// `fused_timestep.py` `_smem_bytes` computes the same.
+template <class Src>
+__host__ __device__ constexpr int region_bytes(int bn, int ls) {
+  return (Src::kTable ? (ls + 1) * bn * 8 : 0) +
+                     Src::stages(bn) * block_threads(bn) * (Src::ld(bn) + 4) >
+                 block_threads(bn) / 32 * (kBM * bn * 8 + bn * 4)
+             ? (Src::kTable ? (ls + 1) * bn * 8 : 0) +
+                   Src::stages(bn) * block_threads(bn) * (Src::ld(bn) + 4)
+             : block_threads(bn) / 32 * (kBM * bn * 8 + bn * 4);
+}
+constexpr int kFixedBytes = kBM * kWordsLd * 2 + kChunk * 4 + kChunk * 2 +
+                            kSegs * 4 * 2 + 2 * kBM * 4 + 16;
+template <class Src>
+__host__ __device__ constexpr int smem_bytes(int bn, int n_levels) {
+  return region_bytes<Src>(bn,
+                           n_levels < kMaxLevels ? n_levels : kMaxLevels) +
+         kFixedBytes;
+}
+
+// start stage `st` of the chunk (list entries st * kSK ..) into `dst`, row r
+// at r * ld: with kVec, copies of up to 16 bytes, piece e of the stage from
+// row e / pieces, so a warp's copies cover whole rows; else a row per
+// thread by `Src::load_row`.  Thread r writes row r's mask into `dmask`.  A
+// row past the list gets mask 0 and a copy of the list's last row, so it
+// adds +-0 and touches nothing.
+template <class Src, int kNT, bool kVec>
+__device__ __forceinline__ void load_stage(
+    const typename Src::Elem* __restrict__ w, uint8_t* dst, uint32_t* dmask,
+    const uint16_t* list, const uint32_t* kmask, int st, int n_reach, int k0,
+    int col0, int n) {
+  using Elem = typename Src::Elem;
+  constexpr int kBN = 8 * kNT, kSK = Shape<kNT>::kSK;
+  constexpr int kLd = Src::ld(kBN);
+  constexpr int kRow = kBN * (int)sizeof(Elem);     // bytes of a row
+  constexpr int kPiece = kRow < 16 ? kRow : 16;     // bytes of a copy
+  constexpr int kPieces = kRow / kPiece;            // copies per row
+  constexpr int kPieceElems = kPiece / (int)sizeof(Elem);
+  const int tid = threadIdx.x;
+  {
+    const int j = st * kSK + tid;
+    dmask[tid] = j < n_reach ? kmask[list[j]] : 0u;
+  }
+  if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      const int e = i * kSK + tid, r = e / kPieces, q = e % kPieces;
+      const int j = min(st * kSK + r, n_reach - 1);
+      const int c0 = q * kPieceElems;  // its first column in the tile
+      uint8_t* d = dst + r * kLd +
+                   (Src::slot(r, c0 / 8, kNT) * 8 + c0 % 8) * (int)sizeof(Elem);
+      // a piece lies wholly before or past N (N is a multiple of the
+      // piece); its n8 tile goes to the row's `slot` for it
+      const Elem* row = w + (size_t)(k0 + list[j]) * n + col0;
+      const bool in = col0 + (q + 1) * kPieceElems <= n;
+      if constexpr (kPiece == 16)
+        hopper::cp_async16(d, in ? row + q * kPieceElems : row, in ? 16 : 0);
+      else
+        hopper::cp_async8(d, in ? row + q * kPieceElems : row, in ? 8 : 0);
+    }
+  } else {
+    const int j = min(st * kSK + tid, n_reach - 1);
+    Src::template load_row<kBN>(dst + tid * kLd,
+                                w + (size_t)(k0 + list[j]) * n + col0, col0,
+                                n, tid);
   }
 }
 
@@ -319,45 +338,38 @@ __device__ __forceinline__ void stage_table(double* table,
 }
 
 // adds the warp's two k-steps of a stage (s = warp, warp + kWarps): the
-// product of the 32 rows' 0/1 spikes at the k-step's 16 k with the levels
-// their indexes select.  Lane (g, t)'s operands take stage rows
-// j = 16 s + t + 4 v: b, for each n8 tile, is the level of j's index at the
-// tile's column g (index bytes past ls, which every negative int8 is as
-// unsigned, select the zero level), and a, for m16 tile i, is 1 or 0 as
-// row 16 i + g + 8 h's bit in j's mask is set.  The touched mask of the
-// column ORs j's row mask where the level is not +-0.  A warp whose first
-// k-step lies past the list (`rows` rows of the stage are listed) adds
-// nothing; its second may, and then adds the padding rows' zeros, so both
-// k-steps' loads are in flight together.
-template <int kNT>
+// product of the 32 rows' 0/1 spikes at the k-step's 16 k with the weights
+// of those k.  Lane (g, t)'s operands take stage rows j = 16 s + t + 4 v:
+// b, for each n8 tile, is j's weight at the tile's column g as the source
+// gives it, and a, for m16 tile i, is 1 or 0 as row 16 i + g + 8 h's bit in
+// j's mask is set.  The touched mask of the column ORs j's row mask where
+// the weight is not +-0.  A warp whose first k-step lies past the list
+// (`rows` rows of the stage are listed) adds nothing; its second may, and
+// then adds the padding rows' +-0.  Each k-step is fetched and added in
+// turn, so the first one's products issue while the second one's operands
+// are loaded and converted.
+template <class Src, int kNT>
 __device__ __forceinline__ void add_stage(
     double (&acc)[kNT][kMTiles][4], uint32_t (&tmask)[kNT],
     const uint8_t* raw, const uint32_t* smask, const double* table, int rows,
     uint32_t ls, int warp, int lane) {
-  constexpr int kWarps = Shape<kNT>::kWarps;
+  constexpr int kWarps = Shape<kNT>::kWarps, kLd = Src::ld(8 * kNT);
   if (16 * warp >= rows) return;
   const int g = lane >> 2, t = lane & 3;
-  const int lp = (int)ls + 1;
-  const double* my_table = table + g * lp;
-  const uint8_t* my_raw = raw + g;
-  uint32_t m4[2][4];
-  double b[2][kNT][4];
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2)
+  for (int h2 = 0; h2 < 2; ++h2) {
+    uint32_t m4[4];
+    double b[4][kNT];
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int j = 16 * (warp + kWarps * h2) + t + 4 * v;
-      m4[h2][v] = smask[j];
+      m4[v] = smask[j];
+      Src::template fetch<kNT>(b[v], raw + j * kLd, g, table, (int)ls + 1,
+                               ls, j);
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const uint32_t ix = my_raw[j * kLd + 8 * nt];
-        b[h2][nt][v] = my_table[8 * nt * lp + min(ix, ls)];
-        if (__double2hiint(b[h2][nt][v]) & 0x7fffffff)
-          tmask[nt] |= m4[h2][v];
-      }
+      for (int nt = 0; nt < kNT; ++nt)
+        if (__double2hiint(b[v][nt]) & 0x7fffffff) tmask[nt] |= m4[v];
     }
-#pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
       double a[8];
@@ -367,40 +379,45 @@ __device__ __forceinline__ void add_stage(
         for (int h = 0; h < 2; ++h)
           // 1.0 or 0.0 by its high word: no int-to-f64 conversion
           a[2 * v + h] = __hiloint2double(
-              m4[h2][v] & 1u << (16 * i + g + 8 * h) ? 0x3FF00000 : 0, 0);
+              m4[v] & 1u << (16 * i + g + 8 * h) ? 0x3FF00000 : 0, 0);
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        hopper::dmma(acc[nt][i], a, b[h2][nt]);
+      for (int nt = 0; nt < kNT; ++nt) {
+        const double bv[4] = {b[0][nt], b[1][nt], b[2][nt], b[3][nt]};
+        hopper::dmma(acc[nt][i], a, bv);
+      }
     }
+  }
 }
 
-template <int kNT, bool kVec, bool kPartialUpdate>
-__global__ void __launch_bounds__(Shape<kNT>::kThreads, Shape<kNT>::kMinBlocks)
-    fused_timestep_codebook_kernel(
-    const uint16_t* __restrict__ packed,  // (M, Kw)
-    const int8_t* __restrict__ idx,       // (16*Kw, N)
-    const float* __restrict__ cbw,        // (L, N)
-    float* __restrict__ v,                // (M, N) in place
-    int* __restrict__ elapsed,            // (M, N) in place
-    float* __restrict__ spikes,           // (M, N)
-    int* __restrict__ touched,            // (M, N)
-    int* __restrict__ nnz_out,            // (M,)
-    int* __restrict__ empty_out,          // (M,)
+template <class Src, int kNT, bool kVec, bool kPartialUpdate>
+__global__ void __launch_bounds__(Shape<kNT>::kThreads,
+                                  Src::min_blocks(8 * kNT))
+    fused_timestep_kernel(
+    const uint16_t* __restrict__ packed,          // (M, Kw)
+    const typename Src::Elem* __restrict__ w,     // (16*Kw, N)
+    const float* __restrict__ cbw,                // (L, N), codebook only
+    float* __restrict__ v,                        // (M, N) in place
+    int* __restrict__ elapsed,                    // (M, N) in place
+    float* __restrict__ spikes,                   // (M, N)
+    int* __restrict__ touched,                    // (M, N)
+    int* __restrict__ nnz_out,                    // (M,)
+    int* __restrict__ empty_out,                  // (M,)
     int m, int kw, int n, int n_levels, float threshold, float leak,
     float reset, int all_nonzero) {
-  constexpr int kBN = 8 * kNT;
+  constexpr int kBN = 8 * kNT, kStages = Src::stages(kBN);
   constexpr int kThreads = Shape<kNT>::kThreads, kWarps = Shape<kNT>::kWarps;
   constexpr int kSK = Shape<kNT>::kSK;
-  constexpr int kStage = kSK * kLd;  // bytes
+  constexpr int kStage = kSK * Src::ld(kBN);  // bytes
   extern __shared__ __align__(128) uint8_t smem[];
-  const int ls = min(n_levels, kMaxLevels);
+  const int ls = Src::kTable ? min(n_levels, kMaxLevels) : 0;
   double* table = reinterpret_cast<double*>(smem);
-  uint8_t* ring = smem + (ls + 1) * kBN * 8;
+  uint8_t* ring = smem + (Src::kTable ? (ls + 1) * kBN * 8 : 0);
   uint32_t* ring_mask = reinterpret_cast<uint32_t*>(ring + kStages * kStage);
   double* partial = reinterpret_cast<double*>(smem);  // after the loop
   uint32_t* pmask =
       reinterpret_cast<uint32_t*>(smem + kWarps * kBM * kBN * 8);
-  uint16_t* words = reinterpret_cast<uint16_t*>(smem + region_bytes(kBN, ls));
+  uint16_t* words =
+      reinterpret_cast<uint16_t*>(smem + region_bytes<Src>(kBN, ls));
   uint32_t* kmask = reinterpret_cast<uint32_t*>(words + kBM * kWordsLd);
   uint16_t* klist = reinterpret_cast<uint16_t*>(kmask + kChunk);
   uint32_t* seg_ballot = reinterpret_cast<uint32_t*>(klist + kChunk);
@@ -510,31 +527,32 @@ __global__ void __launch_bounds__(Shape<kNT>::kThreads, Shape<kNT>::kMinBlocks)
     const int n_reach = n_reach_s[0];
     __syncthreads();
 
-    // stream the reached index rows and add; the level table is staged
+    // stream the reached weight rows and add; a level table is staged
     // once, while the first stages are in flight
     const int n_st = cdiv(n_reach, kSK);
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < n_st)
-        load_stage<kNT, kVec>(idx, ring + s * kStage, ring_mask + s * kSK,
-                              klist, kmask, s, n_reach, k0, col0, n);
+        load_stage<Src, kNT, kVec>(w, ring + s * kStage, ring_mask + s * kSK,
+                                   klist, kmask, s, n_reach, k0, col0, n);
       hopper::cp_async_commit();
     }
-    if (c0w == 0) stage_table<kNT>(table, cbw, ls, col0, n);
+    if constexpr (Src::kTable)
+      if (c0w == 0) stage_table<kNT>(table, cbw, ls, col0, n);
     for (int st = 0; st < n_st; ++st) {
       hopper::cp_async_wait<kStages - 2>();  // stage st has landed
       __syncthreads();  // ... for every thread; stage st - 1 was added
       {
         const int nxt = st + kStages - 1;
         if (nxt < n_st)
-          load_stage<kNT, kVec>(idx, ring + (nxt % kStages) * kStage,
-                                ring_mask + (nxt % kStages) * kSK, klist,
-                                kmask, nxt, n_reach, k0, col0, n);
+          load_stage<Src, kNT, kVec>(w, ring + (nxt % kStages) * kStage,
+                                     ring_mask + (nxt % kStages) * kSK,
+                                     klist, kmask, nxt, n_reach, k0, col0, n);
         hopper::cp_async_commit();
       }
-      add_stage<kNT>(acc, tmask, ring + (st % kStages) * kStage,
-                     ring_mask + (st % kStages) * kSK, table,
-                     n_reach - st * kSK, (uint32_t)ls, warp, lane);
+      add_stage<Src, kNT>(acc, tmask, ring + (st % kStages) * kStage,
+                          ring_mask + (st % kStages) * kSK, table,
+                          n_reach - st * kSK, (uint32_t)ls, warp, lane);
     }
     hopper::cp_async_wait<0>();
     __syncthreads();  // the chunk's shared arrays are free again
@@ -606,38 +624,13 @@ __global__ void __launch_bounds__(Shape<kNT>::kThreads, Shape<kNT>::kMinBlocks)
 // launch
 // ---------------------------------------------------------------------------
 
-template <bool kPartialUpdate>
-cudaError_t launch_dense(const void* packed, const void* weights, void* v,
-                         void* elapsed, void* spikes, void* touched,
+template <class Src, int kNT, bool kVec, bool kPartialUpdate>
+cudaError_t launch_tiles(const void* packed, const void* w, const void* cbw,
+                         void* v, void* elapsed, void* spikes, void* touched,
                          void* nnz, void* empty, int m, int kw, int n,
-                         float threshold, float leak, float reset,
-                         int all_nonzero, cudaStream_t stream) {
-  const size_t smem = (size_t)kw * 16 * sizeof(uint16_t);
-  auto kernel = fused_timestep_dense_kernel<kPartialUpdate>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(cdiv(n, kDenseN), m);
-  kernel<<<grid, kDenseN, smem, stream>>>(
-      static_cast<const uint16_t*>(packed),
-      static_cast<const float*>(weights), static_cast<float*>(v),
-      static_cast<int*>(elapsed), static_cast<float*>(spikes),
-      static_cast<int*>(touched), static_cast<int*>(nnz),
-      static_cast<int*>(empty), kw, n, threshold, leak, reset, all_nonzero);
-  return cudaGetLastError();
-}
-
-template <int kNT, bool kVec, bool kPartialUpdate>
-cudaError_t launch_codebook(const void* packed, const void* idx,
-                            const void* cbw, void* v, void* elapsed,
-                            void* spikes, void* touched, void* nnz,
-                            void* empty, int m, int kw, int n, int n_levels,
-                            int smem, float threshold, float leak,
-                            float reset, int all_nonzero,
-                            cudaStream_t stream) {
-  auto kernel = fused_timestep_codebook_kernel<kNT, kVec, kPartialUpdate>;
+                         int n_levels, int smem, float threshold, float leak,
+                         float reset, int all_nonzero, cudaStream_t stream) {
+  auto kernel = fused_timestep_kernel<Src, kNT, kVec, kPartialUpdate>;
   // above 48 KB a kernel must opt in; the attribute is per device, so it
   // is set on every launch
   const cudaError_t err = cudaFuncSetAttribute(
@@ -645,7 +638,8 @@ cudaError_t launch_codebook(const void* packed, const void* idx,
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(n, 8 * kNT), cdiv(m, kBM));
   kernel<<<grid, Shape<kNT>::kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(packed), static_cast<const int8_t*>(idx),
+      static_cast<const uint16_t*>(packed),
+      static_cast<const typename Src::Elem*>(w),
       static_cast<const float*>(cbw), static_cast<float*>(v),
       static_cast<int*>(elapsed), static_cast<float*>(spikes),
       static_cast<int*>(touched), static_cast<int*>(nnz),
@@ -654,20 +648,23 @@ cudaError_t launch_codebook(const void* packed, const void* idx,
   return cudaGetLastError();
 }
 
-template <int kNT>
-cudaError_t launch_codebook(int partial_update, const void* packed,
-                            const void* idx, const void* cbw, void* v,
-                            void* elapsed, void* spikes, void* touched,
-                            void* nnz, void* empty, int m, int kw, int n,
-                            int n_levels, int smem, float threshold,
-                            float leak, float reset, int all_nonzero,
-                            cudaStream_t s) {
-  // cp.async copies need rows and base aligned to the tile's bytes
+template <class Src, int kNT>
+cudaError_t launch_tiles(int partial_update, const void* packed,
+                         const void* w, const void* cbw, void* v,
+                         void* elapsed, void* spikes, void* touched,
+                         void* nnz, void* empty, int m, int kw, int n,
+                         int n_levels, int smem, float threshold, float leak,
+                         float reset, int all_nonzero, cudaStream_t s) {
+  // cp.async copies need the weights 16-byte aligned and N a multiple of
+  // a copy (a codebook row of BN bytes, four f32), so each copy lies
+  // wholly before or past N and rows stay aligned
+  constexpr int kElem = sizeof(typename Src::Elem);
+  constexpr int kPieceElems = 8 * kNT * kElem < 16 ? 8 * kNT : 16 / kElem;
   const bool vec =
-      n % (8 * kNT) == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+      n % kPieceElems == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
 #define FUSED_LAUNCH(kVec, kPartial)                                         \
-  return launch_codebook<kNT, kVec, kPartial>(                               \
-      packed, idx, cbw, v, elapsed, spikes, touched, nnz, empty, m, kw, n,   \
+  return launch_tiles<Src, kNT, kVec, kPartial>(                             \
+      packed, w, cbw, v, elapsed, spikes, touched, nnz, empty, m, kw, n,     \
       n_levels, smem, threshold, leak, reset, all_nonzero, s)
   if (vec) {
     if (partial_update) FUSED_LAUNCH(true, true);
@@ -684,7 +681,7 @@ extern "C" {
 
 // The plan (`fused_timestep.py` `_plan`): output tiles of (32, bn) columns,
 // bn in {8, 16}, and `smem` bytes of shared memory, at least
-// smem_bytes(bn, n_levels).
+// smem_bytes<Codebook>(bn, n_levels).
 int fused_timestep_codebook_launch(
     const void* packed, const void* idx, const void* cbw, void* v,
     void* elapsed, void* spikes, void* touched, void* nnz, void* empty,
@@ -693,35 +690,38 @@ int fused_timestep_codebook_launch(
     void* stream) {
   if (m <= 0 || n <= 0 || kw <= 0) return (int)cudaSuccess;
   if (m > 65535 || kw * 16 > 65536 || n_levels <= 0 ||
-      (bn != 8 && bn != 16) || smem < smem_bytes(bn, n_levels) ||
+      (bn != 8 && bn != 16) || smem < smem_bytes<Codebook>(bn, n_levels) ||
       smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return (int)(bn == 16 ? launch_codebook<2>(
-                              partial_update, packed, idx, cbw, v, elapsed,
-                              spikes, touched, nnz, empty, m, kw, n, n_levels,
-                              smem, threshold, leak, reset, all_nonzero, s)
-                        : launch_codebook<1>(
-                              partial_update, packed, idx, cbw, v, elapsed,
-                              spikes, touched, nnz, empty, m, kw, n, n_levels,
-                              smem, threshold, leak, reset, all_nonzero, s));
+#define CODEBOOK_LAUNCH(kNT)                                                 \
+  launch_tiles<Codebook, kNT>(partial_update, packed, idx, cbw, v, elapsed,  \
+                              spikes, touched, nnz, empty, m, kw, n,         \
+                              n_levels, smem, threshold, leak, reset,        \
+                              all_nonzero, s)
+  return (int)(bn == 16 ? CODEBOOK_LAUNCH(2) : CODEBOOK_LAUNCH(1));
+#undef CODEBOOK_LAUNCH
 }
 
+// The plan (`fused_timestep.py` `_plan` with no levels): output tiles of
+// (32, bn) columns, bn in {8, 16}, and `smem` bytes of shared memory, at
+// least smem_bytes<Dense>(bn, 0).
 int fused_timestep_dense_launch(
     const void* packed, const void* weights, void* v, void* elapsed,
     void* spikes, void* touched, void* nnz, void* empty, int m, int kw,
-    int n, float threshold, float leak, float reset, int partial_update,
-    int all_nonzero, void* stream) {
+    int n, int bn, int smem, float threshold, float leak, float reset,
+    int partial_update, int all_nonzero, void* stream) {
   if (m <= 0 || n <= 0 || kw <= 0) return (int)cudaSuccess;
-  if (m > 65535 || kw * 16 > 65536) return (int)cudaErrorInvalidValue;
+  if (m > 65535 || kw * 16 > 65536 || (bn != 8 && bn != 16) ||
+      smem < smem_bytes<Dense>(bn, 0) || smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (partial_update)
-    return (int)launch_dense<true>(packed, weights, v, elapsed, spikes,
-                                   touched, nnz, empty, m, kw, n, threshold,
-                                   leak, reset, all_nonzero, s);
-  return (int)launch_dense<false>(packed, weights, v, elapsed, spikes,
-                                  touched, nnz, empty, m, kw, n, threshold,
-                                  leak, reset, all_nonzero, s);
+#define DENSE_LAUNCH(kNT)                                                    \
+  launch_tiles<Dense, kNT>(partial_update, packed, weights, nullptr, v,      \
+                           elapsed, spikes, touched, nnz, empty, m, kw, n, 0, \
+                           smem, threshold, leak, reset, all_nonzero, s)
+  return (int)(bn == 16 ? DENSE_LAUNCH(2) : DENSE_LAUNCH(1));
+#undef DENSE_LAUNCH
 }
 
 const char* fused_timestep_error_string(int err) {

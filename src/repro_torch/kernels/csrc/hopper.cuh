@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // addresses, mbarriers, TMA tile loads, cp.async with zero fill (16, 8 and
-// 4 bytes), the f64 `mma.sync` m16n8k16 product, and the bf16 `wgmma`
-// m64n64k16 product with A from shared memory or registers.
+// 4 bytes), the f64 `mma.sync` m16n8k16 product, the bf16 `wgmma`
+// m64n64k16 product with A from shared memory or registers, and the two
+// halves of a programmatic dependent launch.
 //
 // Most helpers wrap one PTX instruction and are named after it.
 // `build.py` hashes this header with each source, so an edit here rebuilds
@@ -119,6 +120,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- programmatic dependent launch ---------------------------------------
+
+// returns once the grids this one depends on have completed and their
+// memory operations are visible; returns at once for a grid launched
+// without programmatic stream serialization
+__device__ __forceinline__ void griddepcontrol_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// lets the next grid on the stream, if it was launched with programmatic
+// stream serialization, be scheduled once every block of this one has
+// issued this or exited (it still waits for this grid's completion in its
+// own griddepcontrol_wait)
+__device__ __forceinline__ void griddepcontrol_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---- f64 mma ---------------------------------------------------------------

@@ -20,8 +20,9 @@ tensors (the reference donates the buffers to XLA for the same effect).
 An index outside [0, L) adds 0 and touches nothing, as in the
 reference's compare-and-select dequant, which it runs on a device.
 
-`_plan` sizes a codebook launch: the output tile's width, so that a
-one-step call (M = 32) still fills the card.
+`_plan` sizes a launch of either variant: the output tile's width, so
+that a one-step call (M = 32) still fills the card, and the shared memory
+the kernel needs for it.
 """
 from __future__ import annotations
 
@@ -35,19 +36,28 @@ from repro_torch.kernels.build import check_operands, launch
 
 launches = {"fused_timestep_codebook": 0, "fused_timestep_dense": 0}
 
-BM = 32              # rows of a codebook output tile: a k's row mask
+BM = 32              # rows of an output tile: a k's row mask
 BNS = (16, 8)        # its widths: two or one n8 tile of the f64 product
 TARGET_BLOCKS = 128  # about one block for each of the H100's 132 SMs
 MAX_LEVELS = 128     # int8 indexes reach levels 0..127 only
 CHUNK_WORDS = 256    # spike words a block lists at once
 
 # csrc/fused_timestep.cu's shared-memory layout: per block (512 threads
-# for BN = 8, 256 for BN = 16) the level table ((min(L, 128) + 1) x BN
-# f64) and a ring of 8 stages of an index row of 16 bytes and its row mask
-# per thread, which the warps' (32, BN) f64 partial tiles and touched masks
-# reuse; then the chunk's spike words, row masks, k-list and counts
+# for BN = 8, 256 for wider tiles) the level table ((min(L, 128) + 1) x BN
+# f64; codebook only) and a ring of stages of a weight row and its row mask
+# per thread (codebook: 8 stages of 16-byte index rows; dense:
+# `_dense_stages` stages of f32 rows of 4 BN bytes), which the warps'
+# (32, BN) f64 partial tiles and touched masks reuse; then the chunk's
+# spike words, row masks, k-list and counts
 _CHUNK_BYTES = (BM * (CHUNK_WORDS + 2) * 2 + CHUNK_WORDS * 16 * (4 + 2)
                 + CHUNK_WORDS // 2 * 4 * 2 + 2 * BM * 4 + 16)
+CODEBOOK_STAGES = 8
+
+
+def _dense_stages(bn: int) -> int:
+    """Ring stages of the dense variant: three at BN 16, so that two blocks
+    of 256 threads fit an SM (as two codebook blocks do), else four."""
+    return 3 if bn == 16 else 4
 
 
 class Plan(NamedTuple):
@@ -60,16 +70,25 @@ def _tiles(d: int, b: int) -> int:
     return -(-d // b)
 
 
-def _smem_bytes(bn: int, n_levels: int) -> int:
-    threads = 512 if bn == 8 else 256
-    table = (min(n_levels, MAX_LEVELS) + 1) * bn * 8
-    ring = 8 * threads * (16 + 4)
+def _block_threads(bn: int) -> int:
+    return 512 if bn == 8 else 256
+
+
+def _smem_bytes(bn: int, n_levels: int | None) -> int:
+    """Shared bytes of a block; `n_levels=None` is the dense variant."""
+    threads = _block_threads(bn)
+    if n_levels is None:
+        table, ring = 0, _dense_stages(bn) * threads * (4 * bn + 4)
+    else:
+        table = (min(n_levels, MAX_LEVELS) + 1) * bn * 8
+        ring = CODEBOOK_STAGES * threads * (16 + 4)
     partials = threads // 32 * (BM * bn * 8 + bn * 4)
     return max(table + ring, partials) + _CHUNK_BYTES
 
 
-def _plan(m: int, n: int, n_levels: int) -> Plan:
-    """The wider tile, unless it leaves the grid short of TARGET_BLOCKS."""
+def _plan(m: int, n: int, n_levels: int | None) -> Plan:
+    """The wider tile, unless it leaves the grid short of TARGET_BLOCKS;
+    `n_levels=None` plans the dense variant."""
     wide = _tiles(m, BM) * _tiles(n, BNS[0]) >= TARGET_BLOCKS
     bn = BNS[0] if wide else BNS[1]
     return Plan(bn, _smem_bytes(bn, n_levels))
@@ -170,7 +189,7 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "fused_timestep_codebook": [_P] * 9 + [_I] * 6 + [_F] * 3
     + [_I, _I, _P],
-    "fused_timestep_dense": [_P] * 8 + [_I] * 3 + [_F] * 3
+    "fused_timestep_dense": [_P] * 8 + [_I] * 5 + [_F] * 3
     + [_I, _I, _P],
 }
 
@@ -221,9 +240,10 @@ def _run(name, packed, w0, cbw, v, elapsed, threshold, leak, reset,
         head.append(cbw.data_ptr())
     tail = [v.data_ptr(), elapsed.data_ptr(), spikes.data_ptr(),
             touched.data_ptr(), nnz.data_ptr(), ew.data_ptr(), m, kw, n]
-    if cbw is not None:
-        n_levels = int(cbw.shape[0])
-        tail += [n_levels, *_plan(m, n, n_levels)]
+    n_levels = None if cbw is None else int(cbw.shape[0])
+    if n_levels is not None:
+        tail.append(n_levels)
+    tail += _plan(m, n, n_levels)
     tail += [float(threshold), float(leak), float(reset),
              int(bool(partial_update)), int(bool(all_nonzero)), stream]
     launch("fused_timestep", f"{name}_launch", _ARGTYPES[name], *head, *tail)

@@ -12,6 +12,8 @@ Port of `repro.kernels.lif_update` (the Pallas TPU kernel behind
 
 `has_input` is `current != 0`, not the connectivity touch mask of the
 fused kernel.  The outputs are new tensors; the inputs are not written.
+The kernel is launched as a programmatic dependent of the previous kernel
+on the stream.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def lif_update(v: torch.Tensor, elapsed: torch.Tensor, current: torch.Tensor,
     v_out = torch.empty_like(v)
     el_out = torch.empty_like(elapsed)
     spikes = torch.empty_like(v)
-    updated = torch.empty(v.shape, dtype=torch.int8, device=dev)
+    updated = torch.empty(v.shape, dtype=torch.int8, device=v.device)
     launch("lif_update", "lif_update_launch", _ARGTYPES, v.data_ptr(),
            elapsed.data_ptr(), current.data_ptr(), v_out.data_ptr(),
            el_out.data_ptr(), spikes.data_ptr(), updated.data_ptr(),

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card: each kernel (fused timestep,
 zspe_spmm, codebook_matmul, lif_update, flash_attention) against its plain
 version at small shapes and at the shapes that reach its plan's edges
-(the fused codebook kernel's tiles, level table and out-of-range
-indexes, the codebook product's split of K and lookup table, the flash
-kernel's tensor-core and SIMT instantiations), the padded `ops.fused_timestep`
+(the fused kernels' tiles, level table and out-of-range indexes, Gaussian
+dense weights with 0.0 and -0.0, weights not 16-byte aligned; lif_update's
+ragged counts, unaligned operands and long elapsed; the codebook product's
+split of K and lookup table, the flash kernel's tensor-core and SIMT
+instantiations), the padded `ops.fused_timestep`
 against itself on the CPU, a fused run and an LM prefill counting their
 launches.  Marked `cuda`; every test skips without a card.  Run on the
 card with
@@ -31,9 +33,10 @@ def dev():
 
 
 def _case(dev, seed, m, k, n, density, all_nonzero, levels=16, lo=0,
-          hi=None):
+          hi=None, gauss=False):
     """Indexes from [lo, hi) (default [0, levels)); the dense weights are
-    their levels, 0 outside [0, L)."""
+    their levels, 0 outside [0, L), or with `gauss` Gaussian f32 with a
+    tenth 0.0 and a tenth -0.0 (none with all_nonzero)."""
     rng = np.random.default_rng(seed)
     kp = Z.spike_word_count(k) * Z.SPIKE_WORD_BITS
     s = (rng.random((m, k)) < density).astype(np.float32)
@@ -49,6 +52,12 @@ def _case(dev, seed, m, k, n, density, all_nonzero, levels=16, lo=0,
     dense = np.where((ix >= 0) & (ix < levels),
                      cb[np.clip(ix, 0, levels - 1)], 0.0)
     dense = (dense * (np.arange(kp) < k)[:, None]).astype(np.float32)
+    if gauss:
+        dense[:k] = rng.normal(0, 0.3, (k, n))
+        if not all_nonzero:
+            share = rng.random((k, n))
+            dense[:k][share < 0.1] = 0.0
+            dense[:k][(share >= 0.1) & (share < 0.2)] = -0.0
 
     def t(x):
         return torch.tensor(x, device=dev)
@@ -86,9 +95,22 @@ def test_kernel_matches_plain(dev, case, codebook, density, all_nonzero,
     inputs bitwise equal to the first."""
     m, k, n, levels, lo, hi = FUSED_CASES[case]
     c = _case(dev, 7, m, k, n, density, all_nonzero, levels, lo, hi)
+    w0, cbw = (c["idx"], c["cbw"]) if codebook else (c["dense"], None)
+    _assert_matches_plain(c, w0, cbw, all_nonzero, partial_update)
+
+
+def _assert_matches_plain(c, w0, cbw, all_nonzero, partial_update,
+                          exact=False):
+    """The fused kernel (codebook when `cbw` is given) against the plain
+    version on case `c` with weights `w0`; a second call on the same inputs
+    bitwise equal to the first.  With `exact`, v' is held to the LIF step
+    on the current summed in f64 and rounded once, as the kernel sums it:
+    the plain version's f32 matmul rounds over up to K terms, and Gaussian
+    weights of N(0, 0.3) at K = 2312, density 0.3, moved its v' by 1.3e-5
+    where the currents (about +-8) cancelled."""
+    codebook = cbw is not None
     lif = dict(threshold=1.0, leak=0.9, reset=0.0,
                partial_update=partial_update, all_nonzero=all_nonzero)
-    w0, cbw = (c["idx"], c["cbw"]) if codebook else (c["dense"], None)
     want = FT.fused_timestep_plain(c["packed"], w0, cbw, c["v"], c["el"],
                                    **lif)
     call = FT.fused_timestep_codebook if codebook else \
@@ -114,8 +136,55 @@ def test_kernel_matches_plain(dev, case, codebook, density, all_nonzero,
     flip = got[2] != want[2]
     assert not bool((flip & ~near).any())
     keep = ~flip
-    torch.testing.assert_close(got[0][keep], want[0][keep], atol=V_ATOL,
+    v_want = want[0]
+    if exact:
+        cur = (s.double() @ w.double()).float()
+        fed = want[3] > 0 if partial_update else torch.ones_like(keep)
+        v_want = torch.where(want[2] > 0, torch.zeros_like(cur),
+                             torch.where(fed, c["v"] * decay + cur, c["v"]))
+    torch.testing.assert_close(got[0][keep], v_want[keep], atol=V_ATOL,
                                rtol=V_RTOL)
+
+
+# FUSED_CASES whose indexes span [0, L): the shapes for Gaussian weights
+GAUSS_CASES = [name for name, (*_, levels, lo, hi) in FUSED_CASES.items()
+               if (lo, hi) == (0, levels)]
+
+
+@pytest.mark.parametrize("case", GAUSS_CASES)
+@pytest.mark.parametrize("density", [0.05, 0.3, 1.0])
+@pytest.mark.parametrize("all_nonzero", [False, True])
+@pytest.mark.parametrize("partial_update", [True, False],
+                         ids=["partial", "full"])
+def test_dense_gaussian_weights_match_plain(dev, case, density, all_nonzero,
+                                            partial_update):
+    """The dense kernel on Gaussian f32 weights, 0.0 and -0.0 among them
+    (neither touches a neuron), against the plain version, v' against the
+    f64 product."""
+    m, k, n, *_ = FUSED_CASES[case]
+    c = _case(dev, 8, m, k, n, density, all_nonzero, gauss=True)
+    _assert_matches_plain(c, c["dense"], None, all_nonzero, partial_update,
+                          exact=True)
+
+
+def _misaligned(t):
+    """A contiguous copy of `t` at storage offset 1 (not 16-byte aligned)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                      device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 999, 64), (128, 1000, 512),
+                                   (640, 512, 1000)])
+@pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
+def test_fused_weights_off_alignment_match_plain(dev, m, k, n, codebook):
+    """Weights at storage offset 1 (the kernels' narrow-copy path) and
+    N = 1000 (dense copies past N in the last tile)."""
+    c = _case(dev, 9, m, k, n, 0.2, False, gauss=not codebook)
+    w0, cbw = (c["idx"], c["cbw"]) if codebook else (c["dense"], None)
+    _assert_matches_plain(c, _misaligned(w0), cbw, False, True, exact=True)
+    _assert_matches_plain(c, w0, cbw, False, True, exact=True)
 
 
 @pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
@@ -337,6 +406,46 @@ def test_lif_update_matches_plain(dev):
     for i in (1, 3):
         assert torch.equal(got[i], want[i]), i
     v_int = v * 0.9 ** (el + 1).float() + cur
+    flip = got[2] != want[2]
+    assert not bool((flip & ((v_int - 1.0).abs() >= TIE)).any())
+    torch.testing.assert_close(got[0][~flip], want[0][~flip], atol=V_ATOL,
+                               rtol=V_RTOL)
+
+
+LIF_EDGE_SHAPES = [(1, 10), (1, 37), (3, 37), (37, 10), (1, 4096),
+                   (32, 4096)]
+
+
+@pytest.mark.parametrize("shape", LIF_EDGE_SHAPES)
+@pytest.mark.parametrize("offset", [None, 0, 1, 2],
+                         ids=["aligned", "v-offset", "elapsed-offset",
+                              "current-offset"])
+def test_lif_update_edges_match_plain(dev, shape, offset):
+    """Element counts that four does not divide, one operand at storage
+    offset 1 (not 16-byte aligned), elapsed up to 99; two calls bitwise
+    equal."""
+    from repro_torch.kernels import lif_update as LU
+
+    rng = np.random.default_rng(sum(shape))
+    v = torch.tensor(rng.normal(0.3, 0.6, shape).astype(np.float32),
+                     device=dev)
+    el = torch.tensor(rng.integers(0, 100, shape).astype(np.int32),
+                      device=dev)
+    cur = rng.normal(0, 1.5, shape).astype(np.float32)
+    cur[rng.random(shape) < 0.4] = 0.0
+    cur[rng.random(shape) < 0.1] = -0.0
+    ops = [v, el, torch.tensor(cur, device=dev)]
+    if offset is not None:
+        ops[offset] = _misaligned(ops[offset])
+    got = LU.lif_update(*ops, threshold=1.0, leak=0.9)
+    again = LU.lif_update(*ops, threshold=1.0, leak=0.9)
+    want = LU.lif_update_plain(*ops, threshold=1.0, leak=0.9, reset=0.0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for i in (1, 3):
+        assert torch.equal(got[i], want[i]), i
+    v_int = ops[0] * 0.9 ** (ops[1] + 1).float() + ops[2]
     flip = got[2] != want[2]
     assert not bool((flip & ((v_int - 1.0).abs() >= TIE)).any())
     torch.testing.assert_close(got[0][~flip], want[0][~flip], atol=V_ATOL,

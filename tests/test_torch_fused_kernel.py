@@ -1,10 +1,12 @@
 """The plain version of the port's fused-timestep kernel against the
 reference's Pallas entry points (interpret mode), teacher-forced: the same
-spike words, weights and state through both, held to the harness contract;
-int8 indexes outside [0, L) against the reference's device path
-(`gather=False`), also through the padded `ops.fused_timestep`.  Plus the
-wrapper's CPU behaviour (in place, uncounted, validated) and the codebook
-kernel's launch plan."""
+spike words, weights and state through both, held to the harness contract
+(dense weights as codebook levels and as Gaussian f32 with exact 0.0 and
+-0.0 among them); int8 indexes outside [0, L) against the reference's
+device path (`gather=False`), also through the padded
+`ops.fused_timestep`.  Plus the wrapper's CPU behaviour (in place,
+uncounted, validated), both variants' launch plan and the arguments the
+wrapper passes to the C launch functions."""
 import numpy as np
 import pytest
 import torch
@@ -13,13 +15,16 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 from repro.kernels import fused_timestep as REF  # noqa: E402
-from test_torch_harness import assert_step_close  # noqa: E402
+from test_torch_harness import (assert_step_close, c_argtypes,  # noqa: E402
+                                launch_args)
 
 from repro_torch.core import zspe as Z  # noqa: E402
 from repro_torch.kernels import fused_timestep as FT  # noqa: E402
 
 
-def _case(seed, m, k, n, density, all_nonzero, levels=16):
+def _case(seed, m, k, n, density, all_nonzero, levels=16, gauss=False):
+    """With `gauss`, the dense weights are Gaussian f32 (a tenth 0.0 and a
+    tenth -0.0 unless all_nonzero) instead of the indexes' levels."""
     rng = np.random.default_rng(seed)
     kw = Z.spike_word_count(k)
     kp = kw * Z.SPIKE_WORD_BITS
@@ -33,6 +38,13 @@ def _case(seed, m, k, n, density, all_nonzero, levels=16):
     idx[:k] = rng.integers(0, levels, (k, n))
     cbw = np.broadcast_to(cb[:, None], (levels, n)).copy()
     dense = cb[idx] * (np.arange(kp) < k)[:, None]
+    if gauss:
+        dense = np.zeros((kp, n), np.float32)
+        dense[:k] = rng.normal(0, 0.4, (k, n))
+        if not all_nonzero:
+            share = rng.random((k, n))
+            dense[:k][share < 0.1] = 0.0
+            dense[:k][(share >= 0.1) & (share < 0.2)] = -0.0
     packed = Z.pack_spike_words(torch.as_tensor(s))
     return dict(
         s=np.pad(s, ((0, 0), (0, kp - k))),
@@ -50,17 +62,23 @@ def _ref_v_int(c, partial_update, leak=0.9):
     return np.asarray(v * decay + s @ w)
 
 
-@pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
+@pytest.mark.parametrize("weights", ["codebook", "dense", "dense-gauss"])
 @pytest.mark.parametrize("m", [1, 4])
 @pytest.mark.parametrize("k", [40, 64])
 @pytest.mark.parametrize("all_nonzero", [False, True])
 @pytest.mark.parametrize("partial_update", [True, False],
                          ids=["partial", "full"])
-def test_plain_matches_reference(codebook, m, k, all_nonzero,
+def test_plain_matches_reference(weights, m, k, all_nonzero,
                                  partial_update):
+    """Codebook indexes; dense weights equal to their levels; Gaussian
+    dense weights with 0.0 and -0.0 among them, which touch nothing."""
     n = 48
+    codebook = weights == "codebook"
     for density in (0.0, 0.3):
-        c = _case(m * 100 + k, m, k, n, density, all_nonzero)
+        c = _case(m * 100 + k, m, k, n, density, all_nonzero,
+                  gauss=weights == "dense-gauss")
+        if weights == "dense-gauss" and not all_nonzero:
+            assert np.signbit(c["dense"][c["dense"] == 0]).any()
         lif = dict(threshold=1.0, leak=0.9, reset=0.0,
                    partial_update=partial_update, all_nonzero=all_nonzero)
         if codebook:
@@ -276,3 +294,87 @@ def test_plan_staged_tiles_fit_shared_memory(levels, m, n):
     assert plan.smem == FT._smem_bytes(plan.bn, levels) <= SMEM_LIMIT
     assert max(FT._smem_bytes(bn, 10**6) for bn in FT.BNS) <= SMEM_LIMIT
     assert 2 * (FT._smem_bytes(max(FT.BNS), 16) + 1024) <= SM_SMEM
+
+
+# ---------------------------------------------------------------------------
+# the dense variant's plan, and the arguments both wrappers pass
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [32, 640])
+@pytest.mark.parametrize("kw,n", ARCH_LAYERS)
+def test_dense_plan_at_arch_layers(m, kw, n):
+    plan = FT._plan(m, n, None)
+    assert plan.bn in FT.BNS
+    assert plan.smem == FT._smem_bytes(plan.bn, None) <= SMEM_LIMIT
+    if plan.bn != max(FT.BNS):
+        wide = plan._replace(bn=max(FT.BNS))
+        assert _blocks(m, n, wide) < FT.TARGET_BLOCKS
+
+
+def test_dense_plan_fills_the_card_at_one_step():
+    """At M = 32 the dense plan launches at least TARGET_BLOCKS tiles at
+    ARCH layers 1 and 2 (the 10-wide layer 3 has two columns of tiles at
+    most), the widest tile that does so."""
+    for _, n in ARCH_LAYERS[:2]:
+        plan = FT._plan(32, n, None)
+        assert _blocks(32, n, plan) >= FT.TARGET_BLOCKS
+        wider = [b for b in FT.BNS if b > plan.bn]
+        assert all(_blocks(32, n, plan._replace(bn=b)) < FT.TARGET_BLOCKS
+                   for b in wider)
+    assert FT._plan(32, 4096, None).bn == 16
+    assert FT._plan(32, 1024, None).bn == 8
+
+
+@pytest.mark.parametrize("bn", FT.BNS)
+def test_dense_shared_memory_fits_the_blocks_per_sm_it_assumes(bn):
+    """The dense ring (`_dense_stages(bn)` stages of a 4 bn-byte f32 row
+    and its mask per thread), the partial tiles it makes room for and the
+    chunk's arrays fit 227 KB per block; at BN 16 two blocks of 256
+    threads share an SM (the kernel's launch bounds ask for two), at BN 8
+    one block of 512."""
+    smem = FT._smem_bytes(bn, None)
+    threads = FT._block_threads(bn)
+    ring = FT._dense_stages(bn) * threads * (4 * bn + 4)
+    partials = threads // 32 * (FT.BM * bn * 8 + bn * 4)
+    assert smem >= ring + FT._CHUNK_BYTES
+    assert smem >= partials + FT._CHUNK_BYTES
+    assert smem <= SMEM_LIMIT
+    per_sm = 2 if bn == 16 else 1
+    assert per_sm * (smem + 1024) <= SM_SMEM
+    assert per_sm * threads * 128 <= 65536     # registers at 128 a thread
+
+
+@pytest.mark.parametrize("name", ["fused_timestep_codebook",
+                                  "fused_timestep_dense"])
+def test_argtypes_match_the_launch_signature(name):
+    assert FT._ARGTYPES[name] == c_argtypes("fused_timestep", f"{name}_launch")
+
+
+@pytest.mark.parametrize("m,n", [(32, 4096), (32, 1024), (32, 10),
+                                 (640, 1024)])
+@pytest.mark.parametrize("codebook", [True, False], ids=["codebook", "dense"])
+def test_wrapper_passes_the_plan_to_the_launch(monkeypatch, m, n, codebook):
+    """On a card the wrapper calls `<name>_launch` with arguments of its
+    argtypes, in order: pointers, then m, kw, n (and L), the plan's bn and
+    shared bytes, the LIF constants, the flags and the stream."""
+    c = _case(5, m, 32, n, 0.3, False)
+    v, el = torch.as_tensor(c["v"]), torch.as_tensor(c["el"])
+    if codebook:
+        name, w0, cbw = ("fused_timestep_codebook", torch.as_tensor(c["idx"]),
+                         torch.as_tensor(c["cbw"]))
+    else:
+        name, w0, cbw = ("fused_timestep_dense", torch.as_tensor(c["dense"]),
+                         None)
+    before = dict(FT.launches)
+    calls = launch_args(monkeypatch, FT, lambda: FT._run(
+        name, c["packed"], w0, cbw, v, el, 1.0, 0.9, 0.0, True, False))
+    assert FT.launches[name] == before[name] + 1
+    [(fn, argtypes, args)] = calls
+    assert fn == f"{name}_launch" and argtypes == FT._ARGTYPES[name]
+    assert len(args) == len(argtypes)
+    for a, t in zip(args, argtypes):
+        t(a)                                # each converts to its C type
+    n_ptr = 9 if codebook else 8
+    ints = list(args[n_ptr:n_ptr + (6 if codebook else 5)])
+    plan = FT._plan(m, n, 16 if codebook else None)
+    assert ints == [m, 2, n] + ([16] if codebook else []) + list(plan)

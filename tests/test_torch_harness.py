@@ -8,14 +8,20 @@ tests of the port's device policy, which need no reference.
   same inputs and state through a reference step and a port step;
 * `tie_free_trains`: a search for input trains on which no touched
   neuron comes within `margin` of the threshold, so whole runs can be
-  held to equal spikes although the two frameworks round differently.
+  held to equal spikes although the two frameworks round differently;
+* `c_argtypes` / `launch_args`: a CUDA source's C launch signature as
+  ctypes types, and the arguments a kernel wrapper passes to its launch,
+  so the CPU tests hold the binding to the source.
 
 The contract (ROADMAP.md): integers exact; v within V_ATOL + V_RTOL·|v|;
 spikes equal except where the reference's |v_int - θ| < TIE.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -133,6 +139,40 @@ def tie_free_trains(weights, lif, shape, density=0.25, margin=1e-5,
 # ---------------------------------------------------------------------------
 # device policy (no reference needed)
 # ---------------------------------------------------------------------------
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc")
+
+
+def c_argtypes(source: str, fn: str) -> list:
+    """The ctypes types of `int fn(...)` in `csrc/<source>.cu`."""
+    text = (CSRC / f"{source}.cu").read_text()
+    params = re.search(rf"int {fn}\(([^)]*)\)", text).group(1)
+    types = []
+    for param in params.split(","):
+        words = " ".join(param.split()).rsplit(" ", 1)[0]
+        types.append(_C_TYPES[words.replace(" *", "*")])
+    return types
+
+
+def launch_args(monkeypatch, module, call) -> list:
+    """Run `call()` as if its tensors lay on a card: the module's operand
+    check answers "cuda" and its `launch` records (fn, argtypes, args)
+    instead of calling the library.  Tensors stay on the CPU."""
+    calls = []
+    monkeypatch.setattr(module, "check_operands",
+                        lambda *a, **k: torch.device("cuda"))
+    monkeypatch.setattr(module, "launch",
+                        lambda lib, fn, argtypes, *args:
+                        calls.append((fn, argtypes, args)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a, **k: type("S", (), {"cuda_stream": 0}))
+    call()
+    return calls
+
 
 def test_default_device_raises_without_card():
     from repro_torch import ChipSimulator, quantize, resolve_device

@@ -15,7 +15,8 @@ from repro.core import zspe as REF_Z  # noqa: E402
 from repro.kernels import ops as REF_OPS  # noqa: E402
 from repro.kernels import ref as REF_REF  # noqa: E402
 from repro.kernels import zspe_spmm as REF_ZSPE  # noqa: E402
-from test_torch_harness import assert_step_close  # noqa: E402
+from test_torch_harness import (assert_step_close, c_argtypes,  # noqa: E402
+                                launch_args)
 
 from repro_torch.core import quant as Q  # noqa: E402
 from repro_torch.core import zspe as Z  # noqa: E402
@@ -338,8 +339,10 @@ def _assert_lif_close(got, want, v, el, cur, leak):
                 + np.spacing(np.abs(want[0])))[fed]).all()
 
 
-@pytest.mark.parametrize("shape", [(5, 300), (2, 3, 40)])
+@pytest.mark.parametrize("shape", [(5, 300), (2, 3, 40), (1, 37), (3, 37)])
 def test_lif_update_matches_reference(shape):
+    """Gaussian currents with +0.0 and -0.0 among them (no input); the
+    last two element counts are not a multiple of four."""
     v, el, cur = _lif_case(sum(shape), shape)
     want = REF_OPS.lif_update(jnp.asarray(v), jnp.asarray(el),
                               jnp.asarray(cur), threshold=1.0, leak=0.9)
@@ -383,6 +386,38 @@ def test_lif_update_plain_is_core_lif_step():
     for a, b in ((st.v, vo), (st.elapsed, eo), (sp, spo),
                  (upd.to(torch.int8), updo)):
         assert torch.equal(a, b)
+
+
+def test_lif_argtypes_match_the_launch_signature():
+    assert LU._ARGTYPES == c_argtypes("lif_update", "lif_update_launch")
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((32, 4096), None), ((1, 37), None), ((3, 37), None), ((37, 10), None),
+    ((1, 10), 0), ((32, 1024), 2)],
+    ids=["arch", "n37", "3x37", "37x10", "v-offset-1", "current-offset-1"])
+def test_lif_wrapper_passes_the_operands(monkeypatch, shape, offset):
+    """On a card the wrapper launches once, in `_ARGTYPES` order: the
+    operands' own data pointers (a view at storage offset 1 too), fresh
+    outputs and the element count."""
+    v, el, cur = (_t(a) for a in _lif_case(3, shape))
+    ops_ = [v, el, cur]
+    if offset is not None:
+        t = ops_[offset]
+        moved = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+        moved.copy_(t)
+        ops_[offset] = moved
+    before = dict(LU.launches)
+    calls = launch_args(monkeypatch, LU, lambda: LU.lif_update(*ops_))
+    assert LU.launches["lif_update"] == before["lif_update"] + 1
+    [(fn, argtypes, args)] = calls
+    assert fn == "lif_update_launch" and argtypes == LU._ARGTYPES
+    assert len(args) == len(argtypes)
+    for a, t in zip(args, argtypes):
+        t(a)
+    assert args[:3] == tuple(t.data_ptr() for t in ops_)
+    assert len(set(args[:7])) == 7
+    assert args[7] == v.numel()
 
 
 # ---------------------------------------------------------------------------
