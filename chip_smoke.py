@@ -78,8 +78,28 @@ Phases, each of which must pass:
    logits of a 512-token prefill (flash route) against a 511-token
    prefill plus one decode step (plain route), and every layer's flash
    call of that prefill against the plain version on the same q / k / v.
+7. faults and telemetry — run right after phase 4, on its quantized
+   weights, mapping and trains: (a) an unrepaired chip (`fault_plan`: a
+   dead core of layer 2, a failed router and a failed link that cut
+   routes, a bit-flip and a stuck codebook word, per-hop drop 0.05, seed
+   7), traced: every layer in codebook mode, exactly 60 codebook
+   launches, every cut weight block zeroed, the drop plan active and its
+   masks drawn on the card bitwise equal to the CPU's, fused within phase
+   4's rule of the compiled engine under the same faults, the trace's
+   energy and wall sums equal to the reports' within 1e-9 relative and
+   its Perfetto document monotonic per track; (b) the chip repaired
+   around the router (`with_rerouted`): no route crosses it, fused
+   within the rule of compiled, NoC hops per sample equal to its fired
+   counts times the rerouted flows' hops; (c) a float simulator under
+   (a)'s topology faults and drop, T=2: 6 dense launches, fused within
+   the rule of compiled; (d) a transient dispatch fault raises once and
+   the retry equals the healthy run, and a null `FaultConfig` with the
+   trace off gives counters, counts, reports and launches bitwise those
+   of `faults=None`; (e) ms
+   per run of (a) and of the healthy run, and their device busy.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} (launches from phases
+4, 7, 5 and 6); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -1022,7 +1042,320 @@ def main_path(arch, seed: int) -> dict:
     _check_against_compiled(fsim, fcomp, short, "float ARCH, T=2")
     return {"launches": {**launches, "fused_timestep_dense":
                          dense_launches["fused_timestep_dense"]},
-            "perf": perf}
+            "perf": perf,
+            "ctx": {"sim": sim, "qws": qws, "weights": weights,
+                    "trains": trains_dev}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the faulted and traced main path
+# ---------------------------------------------------------------------------
+
+DROP_P = 0.05                  # per-hop packet loss of the faulted chip
+FAULT_SEED = 7
+TRACE_REL_TOL = 1e-9           # trace sums against the reports (f64)
+
+
+def _cuts(sim, src: int, dst: int, nodes, links) -> bool:
+    """Does the healthy static route src -> dst pass through one of
+    `nodes` or over one of `links`?  Worked out here from the routing
+    table, apart from the program's own predicate, so the zeroed-block
+    check below can catch a wrong one."""
+    path = [int(n) for n in sim.routing.path(int(src), int(dst))]
+    return (any(n in nodes for n in path[1:-1])
+            or any(tuple(sorted(uv)) in links for uv in zip(path, path[1:])))
+
+
+def fault_plan(sim, bit_width: int = 8):
+    """The unrepaired chip of phase 7 on the healthy simulator's mapping:
+    one dead core of layer 2; the failed router on the static routes of
+    the most (src core, dst core) pairs; a failed link on the route of
+    another pair; a bit-flip on a layer-1 core's codebook word and a
+    stuck word on a layer-2 core's (nonzero words, so the zero level
+    every zeroed block needs survives); drop_p DROP_P, seed FAULT_SEED."""
+    from repro_torch.core import noc as NOC
+    from repro_torch.faults import CodebookFault, FaultConfig
+
+    m = sim.mapping
+    layer2 = m.cores_of_layer(2)
+    dead = int(layer2[-1].core_id)
+    pairs = [(int(s.core_id), int(d.core_id))
+             for li in range(1, len(sim.weights))
+             for s in m.cores_of_layer(li) for d in m.cores_of_layer(li + 1)
+             if s.core_id != d.core_id and dead not in (s.core_id,
+                                                        d.core_id)]
+    routers = [(sum(_cuts(sim, s, d, {int(r)}, ()) for s, d in pairs),
+                int(r)) for r in NOC.router_ids()]
+    blocks, router = max(routers)
+    if not blocks:
+        raise AssertionError("no router lies on a route of the mapping")
+    uses: dict = {}
+    for s, d in pairs:
+        p = sim.routing.path(s, d)
+        if router in p:
+            continue
+        for uv in zip(p, p[1:]):
+            uses[tuple(sorted(uv))] = uses.get(tuple(sorted(uv)), 0) + 1
+    link = max(uses, key=lambda uv: (uses[uv], uv))
+
+    def table(a):
+        return sim.register_tables[m.assignments.index(a)]
+
+    flip_core = m.cores_of_layer(1)[0]
+    words = table(flip_core).codebook_words
+    flip_word = int(np.argmax(np.abs(words)))        # |w| >= 2: stays != 0
+    stuck_core = layer2[0]
+    words = table(stuck_core).codebook_words
+    stuck_word = int(np.flatnonzero(np.asarray(words))[0])
+    w = int(words[stuck_word])
+    lim = 1 << (bit_width - 1)
+    stuck_value = -w if -lim <= -w < lim else lim - 1
+    return FaultConfig(
+        dead_cores=(dead,), failed_routers=(router,), failed_links=(link,),
+        codebook_faults=(
+            CodebookFault(core_id=int(flip_core.core_id), word=flip_word,
+                          kind="bitflip", bit=0),
+            CodebookFault(core_id=int(stuck_core.core_id), word=stuck_word,
+                          kind="stuck", value=stuck_value)),
+        drop_p=DROP_P, seed=FAULT_SEED)
+
+
+def _expect_launches(what: str, want: dict) -> dict:
+    from repro_torch.kernels import fused_timestep as FT
+
+    got = dict(FT.launches)
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def _blocked_blocks(sim, faults) -> list:
+    """(layer index, src rows, dst cols) of every weight block a failed
+    router, dead core or link cuts on the healthy routes."""
+    dead = set(faults.dead_cores)
+    nodes = dead | set(faults.failed_routers)
+    links = {tuple(sorted(uv)) for uv in faults.failed_links}
+    out = []
+    for li in range(1, len(sim.weights)):
+        for s in sim.mapping.cores_of_layer(li):
+            for d in sim.mapping.cores_of_layer(li + 1):
+                if (s.core_id != d.core_id and s.core_id not in dead
+                        and _cuts(sim, s.core_id, d.core_id, nodes, links)):
+                    out.append((li, slice(s.neuron_lo, s.neuron_hi),
+                                slice(d.neuron_lo, d.neuron_hi)))
+    return out
+
+
+def _check_trace(sim, counts, reports, what: str) -> dict:
+    """The run's ChipTrace against its reports (energy and wall sums,
+    tests/test_telemetry.py's rule) and its Perfetto document."""
+    from repro_torch.telemetry import profile, to_perfetto
+
+    trace = sim.last_trace()
+    if trace is None or trace.batch != len(reports):
+        raise AssertionError(f"{what}: no trace of the run")
+    chip = profile(trace, core_model=sim.core_model, riscv=sim.riscv)["chip"]
+    worst = 0.0
+    for key, field in (("core_pj", "core_energy_pj"),
+                       ("noc_pj", "noc_energy_pj"),
+                       ("riscv_pj", "riscv_energy_pj"),
+                       ("total_pj", "energy_pj")):
+        want = sum(getattr(r, field) for r in reports)
+        rel = abs(chip[key] - want) / max(abs(want), 1e-300)
+        worst = max(worst, rel)
+        if rel > TRACE_REL_TOL:
+            raise AssertionError(f"{what}: profile {key} {chip[key]} "
+                                 f"against the reports' {want}")
+    walls = trace.wall_cycles()
+    for b, r in enumerate(reports):
+        rel = abs(walls[b] - r.wall_cycles) / r.wall_cycles
+        worst = max(worst, rel)
+        if rel > TRACE_REL_TOL:
+            raise AssertionError(f"{what}: trace wall {walls[b]} against "
+                                 f"sample {b}'s {r.wall_cycles}")
+    last_layer = trace.slice_layer == trace.n_layers - 1
+    if not np.array_equal(trace.fired[..., last_layer].sum(axis=(1, 2)),
+                          counts.sum(axis=1)):
+        raise AssertionError(f"{what}: traced output spikes differ from "
+                             f"the counts")
+    doc = json.loads(json.dumps(to_perfetto(trace)))
+    last: dict = {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] == "M":
+            continue
+        track = (ev["pid"], ev["tid"])
+        if ev["ts"] < last.get(track, 0.0) - 1e-9 or ev.get("dur", 0) < 0:
+            raise AssertionError(f"{what}: perfetto track {track} goes "
+                                 f"back in time at {ev}")
+        last[track] = ev["ts"]
+    log(f"{what}: trace {trace.fired.shape}, chip {json.dumps(chip)}, "
+        f"max rel against the reports {worst:.3g}, perfetto "
+        f"{len(doc['traceEvents'])} events on {len(last)} tracks")
+    return chip
+
+
+def fault_path(arch, ctx: dict, smi: str) -> dict:
+    """Phase 7: phase 4's network (its quantized weights and mapping)
+    on faulted chips, through the same entry points."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import ChipSimulator
+    from repro_torch.faults import FaultConfig, TransientChipFault
+    from repro_torch.kernels import fused_timestep as FT
+    from repro_torch.telemetry import TraceConfig
+
+    healthy, qws, weights, trains = (ctx["sim"], ctx["qws"], ctx["weights"],
+                                     ctx["trains"])
+    dev = healthy.device
+    T, L = int(trains.shape[1]), len(qws)
+    kw = dict(freq_hz=arch.freq_hz, threshold=arch.threshold,
+              leak=arch.leak, mapping=healthy.mapping, device=dev)
+    faults = fault_plan(healthy, arch.weight_bits)
+    log(f"fault plan: {json.dumps(faults.describe())}, codebook faults "
+        f"{[dataclasses.astuple(c) for c in faults.codebook_faults]}")
+
+    # (a) the unrepaired chip, traced
+    sim = ChipSimulator(qws, engine="fused", faults=faults,
+                        trace=TraceConfig(enabled=True), **kw)
+    eng = sim.fused_engine()
+    if eng.codebook_layers != L:
+        raise AssertionError(f"faulted chip: only {eng.codebook_layers} "
+                             f"layers lowered to codebook mode")
+    blocks = [b for b in _blocked_blocks(sim, faults)
+              if healthy.weights[b[0]][b[1], b[2]].any()]
+    kept = [b for b in blocks if sim.weights[b[0]][b[1], b[2]].any()]
+    if not blocks or kept:
+        raise AssertionError(f"faulted chip: {len(kept)} of {len(blocks)} "
+                             f"cut weight blocks not zeroed")
+    plan = sim.drop_plan
+    active = [li for li, p in enumerate(plan.keep_p if plan else ())
+              if p is not None]
+    if not active:
+        raise AssertionError("faulted chip: the drop plan is inactive")
+    for li in active:
+        if not torch.equal(plan.masks(li, T, dev).cpu(),
+                           plan.masks(li, T, "cpu")):
+            raise AssertionError(f"drop masks of layer {li} differ between "
+                                 f"the card and the CPU")
+    keep_min = min(float(plan.keep_p[li].min()) for li in active)
+    draws = sum(T * len(plan.keep_p[li]) for li in active)
+    log(f"faulted chip: all {len(blocks)} cut weight blocks zeroed (a "
+        f"block is counted where the healthy chip's is not zero), "
+        f"drop active on layers {active}, keep_p min {keep_min:.4f}, device "
+        f"masks equal to the CPU's ({draws} draws)")
+    FT.reset_launches()
+    counts, reports = sim.run_batch(trains)
+    torch.cuda.synchronize()
+    launches = _expect_launches("faulted chip", {
+        "fused_timestep_codebook": T * L, "fused_timestep_dense": 0})
+    counts_np = counts.cpu().numpy()
+    pj = np.array([r.pj_per_sop for r in reports])
+    if counts_np.shape != (len(reports), arch.layer_sizes[-1]) \
+            or not np.isfinite(counts_np).all() or not np.isfinite(pj).all():
+        raise AssertionError(f"faulted chip: bad outputs {counts_np.shape}")
+    _check_trace(sim, counts_np, reports, "faulted chip")
+    compiled = ChipSimulator(qws, engine="compiled", faults=faults, **kw)
+    _check_against_compiled(sim, compiled, trains, "faulted ARCH")
+
+    # (b) the repaired chip: routes recompiled around the router
+    router = faults.failed_routers[0]
+    repaired = FaultConfig(failed_routers=(router,)).with_rerouted()
+    rsim = ChipSimulator(qws, engine="fused", faults=repaired, **kw)
+    crossing = [f for fl in rsim._layer_routes.values() for f in fl
+                if any(router in uv for uv in f.links)]
+    if crossing:
+        raise AssertionError(f"repaired chip: {len(crossing)} routes cross "
+                             f"router {router}")
+    rcomp = ChipSimulator(qws, engine="compiled", faults=repaired, **kw)
+    _check_against_compiled(rsim, rcomp, trains, "repaired ARCH")
+    # the run's NoC hops are the fired counts times the rerouted flows'
+    # hops (its spikes are the healthy chip's: no weight changed)
+    ys, _ = rsim.array_engine().run_raw(trains)
+    replay = np.zeros(int(trains.shape[0]))
+    for li in range(L):
+        routes = rsim._layer_routes.get(li + 1)
+        if routes:
+            fired = ys[f"fired_core_{li}"].sum(dim=1).double().cpu().numpy()
+            replay += fired @ np.array([f.hops for f in routes], np.float64)
+    _, rrep = rsim.run_batch(trains)
+    _, hrep = healthy.run_batch(trains)
+    hops = np.array([r.stats.noc_hops for r in rrep])
+    hops0 = np.array([r.stats.noc_hops for r in hrep])
+    if not np.array_equal(hops, replay):
+        raise AssertionError(f"repaired chip: NoC hops {hops.tolist()} "
+                             f"against the rerouted replay "
+                             f"{replay.tolist()}")
+    log(f"repaired chip (router {router}): no route crosses it, NoC hops "
+        f"per sample {hops.mean():.1f} (equal to the rerouted replay) "
+        f"against healthy {hops0.mean():.1f} (min change "
+        f"{(hops - hops0).min():.0f})")
+
+    # (c) a float simulator under (a)'s faults (codebook faults need a
+    # quantized chip), T = 2: the dense kernel
+    ffaults = dataclasses.replace(faults, codebook_faults=())
+    fsim = ChipSimulator(weights, engine="fused", faults=ffaults, **kw)
+    if fsim.fused_engine().codebook_layers != 0:
+        raise AssertionError("float simulator lowered to codebook mode")
+    short = trains[:, :2].contiguous()
+    FT.reset_launches()
+    fsim.run_batch(short)
+    torch.cuda.synchronize()
+    dense = _expect_launches("faulted float chip", {
+        "fused_timestep_codebook": 0, "fused_timestep_dense": 2 * L})
+    fcomp = ChipSimulator(weights, engine="compiled", faults=ffaults, **kw)
+    _check_against_compiled(fsim, fcomp, short, "faulted float ARCH, T=2")
+
+    # (d) a transient dispatch fault, and the null config
+    tsim = ChipSimulator(qws, engine="fused",
+                         faults=FaultConfig(transient_dispatches=(0,)), **kw)
+    try:
+        tsim.run_batch(trains)
+    except TransientChipFault as e:
+        log(f"transient fault: first dispatch raised ({e})")
+    else:
+        raise AssertionError("transient fault: dispatch 0 did not raise")
+    tcounts, _ = tsim.run_batch(trains)
+    hcounts, _ = healthy.run_batch(trains)
+    if not torch.equal(tcounts, hcounts):
+        raise AssertionError("transient fault: the retry differs from the "
+                             "healthy run")
+    nsim = ChipSimulator(qws, engine="fused", faults=FaultConfig(),
+                         trace=TraceConfig(enabled=False), **kw)
+    raw = {}
+    for name, s in (("none", healthy), ("null", nsim)):
+        FT.reset_launches()
+        ys, c = s.fused_engine().run_raw(trains)
+        torch.cuda.synchronize()
+        raw[name] = (ys, c, dict(FT.launches), s.run_batch(trains))
+    (ys0, c0, l0, (cc0, r0)), (ys1, c1, l1, (cc1, r1)) = (raw["none"],
+                                                          raw["null"])
+    same = (ys0.keys() == ys1.keys() and l0 == l1 and torch.equal(c0, c1)
+            and torch.equal(cc0, cc1)
+            and all(torch.equal(ys0[k], ys1[k]) for k in ys0)
+            and [dataclasses.astuple(r) for r in r0]
+            == [dataclasses.astuple(r) for r in r1])
+    if not same or nsim.last_trace() is not None:
+        raise AssertionError("null FaultConfig: not bitwise the healthy run")
+    log(f"null config: counters {sorted(ys1)} bitwise equal to faults=None, "
+        f"launches {l1}")
+
+    # (e) timing: the traced faulted run against the untraced healthy one
+    perf = {"faulted_traced_ms_per_run": _timed_ms(
+                lambda: sim.run_batch(trains)),
+            "healthy_ms_per_run": _timed_ms(
+                lambda: healthy.run_batch(trains))}
+    for name, s, ms in (("faulted_traced", sim,
+                         perf["faulted_traced_ms_per_run"]),
+                        ("healthy", healthy, perf["healthy_ms_per_run"])):
+        got = _device_breakdown(lambda: s.run_batch(trains), ms)
+        perf.update({f"{name}_{k}": v for k, v in got.items()})
+    log(f"fault path timing (median of 5; {smi}): {json.dumps(perf)}")
+    return {"launches": {
+        "fused_timestep_codebook": launches["fused_timestep_codebook"],
+        "fused_timestep_dense": dense["fused_timestep_dense"]},
+        "perf": perf}
 
 
 # ---------------------------------------------------------------------------
@@ -1557,6 +1890,11 @@ def main() -> int:
     # 4. main path
     mp = main_path(ARCH, args.seed)
 
+    # 7. the main path faulted and traced (phase 4's weights and mapping)
+    t0 = time.perf_counter()
+    fp = fault_path(ARCH, mp.pop("ctx"), smi)
+    log(f"fault phase: {time.perf_counter() - t0:.1f} s")
+
     # 5. kernel-API path
     api = api_path(ARCH, qws, args.seed)
 
@@ -1569,9 +1907,10 @@ def main() -> int:
         f"checks {t1 - t0:.1f} s)")
 
     # kernels line, then the result; launches from phase 4 (fused), phase
-    # 5 (kernel API, all three loops) and phase 6 (the served run)
+    # 7 (the faulted runs), phase 5 (kernel API, all three loops) and
+    # phase 6 (the served run)
     launches = dict(mp["launches"])
-    for loop in api.values():
+    for loop in [fp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = lm["launches"]["flash_attention"]

@@ -65,6 +65,10 @@ class CompiledNetwork:
     hierarchical: bool = False
     options: dict = dataclasses.field(default_factory=dict)
     recompile_stats: dict | None = None
+    # the FaultConfig this network was compiled around (None = healthy
+    # chip); a repaired compile carries faults.with_rerouted() so the
+    # simulator masks its fabric to match the reprogrammed routes
+    faults: Any = None
 
     @property
     def cost(self) -> float:
@@ -172,8 +176,14 @@ def compile_network(net: Any, chip: ChipSpec | None = None, *,
     objective — trade hops for a flatter router-load profile; the
     resulting `Placement.congestion` records the bottleneck either way.
 
-    `faults` raises NotImplementedError: compiling around faults arrives
-    with the port's faults slice.
+    `faults` (a faults.FaultConfig with topology faults) compiles around
+    the failures: dead cores' slots are removed (their neuron slices
+    remap onto spare capacity), placement distances and routes come from
+    the fault-masked adjacency (BFS detours around failed routers/links),
+    and the result carries the config in `.faults`.  Raises ValueError
+    when the surviving graph cannot route a required flow.  Prefer
+    `repair` to recompile an existing network around new faults — it
+    reuses every unaffected domain's placement from the previous compile.
 
     `hierarchical` selects partition-then-place per level-1 domain: a
     chip/domain grouping pass fixes which domain every group lives in,
@@ -184,19 +194,28 @@ def compile_network(net: Any, chip: ChipSpec | None = None, *,
     global-table path.  Same cost metric, same FlowRoutes — only the
     compile-time scaling changes.
     """
-    if faults is not None:
-        raise NotImplementedError(
-            "compiling around faults arrives with the faults slice "
-            "(ROADMAP.md Queue 1 item 6)")
     spec = chip or ChipSpec()
     graph = _as_network(net)
     options = dict(strategy=strategy, seed=seed, anneal_iters=anneal_iters,
                    spread=spread, congestion_weight=congestion_weight,
-                   hierarchical=hierarchical)
+                   hierarchical=hierarchical, faults=faults)
 
     groups = P.partition(graph, spec, spread=spread)
     flows = group_traffic(graph, groups)
     su = SU.plan(groups, spec)
+    topo = faults is not None and faults.topology_faults()
+    if topo:
+        from repro_torch.faults.model import masked_adjacency
+
+        adjacency = masked_adjacency(su.adjacency, faults)
+        dead = frozenset(int(c) for c in faults.dead_cores)
+        slot_set = {int(s) for s in np.asarray(su.core_slots)}
+        if not dead <= slot_set:
+            raise ValueError(f"dead cores {sorted(dead - slot_set)} are "
+                             "not core slots of this chip")
+    else:
+        adjacency = su.adjacency
+        dead = frozenset()
     hier = (su.multi_domain and strategy == "anneal"
             if hierarchical is None else bool(hierarchical))
     if hier and not su.multi_domain:
@@ -208,38 +227,77 @@ def compile_network(net: Any, chip: ChipSpec | None = None, *,
 
     if hier:
         l2w = spec.interconnect.level2_premium()
-        dplan = P.assign_domains(groups, flows, spec, su.n_domains)
+        capacity = None
+        if dead:
+            from repro_torch.core import noc as NOC
+            per_dom: dict[int, int] = {}
+            for c in dead:
+                d = int(c) // NOC.DOMAIN_STRIDE
+                per_dom[d] = per_dom.get(d, 0) + 1
+            capacity = {d: spec.n_cores - k for d, k in per_dom.items()}
+        dplan = P.assign_domains(groups, flows, spec, su.n_domains,
+                                 capacity=capacity)
         placement, dplacements = PL.place_hierarchical(
             groups, flows, dplan, spec, strategy=strategy, seed=seed,
             anneal_iters=anneal_iters, congestion_weight=congestion_weight,
-            cache=_cache, stats=_stats)
+            cache=_cache, stats=_stats, faults=faults if topo else None)
         _, local_dist, _ = PL._local_tables(l2w, False)
         baseline = PL.hierarchical_cost(
             PL.contiguous_place(groups, su.core_slots), flows,
             local_dist, l2w)
-        routed = R.route_hierarchical(groups, placement.assignment,
-                                      su.adjacency, su.level2_nodes)
+        if topo:
+            # local-path composition assumes the healthy local graph;
+            # a faulty fabric routes flat on the masked global adjacency
+            routed = _route_or_raise(groups, placement.assignment,
+                                     adjacency, su.level2_nodes, faults)
+        else:
+            routed = R.route_hierarchical(groups, placement.assignment,
+                                          su.adjacency, su.level2_nodes)
     else:
         dplan, dplacements = None, None
-        dist = PL.weighted_distances(su.adjacency, su.level2_nodes,
+        core_slots = su.core_slots
+        if dead:
+            core_slots = np.array(
+                [s for s in np.asarray(core_slots) if int(s) not in dead])
+            if len(groups) > len(core_slots):
+                raise ValueError(
+                    f"{len(groups)} groups need more than the "
+                    f"{len(core_slots)} surviving cores — no spare "
+                    "capacity to remap dead cores onto")
+        dist = PL.weighted_distances(adjacency, su.level2_nodes,
                                      spec.interconnect.level2_premium())
-        placement = PL.place(groups, flows, dist, su.core_slots, spec,
+        placement = PL.place(groups, flows, dist, core_slots, spec,
                              su.n_domains, strategy=strategy, seed=seed,
                              anneal_iters=anneal_iters,
-                             adjacency=su.adjacency,
+                             adjacency=adjacency,
                              congestion_weight=congestion_weight)
         baseline = PL.placement_cost(
-            PL.contiguous_place(groups, su.core_slots), flows, dist)
-        routed = R.route(groups, placement.assignment, su.adjacency,
-                         su.level2_nodes)
+            PL.contiguous_place(groups, core_slots), flows, dist)
+        routed = (_route_or_raise(groups, placement.assignment, adjacency,
+                                  su.level2_nodes, faults) if topo
+                  else R.route(groups, placement.assignment, su.adjacency,
+                               su.level2_nodes))
     compiled = CompiledNetwork(net=graph, spec=spec, groups=groups,
                                placement=placement, plan=su, routed=routed,
                                baseline_cost=baseline, domain_plan=dplan,
                                domain_placements=dplacements,
-                               hierarchical=hier, options=options)
+                               hierarchical=hier, options=options,
+                               faults=faults)
     if verify:
         verify_roundtrip(routed)
     return compiled
+
+
+def _route_or_raise(groups, assignment, adjacency, level2_nodes, faults):
+    """Flat route on a fault-masked adjacency, with unroutable pairs
+    surfaced as ValueError (the surviving graph is partitioned) instead
+    of the routing table's bare assertion."""
+    try:
+        return R.route(groups, assignment, adjacency, level2_nodes)
+    except AssertionError as e:
+        raise ValueError(
+            f"faults {faults.describe()} disconnect the surviving fabric: "
+            f"{e}") from e
 
 
 def recompile(net: Any, prev: CompiledNetwork,
@@ -278,7 +336,21 @@ def recompile(net: Any, prev: CompiledNetwork,
 
 def repair(net: Any, prev: CompiledNetwork, faults: Any,
            **overrides) -> CompiledNetwork:
-    """Recompile `net` around a FaultConfig (not in the port yet)."""
-    raise NotImplementedError(
-        "repair around faults arrives with the faults slice "
-        "(ROADMAP.md Queue 1 item 6)")
+    """Recompile `net` around a FaultConfig, reusing `prev`'s placements.
+
+    The repaired compile reroutes every flow on the fault-masked graph
+    (failed routers/links become BFS detours) and remaps dead cores'
+    neuron slices onto spare capacity.  Runs the full pipeline — the
+    result is bit-identical to `compile_network(net, faults=...)` — but
+    seeds the per-domain cache from `prev`, and since only domains that
+    lost a core get new cache keys, a router or link failure reuses
+    EVERY domain placement and pays only for rerouting (`fault_bench.py`
+    gates this as `fault.repair_speedup`).
+
+    The result carries `faults.with_rerouted()`: build the simulator with
+    `ChipSimulator(..., mapping=repaired.to_soc_mapping(),
+    faults=repaired.faults)` so its fabric masks match the reprogrammed
+    routes.  Raises ValueError when the surviving graph cannot host or
+    route the network.
+    """
+    return recompile(net, prev, faults=faults.with_rerouted(), **overrides)

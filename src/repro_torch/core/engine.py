@@ -23,6 +23,16 @@ source-exact: each step emits integer per-core fired counts
 `jax.vmap` became the explicit batch axis and `jax.lax.scan` a Python
 loop over T.  Per-step counters stay on the device, stacked over T, and
 cross to the host once per run for the float64 pricing.
+
+Faults and tracing thread through both engines.  A simulator's
+`drop_plan` (faults.DropPlan) multiplies each layer's output spikes by
+that step's survival mask before the next layer integrates them (the
+counters stay pre-drop: the source fired and paid for the packet); the
+masks of a run are drawn once per layer, all T at a time.  An enabled
+`TraceConfig` adds per-core fired / touched counters for every layer (and
+the compiled engine's skip-word count), from which `run_batch` builds the
+run's `ChipTrace`.  With no drop plan and the trace off the engines issue
+exactly the ops of a fault-free, untraced build.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from repro_torch.core import energy as E
 from repro_torch.core import noc as NOC
 from repro_torch.core import zspe as Z
 from repro_torch.core.neuron import LIFState, init_state, lif_step, touch_mask
+from repro_torch.telemetry.trace import build_trace
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard (soc -> engine)
     from repro_torch.core.soc import ChipReport, ChipSimulator
@@ -211,6 +222,11 @@ class _EngineBase:
     def __init__(self, sim: "ChipSimulator"):
         self.sim = sim
         self.tables = lower_tables(sim)
+        # capture config is fixed at construction (the simulator builds
+        # each engine once)
+        self.trace = sim.trace
+        self.last_trace = None       # ChipTrace of the latest traced run
+        self._drop_cache: dict[int, list] = {}
         dev = sim.device
         self._layer_consts = [
             (lt, torch.as_tensor(lt.slice_sizes, device=dev)[None, :],
@@ -221,6 +237,19 @@ class _EngineBase:
 
     def _run(self, trains: torch.Tensor):
         raise NotImplementedError
+
+    def _drop_masks(self, steps: int) -> list | None:
+        """Per layer the (steps, n_post) f32 survival masks of the
+        simulator's drop plan (None for a layer without NoC exposure), or
+        None without a plan; drawn once per run length."""
+        plan = self.sim.drop_plan
+        if plan is None:
+            return None
+        if steps not in self._drop_cache:
+            self._drop_cache[steps] = [
+                None if p is None else plan.masks(li, steps, self.sim.device)
+                for li, p in enumerate(plan.keep_p)]
+        return self._drop_cache[steps]
 
     def _layer_counters(self, li, nnz, tc, out, wall, step):
         """Per-core cycles into `wall` and the step's counters of layer li.
@@ -240,10 +269,12 @@ class _EngineBase:
         step["nnz"].append(nnz)
         step["touched"].append(tc.sum(-1).to(torch.float32))
         step["fired"].append(out.sum(-1))
-        if self._has_flow[li]:
+        if self._has_flow[li] or self.trace.enabled:
             # per-source-core fired counts, row-aligned with the layer's
             # FlowTable; priced exactly on the host
             step[f"fired_core_{li}"] = out @ onehot
+        if self.trace.enabled:
+            step[f"touched_core_{li}"] = core_touched
 
     def _collect(self, steps: list[dict]) -> dict:
         """Stack the per-step counters over T -> (B, T, ...) tensors."""
@@ -279,6 +310,9 @@ class _EngineBase:
         sim = self.sim
         tbl = self.tables
         ys_dev, out_counts = self.run_raw(spike_trains)
+        # injected transient dispatch faults fire HERE: the run happened,
+        # the readback is lost (mid-flight), so a retry can succeed
+        sim._consume_transient_fault()
         # the one device -> host crossing of the run
         ys = {k: v.cpu().numpy().astype(np.float64) for k, v in ys_dev.items()}
         B, T = ys["wall"].shape
@@ -311,6 +345,21 @@ class _EngineBase:
             load.max(axis=2), core_wall, sim.router)     # (B, T)
         wall = (core_wall + contention).sum(axis=1)
         noc_contention = contention.sum(axis=1)
+
+        if self.trace.enabled:
+            # every derived series (cycles, router load, contention) is
+            # recomputed on the host by build_trace from these integer
+            # counters — one implementation for both engines
+            L = len(tbl.layers)
+            self.last_trace = build_trace(
+                sim,
+                np.concatenate([ys[f"fired_core_{li}"] for li in range(L)],
+                               axis=-1),
+                np.concatenate([ys[f"touched_core_{li}"] for li in range(L)],
+                               axis=-1),
+                nnz,
+                (ys["skip_words"]
+                 if self.trace.skip_words and "skip_words" in ys else None))
 
         priced = E.price_batched(
             sim.core_model, sim.riscv,
@@ -366,19 +415,32 @@ class CompiledEngine(_EngineBase):
         n_active = self.tables.n_active_cores
         out_counts = torch.zeros((B, int(sim.weights[-1].shape[1])),
                                  device=sim.device)
+        drop = self._drop_masks(T)
+        trace_skips = self.trace.enabled and self.trace.skip_words
         steps = []
         for t in range(T):
             spikes = trains[:, t].contiguous()
             wall = torch.zeros((B, n_active), device=sim.device)
             step = _new_step()
+            skips = []
             for li, w in enumerate(sim.weights):
                 nnz = (spikes != 0).sum(-1).to(torch.float32)
+                if trace_skips:
+                    # ZSPE skip telemetry on the layer's input spikes,
+                    # packed as the fused engine's native counter packs
+                    skips.append(Z.empty_spike_words(
+                        Z.pack_spike_words(spikes)).to(torch.float32))
                 current = spikes @ w
                 states[li], out, touched = lif_step(
                     states[li], current, sim.lif,
                     touched=touch_mask(spikes, sim.nonzero_weights[li]))
                 self._layer_counters(li, nnz, touched, out, wall, step)
-                spikes = out
+                # counters above are pre-drop; the next layer integrates
+                # what survived the hops
+                spikes = (out if drop is None or drop[li] is None
+                          else out * drop[li][t])
+            if trace_skips:
+                step["skip_words"] = skips
             step["wall"] = wall.amax(-1)
             out_counts += spikes
             steps.append(step)
@@ -434,6 +496,7 @@ class FusedEngine(_EngineBase):
         n_active = self.tables.n_active_cores
         out_counts = torch.zeros((B, fused_w[-1].n_post), device=sim.device)
         packed_t = Z.pack_spike_words(trains.transpose(0, 1))  # (T, B, kw0)
+        drop = self._drop_masks(T)
         steps = []
         for t in range(T):
             packed = packed_t[t]
@@ -446,7 +509,11 @@ class FusedEngine(_EngineBase):
                 self._layer_counters(li, nnz_rows[:, 0].to(torch.float32),
                                      tc, out, wall, step)
                 skips.append(ew[:, 0].to(torch.float32))
-                packed = Z.pack_spike_words(out)   # next layer's spike words
+                # counters above are pre-drop; the next layer's spike
+                # words carry only the packets that survived the hops
+                nxt = (out if drop is None or drop[li] is None
+                       else out * drop[li][t])
+                packed = Z.pack_spike_words(nxt)   # next layer's spike words
             step["skip_words"] = skips
             step["wall"] = wall.amax(-1)
             out_counts += out

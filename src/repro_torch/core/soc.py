@@ -4,10 +4,11 @@ array engines and full energy/cycle accounting.
 
 Port of `repro.core.soc`.  The mapping, register-table and report code is
 numpy, copied from the reference; weights and engine state are torch
-tensors on the simulator's device.  This slice ports the two array
-engines (`engine="compiled"` and `engine="fused"`) on the inference path;
-the options that later slices bring raise `NotImplementedError` naming
-the ROADMAP.md item that brings them.
+tensors on the simulator's device.  The port has the two array engines
+(`engine="compiled"` and `engine="fused"`) on the inference path, with
+faults (`repro_torch.faults`) and tracing (`repro_torch.telemetry`); the
+options that later slices bring raise `NotImplementedError` naming the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.core import noc as NOC
 from repro_torch.core.quant import CodebookConfig
 from repro_torch.core.zspe import CoreGeometry, CycleModel
 from repro_torch.device import resolve_device
+from repro_torch.faults import model as FM
+from repro_torch.telemetry.trace import TraceConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,8 +267,6 @@ class ChipReport:
 _NOT_PORTED = {
     "reference": "Queue 1 item 9 (interpretive reference engine)",
     "sharded": "Queue 1 item 10 (multi-GPU ShardedEngine)",
-    "trace": "Queue 1 item 7 (telemetry)",
-    "faults": "Queue 1 item 6 (faults)",
     "plasticity": "Queue 1 item 8 (plasticity)",
 }
 
@@ -287,8 +288,12 @@ class ChipSimulator:
       fused-timestep kernel (kernels/fused_timestep.py) on bitpacked uint16
       spike words with codebook-compressed weights.  This is the main path.
 
-    `device` defaults to the card (`repro_torch.resolve_device`); pass
-    ``device="cpu"`` to run the plain versions on the CPU.
+    ``faults`` (a `faults.FaultConfig`) folds a faulty chip into the
+    weights, register tables and a seeded drop plan at construction;
+    ``trace`` (a `telemetry.TraceConfig`) makes each run leave a
+    `ChipTrace` in `last_trace()`.  `device` defaults to the card
+    (`repro_torch.resolve_device`); pass ``device="cpu"`` to run the plain
+    versions on the CPU.
     """
 
     def __init__(
@@ -320,8 +325,6 @@ class ChipSimulator:
                              f"'sharded' or 'reference', got {engine!r}")
         for what, given in (("reference", engine == "reference"),
                             ("sharded", engine == "sharded"),
-                            ("trace", trace is not None),
-                            ("faults", faults is not None),
                             ("plasticity", plasticity is not None)):
             if given:
                 raise _not_ported(what)
@@ -373,6 +376,7 @@ class ChipSimulator:
         self.freq_hz = freq_hz
         self.zero_skip = zero_skip
         self.partial_update = partial_update
+        self.faults = faults if faults is not None else FM.NULL_FAULTS
         self.cycle_model = CycleModel(self.geom)
         self.core_model = E.calibrate_core()
         self.riscv = E.RiscvPowerModel()
@@ -393,6 +397,12 @@ class ChipSimulator:
             self.adj = NOC.fullerene_adjacency()
             self._level2 = frozenset()
             self.interconnect = None
+        if self.faults.rerouted and self.faults.topology_faults():
+            # repaired chip: CMRouter tables are reprogrammed on the
+            # surviving graph, so routes below detour around the faults
+            # (and the replay prices the detours); unreachable pairs fail
+            # loudly in _compile_layer_routes
+            self.adj = FM.masked_adjacency(self.adj, self.faults)
         self.routing = NOC.RoutingTable(self.adj)
         # routes are compiled ONCE from the mapping; each timestep only
         # replays them (no BFS in the simulation loop)
@@ -411,12 +421,21 @@ class ChipSimulator:
         self.register_tables = (list(register_tables)
                                 if register_tables is not None
                                 else self._build_register_tables())
+        # static faults fold into the weights/tables HERE — before the
+        # touch masks, so both engines inherit them with no lowering
+        # changes; a null config returns without touching anything
+        FM.apply_chip_faults(self)
+        self.drop_plan = FM.build_drop_plan(self)
+        self._dispatch_count = 0
         # connectivity masks for the partial-update touch set (see
         # neuron.touch_mask): computed AFTER quantization so both engines
         # see the synapses the chip actually programs
         self.nonzero_weights = [(w != 0).to(torch.float32)
                                 for w in self.weights]
         self.engine = engine
+        # opt-in per-timestep capture (repro_torch.telemetry): trace-off
+        # runs issue no extra ops
+        self.trace = trace or TraceConfig()
         self._compiled = None    # CompiledEngine, built lazily
         self._fused = None       # FusedEngine, built lazily
 
@@ -445,6 +464,13 @@ class ChipSimulator:
             return self.fused_engine()
         return self.compiled_engine()
 
+    def last_trace(self):
+        """The ChipTrace captured by the most recent run (None when the
+        simulator was built without `trace=TraceConfig(enabled=True)` or
+        has not run yet).  Schema-identical across both engines."""
+        eng = self._fused if self.engine == "fused" else self._compiled
+        return eng.last_trace if eng is not None else None
+
     def _build_register_tables(self) -> list[RegisterTable]:
         """One programmed RegisterTable per core assignment: with quantized
         weights the core's shared table is the layer codebook (the group
@@ -467,6 +493,17 @@ class ChipSimulator:
         return routes
 
     # -- execution ----------------------------------------------------------
+
+    def _consume_transient_fault(self) -> None:
+        """Raise `TransientChipFault` when this dispatch index is listed in
+        `faults.transient_dispatches`.  Engines call it after the run but
+        before results are read back — a mid-flight loss, so a retry
+        (same FaultConfig, next dispatch index) can succeed."""
+        i = self._dispatch_count
+        self._dispatch_count += 1
+        if i in self.faults.transient_dispatches:
+            raise FM.TransientChipFault(
+                f"injected transient fault at dispatch {i}")
 
     def run(self, spike_train) -> tuple[torch.Tensor, ChipReport]:
         """spike_train: (T, n_in) binary -> (out_spike_counts, report)."""

@@ -7,11 +7,15 @@ ragged counts, unaligned operands and long elapsed; the codebook product's
 split of K and lookup table, the flash kernel's tensor-core and SIMT
 instantiations), the padded `ops.fused_timestep`
 against itself on the CPU, a fused run and an LM prefill counting their
-launches.  Marked `cuda`; every test skips without a card.  Run on the
+launches; a faulted ARCH chip's layer-steps against the plain versions,
+its traced run's launches, and the drop masks drawn on the card bitwise
+equal to the CPU's.  Marked `cuda`; every test skips without a card.  Run on the
 card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -246,6 +250,109 @@ def test_fused_run_counts_launches(dev):
         assert sum(FT.launches.values()) == 5 * 2
         assert counts.device.type == "cuda" and counts.shape == (4, 10)
         assert all(np.isfinite(r.energy_pj) for r in reports)
+
+
+@pytest.fixture(scope="module")
+def faulted_arch():
+    """Quantized and float simulators of the paper's network (ARCH) on the
+    card under one fault plan: a dead core of layer 2, router 2 and a
+    link on a layer-1 route failed (blocks cut), a bit-flip and a stuck
+    codebook word (quantized only), per-hop drop 0.05."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import ChipSimulator, CodebookConfig, quantize
+    from repro_torch.configs.snn_chip import ARCH
+    from repro_torch.faults import CodebookFault, FaultConfig
+
+    rng = np.random.default_rng(0)
+    sizes = ARCH.layer_sizes
+    ws = [rng.normal(0, 2.0 / np.sqrt(a), (a, b)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    qcfg = CodebookConfig(n_levels=16, bit_width=8, zero_level=True)
+    qws = [quantize(w, qcfg, device="cuda") for w in ws]
+    healthy = ChipSimulator(qws, engine="fused", device="cuda")
+    m = healthy.mapping
+    src, dst = m.cores_of_layer(1)[0], m.cores_of_layer(2)[0]
+    path = healthy.routing.path(src.core_id, dst.core_id)
+    words = healthy.register_tables[m.assignments.index(src)].codebook_words
+    faults = FaultConfig(
+        dead_cores=(m.cores_of_layer(2)[-1].core_id,), failed_routers=(2,),
+        failed_links=(tuple(path[:2]),), drop_p=0.05, seed=7)
+    cbf = (CodebookFault(core_id=src.core_id,
+                         word=int(np.argmax(np.abs(words))), bit=0),)
+    quant = ChipSimulator(qws, engine="fused", mapping=m, device="cuda",
+                          faults=dataclasses.replace(faults,
+                                                     codebook_faults=cbf))
+    dense = ChipSimulator(ws, engine="fused", mapping=m, device="cuda",
+                          faults=faults)
+    return {"codebook": quant, "dense": dense}
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["codebook", "dense"])
+@pytest.mark.parametrize("partial_update", [True, False],
+                         ids=["partial", "full"])
+def test_faulted_arch_layer_steps_match_plain(faulted_arch, kind, layer,
+                                              partial_update):
+    """A faulted chip's lowered ARCH weights (zeroed columns and blocks, a
+    corrupted codebook column) under spikes thinned by the drop plan's
+    masks, M = 32: the kernel against its plain version."""
+    sim = faulted_arch[kind]
+    eng = sim.fused_engine()
+    assert eng.codebook_layers == (3 if kind == "codebook" else 0)
+    lw = eng.fused_weights[layer]
+    rng = np.random.default_rng(layer)
+    s = torch.tensor((rng.random((32, lw.n_pre)) < 0.1).astype(np.float32),
+                     device="cuda")
+    masks = eng._drop_masks(20)
+    if layer and masks[layer - 1] is not None:
+        s = s * masks[layer - 1][7]
+    c = dict(packed=Z.pack_spike_words(s),
+             v=torch.tensor(rng.normal(0.5, 0.5, (32, lw.n_post)).astype(
+                 np.float32), device="cuda"),
+             el=torch.tensor(rng.integers(0, 6, (32, lw.n_post)).astype(
+                 np.int32), device="cuda"))
+    w0, cbw = (lw.idx, lw.cbw) if kind == "codebook" else (lw.dense, None)
+    _assert_matches_plain(c, w0, cbw, lw.all_nonzero, partial_update,
+                          exact=True)
+
+
+@pytest.mark.parametrize("n", [1, 10, 4096])
+def test_drop_masks_on_the_card_equal_the_cpu(dev, n):
+    from repro_torch.faults import DropPlan, derive_fault_seed
+
+    rng = np.random.default_rng(n)
+    keep = tuple(np.float32(0.95 ** rng.integers(1, 20, n))
+                 for _ in range(3))
+    for seed in (0, 2**32 - 1, derive_fault_seed(7, 4)):
+        plan = DropPlan(key_seed=seed, keep_p=keep)
+        for li in range(3):
+            got = plan.masks(li, 1001, dev)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), plan.masks(li, 1001, "cpu"))
+            assert torch.equal(plan.mask(li, 1000, dev).cpu(),
+                               plan.mask(li, 1000, "cpu"))
+
+
+def test_faulted_traced_run_counts_launches(faulted_arch):
+    from repro_torch import ChipSimulator
+    from repro_torch.telemetry import TraceConfig
+
+    base = faulted_arch["codebook"]
+    sim = ChipSimulator(base.qweights, engine="fused", mapping=base.mapping,
+                        faults=base.faults, trace=TraceConfig(enabled=True),
+                        device="cuda")
+    trains = (np.random.default_rng(1).random((8, 4, 2312))
+              < 0.1).astype(np.float32)
+    FT.reset_launches()
+    counts, reports = sim.run_batch(trains)
+    torch.cuda.synchronize()
+    assert FT.launches == {"fused_timestep_codebook": 12,
+                           "fused_timestep_dense": 0}
+    trace = sim.last_trace()
+    assert trace.fired.shape[:2] == (8, 4)
+    np.testing.assert_allclose(trace.wall_cycles(),
+                               [r.wall_cycles for r in reports], rtol=1e-9)
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,16 @@ tests of the port's device policy, which need no reference.
 
 * `port_from_reference`: a JAX `repro` simulator -> numpy -> the port's
   `repro_torch.convert` -> a port `ChipSimulator` computing the same
-  network (same quantized tensors, mapping and register tables);
+  network (same quantized tensors, mapping and register tables), under
+  the same faults and trace config when asked — built from the
+  pre-fault network, since a faulted reference holds post-fault state;
 * `assert_step_close`: the teacher-forced layer-step comparator — the
   same inputs and state through a reference step and a port step;
 * `tie_free_trains`: a search for input trains on which no touched
   neuron comes within `margin` of the threshold, so whole runs can be
   held to equal spikes although the two frameworks round differently;
+* `run_raw_ops`: the aten ops one engine run issues, in order, so a
+  test can hold an option that is off to costing nothing;
 * `c_argtypes` / `launch_args`: a CUDA source's C launch signature as
   ctypes types, and the arguments a kernel wrapper passes to its launch,
   so the CPU tests hold the binding to the source.
@@ -26,9 +30,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 V_ATOL = V_RTOL = 1e-5
 TIE = 1e-4
+REPORT_REL = 1e-6
+STAT_FIELDS = ("nominal_sops", "performed_sops", "spikes_in",
+               "spikes_routed", "neurons_touched", "noc_hops",
+               "noc_energy_pj", "noc_contention_cycles")
+REPORT_FIELDS = ("energy_pj", "core_energy_pj", "noc_energy_pj",
+                 "riscv_energy_pj", "wall_cycles")
 
 
 # ---------------------------------------------------------------------------
@@ -52,11 +63,32 @@ def reference_arrays(ref_sim) -> dict:
                          for rt in ref_sim.register_tables])
 
 
-def port_from_reference(ref_sim, engine: str = "fused", device="cpu"):
-    """A port ChipSimulator of the same network as `ref_sim`."""
+def port_from_reference(ref_sim, engine: str = "fused", device="cpu", *,
+                        faults=None, trace=None, weights=None):
+    """A port ChipSimulator of the same network as `ref_sim`.
+
+    `faults` / `trace` are the port's FaultConfig / TraceConfig, equal to
+    the reference's.  A faulted reference's `weights` and
+    `register_tables` are post-fault, and folding the faults in again
+    would apply them twice (a bit-flip applied twice flips back).  So
+    with `faults` the port starts from the pre-fault network and folds
+    the faults in itself: a quantized reference's QuantizedTensors (which
+    faults leave alone), with the register tables the port programs from
+    them, or for a float reference `weights`, the float matrices it was
+    built from.
+    """
     from repro_torch import ChipSimulator, convert
 
-    conv = convert(**reference_arrays(ref_sim), device=device)
+    arrays = reference_arrays(ref_sim)
+    if faults is not None:
+        if ref_sim.qweights is None:
+            if weights is None:
+                raise ValueError(
+                    "a faulted float reference holds post-fault weights: "
+                    "pass the pre-fault `weights` it was built from")
+            arrays["layers"] = [np.asarray(w, np.float32) for w in weights]
+        arrays["register_tables"] = None
+    conv = convert(**arrays, device=device)
     return ChipSimulator(conv.weights, mapping=conv.mapping,
                          register_tables=conv.register_tables,
                          quant_cfg=ref_sim.quant_cfg if ref_sim.qweights
@@ -66,7 +98,8 @@ def port_from_reference(ref_sim, engine: str = "fused", device="cpu"):
                          partial_update=ref_sim.partial_update,
                          leak=ref_sim.lif.leak,
                          threshold=ref_sim.lif.threshold,
-                         engine=engine, device=device)
+                         engine=engine, faults=faults, trace=trace,
+                         device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -95,10 +128,25 @@ def assert_step_close(ref_out, port_out, v_int, touched=None):
                                atol=V_ATOL)
 
 
-def min_tie_margin(weights, lif, trains) -> float:
+def assert_reports_close(got, want, rel=REPORT_REL):
+    """Per-sample ChipReports: every stat and energy / wall field within
+    `rel` relative (of max(|want|, 1))."""
+    assert len(got) == len(want)
+    for b, (g, w) in enumerate(zip(got, want)):
+        for f in STAT_FIELDS:
+            a, c = getattr(w.stats, f), getattr(g.stats, f)
+            assert abs(a - c) <= rel * max(abs(a), 1.0), (b, f, a, c)
+        for f in REPORT_FIELDS:
+            a, c = getattr(w, f), getattr(g, f)
+            assert abs(a - c) <= rel * max(abs(a), 1.0), (b, f, a, c)
+
+
+def min_tie_margin(weights, lif, trains, drop=None) -> float:
     """Smallest |v_int - θ| over touched neurons of a dense run (port
     compiled-engine math on the CPU) — the fixture's distance from a
-    spike that rounding could flip."""
+    spike that rounding could flip.  `drop`: per layer None or the
+    (T, n_post) survival masks of a drop plan, applied to the layer's
+    output spikes as the engines apply them."""
     from repro_torch.core.neuron import init_state, lif_step, touch_mask
 
     ws = [torch.tensor(np.asarray(w, np.float32)) for w in weights]
@@ -121,19 +169,43 @@ def min_tie_margin(weights, lif, trains) -> float:
             if gap.numel():
                 margin = min(margin, float(gap.min()))
             states[li], spikes, _ = lif_step(st, cur, lif, touched=tm)
+            if drop is not None and drop[li] is not None:
+                spikes = spikes * torch.as_tensor(drop[li][t])
     return margin
 
 
 def tie_free_trains(weights, lif, shape, density=0.25, margin=1e-5,
-                    tries=50):
+                    tries=50, drop=None):
     """Bernoulli(density) trains of `shape` (seeds 0, 1, ...) whose run
-    stays at least `margin` from the threshold on every touched neuron."""
+    (under the drop masks `drop`, see `min_tie_margin`) stays at least
+    `margin` from the threshold on every touched neuron."""
     for seed in range(tries):
         rng = np.random.default_rng(1000 + seed)
         trains = (rng.random(shape) < density).astype(np.float32)
-        if min_tie_margin(weights, lif, trains) > margin:
+        if min_tie_margin(weights, lif, trains, drop) > margin:
             return trains
     raise RuntimeError("no tie-free fixture found")
+
+
+class _AtenOps(TorchDispatchMode):
+    """The aten ops a block issues, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def run_raw_ops(sim, trains):
+    """(aten op names, counters, counts) of one `run_raw` of the
+    simulator's engine, built before the count starts."""
+    eng = sim.array_engine()
+    with _AtenOps() as mode:
+        ys, counts = eng.run_raw(trains)
+    return mode.ops, ys, counts
 
 
 # ---------------------------------------------------------------------------

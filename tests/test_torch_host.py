@@ -55,16 +55,6 @@ def test_compile_network_multi_domain_summary_equal():
     assert _rows(got.to_soc_mapping()) == _rows(want.to_soc_mapping())
 
 
-def test_fault_options_raise():
-    from repro_torch import compiler as CC
-
-    with pytest.raises(NotImplementedError, match="faults"):
-        CC.compile_network((64, 128, 10), faults=object())
-    prev = CC.compile_network((64, 128, 10))
-    with pytest.raises(NotImplementedError, match="faults"):
-        CC.repair((64, 128, 10), prev, faults=object())
-
-
 def _sim_pair(sizes, mapping=None):
     rng = np.random.default_rng(0)
     ws = [rng.normal(0, 0.5, (sizes[i], sizes[i + 1])).astype(np.float32)
