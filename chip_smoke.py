@@ -98,8 +98,29 @@ Phases, each of which must pass:
    of `faults=None`; (e) ms
    per run of (a) and of the healthy run, and their device busy.
 
+8. plasticity and the interpretive engine — right after phase 7, on phase
+   4's quantized weights, mapping and trains: (a) STDP on layers 1 and 2
+   (`PlasticityConfig(enabled=True, mode="stdp", layers=(1, 2))`), fused
+   and compiled: exactly 20 codebook launches per fused run (layer 0),
+   index writes in both learnable layers, spike and write totals per
+   layer within phase 4's 1e-3, and in every sample whose layer 0 fired
+   the compiled engine's per-core counts at every step, learned indexes
+   and writes bitwise equal; peak device memory; (b) R-STDP on the
+   readout (`mode="reward", layers=(2,), lr=0.05, elig_pre=0.5`, the
+   settings of deploy/adapt.py `continual_adaptation`): a run (40
+   codebook launches), `apply_reward` with the per-neuron reward
+   one_hot(target) - one_hot(pred), and a run warm-started from
+   `last_learned` (40 launches), held to the compiled engine by (a)'s
+   rule (layers 0 and 1 frozen), the commit's writes, write energy and
+   write cycles equal; (c) `engine="reference"` at B = 2: healthy and
+   untraced (totals within phase 4's rule), then (a)'s STDP traced,
+   against the compiled engine run a sample at a time by (a)'s rule, no
+   kernel launch, the trace's writes summing to the reports'; (d) ms per
+   run and device busy of (a), (b) and the healthy run, ms per sample of
+   (c) (its first runs, and warm on one sample with its device busy).
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 5 and 6); the last line is
+4, 7, 8, 5 and 6); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -1359,6 +1380,288 @@ def fault_path(arch, ctx: dict, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: on-chip plasticity and the interpretive reference engine
+# ---------------------------------------------------------------------------
+
+STDP_LAYERS = (1, 2)           # (a): the two layers after the input layer
+READOUT = 2                    # (b): R-STDP on the readout, as
+RSTDP = dict(lr=0.05, elig_pre=0.5)   # deploy/adapt.py continual_adaptation
+REF_BATCH = 2                  # (c): samples of the interpretive engine
+
+
+def _host_ys(ys, keys) -> dict:
+    return {k: ys[k].double().cpu().numpy() for k in keys}
+
+
+def _trace_ys(trace) -> dict:
+    """The run's counters as the array engines' run_raw names them, from
+    a ChipTrace (the reference engine has no run_raw)."""
+    ys = {f"fired_core_{li}": trace.fired[..., trace.slice_layer == li]
+          for li in range(trace.n_layers)}
+    ys["fired"] = np.stack([ys[f"fired_core_{li}"].sum(axis=-1)
+                            for li in range(trace.n_layers)], axis=-1)
+    ys["writes"] = trace.weight_writes
+    return ys
+
+
+def _hold_plastic(what: str, got: tuple, want: tuple, frozen, learnable
+                  ) -> int:
+    """Phase 8's rule, `got` (fused or reference) against `want`
+    (compiled), each (host counters, learned indexes): spike and write
+    totals per layer within SPIKE_REL_TOL; in every sample whose frozen
+    layers fired the same per-core counts at every step (so its learnable
+    layers saw the same spikes), learned indexes and writes bitwise
+    equal.  Returns how many samples that is (at least one)."""
+    (ys_g, learned_g), (ys_w, learned_w) = got, want
+    for key in ("fired", "writes"):
+        g, w = ys_g[key].sum(axis=(0, 1)), ys_w[key].sum(axis=(0, 1))
+        rel = np.abs(g - w) / np.maximum(w, 1.0)
+        log(f"{what}: {key} per layer {g.tolist()} against compiled "
+            f"{w.tolist()} (max rel {rel.max():.3g})")
+        if rel.max() > SPIKE_REL_TOL:
+            raise AssertionError(f"{what}: {key} totals differ by "
+                                 f"{rel.max():.3g} relative")
+    rows = _frozen_rows(ys_g, ys_w, frozen)
+    if not len(rows):
+        raise AssertionError(f"{what}: no sample's frozen layers fired as "
+                             f"the compiled engine's")
+    if not np.array_equal(ys_g["writes"][rows], ys_w["writes"][rows]):
+        raise AssertionError(f"{what}: writes differ in a sample with "
+                             f"equal frozen layers")
+    for li in learnable:
+        if not _rows_equal(learned_g[li], learned_w[li], rows):
+            raise AssertionError(f"{what}: layer {li}'s learned indexes "
+                                 f"differ in a sample with equal frozen "
+                                 f"layers")
+    rest = ys_w["fired"].shape[0] - len(rows)
+    log(f"{what}: learned indexes and writes bitwise equal in all "
+        f"{len(rows)} samples whose frozen layers {list(frozen)} fired as "
+        f"the compiled engine's, of {ys_w['fired'].shape[0]}"
+        + (f" (in {rest}, a near-tie flip in a frozen layer: the kernel's "
+           f"f64 sum against an f32 matmul)" if rest else ""))
+    return len(rows)
+
+
+def _frozen_rows(ys_a, ys_b, frozen) -> np.ndarray:
+    """The samples whose frozen layers fired the same per-core counts at
+    every step in both runs: their learnable layers saw the same spikes."""
+    same = np.ones(ys_a["fired"].shape[0], bool)
+    for li in frozen:
+        key = f"fired_core_{li}"
+        same &= (ys_a[key] == ys_b[key]).all(axis=(1, 2))
+    return np.flatnonzero(same)
+
+
+def _rows_equal(a, b, rows) -> bool:
+    import torch
+
+    idx = torch.as_tensor(rows, dtype=torch.long)
+    return torch.equal(a.cpu()[idx], b.cpu()[idx])
+
+
+def _plastic_runs(fused, comp, trains, learned=(None, None)) -> tuple:
+    """One run_raw of each engine: ((host counters, learned indexes) of
+    the fused run, the same of the compiled run)."""
+    out = []
+    for sim, warm in zip((fused, comp), learned):
+        ys, _ = sim.array_engine().run_raw(trains, learned=warm)
+        keys = [k for k in ys if k.startswith(("fired", "writes"))]
+        out.append((_host_ys(ys, keys), [ys.get(f"learned_idx_{li}")
+                                         for li in range(len(sim.weights))]))
+    return tuple(out)
+
+
+def plasticity_path(arch, ctx: dict, smi: str) -> dict:
+    """Phase 8: phase 4's network (its quantized weights, mapping and
+    trains) learning on the card, through `ChipSimulator(plasticity=)`,
+    and the interpretive engine."""
+    import torch
+
+    from repro_torch import ChipSimulator, PlasticityConfig
+    from repro_torch.kernels import fused_timestep as FT
+    from repro_torch.telemetry import TraceConfig
+
+    healthy, qws, trains = ctx["sim"], ctx["qws"], ctx["trains"]
+    dev = healthy.device
+    B, T, L = int(trains.shape[0]), int(trains.shape[1]), len(qws)
+    kw = dict(freq_hz=arch.freq_hz, threshold=arch.threshold,
+              leak=arch.leak, mapping=healthy.mapping, device=dev)
+    codebook_only = {"fused_timestep_codebook": 0, "fused_timestep_dense": 0}
+    perf: dict = {}
+
+    # (a) STDP on layers 1 and 2, both engines
+    stdp = PlasticityConfig(enabled=True, mode="stdp", layers=STDP_LAYERS)
+    fa = ChipSimulator(qws, engine="fused", plasticity=stdp, **kw)
+    ca = ChipSimulator(qws, engine="compiled", plasticity=stdp, **kw)
+    frozen_a = [li for li in range(L) if li not in STDP_LAYERS]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FT.reset_launches()
+    counts, reports = fa.run_batch(trains)
+    torch.cuda.synchronize()
+    launches = _expect_launches("STDP fused run", {
+        **codebook_only, "fused_timestep_codebook": T * len(frozen_a)})
+    perf["stdp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    perf["stdp_peak_over_resident_gb"] = (torch.cuda.max_memory_allocated()
+                                          - base) / 1e9
+    counts_np = counts.cpu().numpy()
+    writes = np.array([r.stats.weight_writes for r in reports])
+    if counts_np.shape != (B, arch.layer_sizes[-1]) \
+            or not np.isfinite(counts_np).all() or writes.min() <= 0 \
+            or not np.isfinite([r.energy_pj for r in reports]).all():
+        raise AssertionError(f"STDP fused run: bad outputs {counts_np.shape}"
+                             f", writes {writes.min()}")
+    (ys_f, lf), (ys_c, lc) = _plastic_runs(fa, ca, trains)
+    per_layer = ys_f["writes"].sum(axis=(0, 1))
+    if (per_layer[list(STDP_LAYERS)] <= 0).any():
+        raise AssertionError(f"STDP: writes per layer {per_layer.tolist()}")
+    log(f"STDP (layers {STDP_LAYERS}): {launches}, writes per layer "
+        f"{per_layer.tolist()}, write pJ per sample "
+        f"{np.mean([r.write_energy_pj for r in reports]):.1f}, peak device "
+        f"memory {perf['stdp_peak_gb']:.3f} GB "
+        f"({perf['stdp_peak_over_resident_gb']:.3f} GB over the resident "
+        f"{base / 1e9:.3f} GB)")
+    if not np.array_equal(writes, ys_f["writes"].sum(axis=(1, 2))):
+        raise AssertionError("STDP: reports' writes differ from run_raw's")
+    perf["stdp_same_samples"] = _hold_plastic(
+        "STDP fused", (ys_f, lf), (ys_c, lc), frozen_a, STDP_LAYERS)
+
+    # (b) R-STDP on the readout: run, commit, warm-started run
+    rstdp = PlasticityConfig(enabled=True, mode="reward", layers=(READOUT,),
+                             **RSTDP)
+    fb = ChipSimulator(qws, engine="fused", plasticity=rstdp, **kw)
+    cb = ChipSimulator(qws, engine="compiled", plasticity=rstdp, **kw)
+    frozen_b = [li for li in range(L) if li != READOUT]
+    want_b = {**codebook_only, "fused_timestep_codebook": T * len(frozen_b)}
+    (ys_f, lf), (ys_c, lc) = _plastic_runs(fb, cb, trains)
+    same = _hold_plastic("R-STDP fused", (ys_f, lf), (ys_c, lc), frozen_b,
+                         (READOUT,))
+    FT.reset_launches()
+    counts, _ = fb.run_batch(trains)
+    torch.cuda.synchronize()
+    launches_b = _expect_launches("R-STDP fused run", want_b)
+    ccounts, _ = cb.run_batch(trains)
+    labels = np.random.default_rng(7).integers(0, arch.layer_sizes[-1], B)
+    eye = np.eye(arch.layer_sizes[-1], dtype=np.float32)
+    infos = []
+    for sim, c in ((fb, counts), (cb, ccounts)):
+        pred = c.argmax(-1).cpu().numpy()
+        infos.append(sim.apply_reward(eye[labels] - eye[pred]))
+    rows = _frozen_rows(ys_f, ys_c, frozen_b)
+    for key in ("weight_writes", "write_energy_pj", "write_cycles"):
+        g, w = infos[0][key], infos[1][key]
+        if not np.array_equal(g[rows], w[rows]):
+            raise AssertionError(f"R-STDP commit: {key} differs in a "
+                                 f"sample with equal frozen layers")
+    if infos[1]["weight_writes"].sum() <= 0:
+        raise AssertionError("R-STDP commit wrote nothing")
+    rel = (abs(infos[0]["weight_writes"].sum()
+               - infos[1]["weight_writes"].sum())
+           / infos[1]["weight_writes"].sum())
+    if rel > SPIKE_REL_TOL:
+        raise AssertionError(f"R-STDP commit: write totals differ by {rel}")
+    if not _rows_equal(fb.last_learned[READOUT], cb.last_learned[READOUT],
+                       rows):
+        raise AssertionError("R-STDP commit: learned indexes differ in a "
+                             "sample with equal frozen layers")
+    log(f"R-STDP commit (per-neuron reward one_hot(target) - one_hot(pred)): "
+        f"writes {infos[0]['weight_writes'].sum():.0f} against compiled "
+        f"{infos[1]['weight_writes'].sum():.0f}, write pJ "
+        f"{infos[0]['write_energy_pj'].sum():.2f}, cycles "
+        f"{infos[0]['write_cycles'].sum():.0f}; equal in all {len(rows)} "
+        f"samples with equal frozen layers")
+    warm = [fb.last_learned, cb.last_learned]
+    FT.reset_launches()
+    fb.run_batch(trains, learned=warm[0])
+    torch.cuda.synchronize()
+    launches_w = _expect_launches("warm R-STDP fused run", want_b)
+    (ys_f, lf), (ys_c, lc) = _plastic_runs(fb, cb, trains, learned=warm)
+    _hold_plastic("R-STDP warm fused", (ys_f, lf), (ys_c, lc), frozen_b,
+                  (READOUT,))
+    perf["rstdp_same_samples"] = same
+
+    # (c) the interpretive engine at ARCH, against the compiled engine on
+    # the same samples (a sample at a time)
+    few = trains[:REF_BATCH]
+    FT.reset_launches()
+    ref = ChipSimulator(qws, engine="reference", **kw)
+    t0 = time.perf_counter()
+    rcounts, rreps = ref.run_batch(few)
+    torch.cuda.synchronize()
+    perf["reference_healthy_ms_per_sample"] = (
+        (time.perf_counter() - t0) * 1e3 / REF_BATCH)
+    hcounts, hreps = healthy.compiled_engine().run_batch(few)
+    _hold_totals("reference engine, healthy", rcounts, rreps, hcounts,
+                 hreps)
+    rp = ChipSimulator(qws, engine="reference", plasticity=stdp,
+                       trace=TraceConfig(enabled=True), **kw)
+    t0 = time.perf_counter()
+    _, preps = rp.run_batch(few)
+    torch.cuda.synchronize()
+    perf["reference_stdp_traced_ms_per_sample"] = (
+        (time.perf_counter() - t0) * 1e3 / REF_BATCH)
+    _expect_launches("reference engine", codebook_only)
+    trace = rp.last_trace()
+    tw = trace.weight_writes.sum(axis=(1, 2))
+    if not np.array_equal(tw, [r.stats.weight_writes for r in preps]) \
+            or tw.min() <= 0:
+        raise AssertionError(f"reference engine: trace writes {tw} against "
+                             f"the reports'")
+    cp = ChipSimulator(qws, engine="compiled", plasticity=stdp,
+                       trace=TraceConfig(enabled=True), **kw)
+    per = [cp.compiled_engine().run_raw(few[b:b + 1])[0]
+           for b in range(REF_BATCH)]
+    keys = [k for k in per[0] if k.startswith(("fired", "writes"))]
+    ys_c = {k: np.concatenate([_host_ys(p, [k])[k] for p in per])
+            for k in keys}
+    lc = [None if per[0].get(f"learned_idx_{li}") is None else torch.cat(
+        [p[f"learned_idx_{li}"] for p in per]) for li in range(L)]
+    perf["reference_same_samples"] = _hold_plastic(
+        "reference engine, STDP traced", (_trace_ys(trace), rp.last_learned),
+        (ys_c, lc), frozen_a, STDP_LAYERS)
+    log(f"reference engine: 0 kernel launches, trace writes per sample "
+        f"{tw.tolist()} equal to the reports'")
+
+    # (d) times, beside the healthy phase 4 run in this call; the
+    # interpretive engine's warm, on one sample
+    for name, sim, x in (("stdp", fa, trains), ("rstdp", fb, trains),
+                         ("healthy", healthy, trains),
+                         ("reference_stdp_traced_one_sample", rp, few[:1])):
+        ms = _timed_ms(lambda: sim.run_batch(x))
+        perf[f"{name}_ms_per_run"] = ms
+        got = _device_breakdown(lambda: sim.run_batch(x), ms)
+        perf.update({f"{name}_{k}": v for k, v in got.items()})
+    log(f"plasticity path timing (median of 5; {smi}): {json.dumps(perf)}")
+    return {"launches": {"fused_timestep_codebook":
+                         launches["fused_timestep_codebook"]
+                         + launches_b["fused_timestep_codebook"]
+                         + launches_w["fused_timestep_codebook"],
+                         "fused_timestep_dense": 0},
+            "perf": perf}
+
+
+def _hold_totals(what, counts, reports, want_counts, want_reports) -> None:
+    """Output spike totals and each sample's input spikes (all layers)
+    and pJ/SOP within phase 4's rule of the compiled engine's."""
+    g = float(counts.sum())
+    w = float(want_counts.sum())
+    rel = abs(g - w) / max(w, 1.0)
+    sp = np.array([r.stats.spikes_in for r in reports])
+    wsp = np.array([r.stats.spikes_in for r in want_reports])
+    srel = (np.abs(sp - wsp) / np.maximum(wsp, 1.0)).max()
+    pj = np.array([r.pj_per_sop for r in reports])
+    wpj = np.array([r.pj_per_sop for r in want_reports])
+    prel = (np.abs(pj - wpj) / wpj).max()
+    log(f"{what}: output spikes {g:.0f} against compiled {w:.0f}, input "
+        f"spikes per sample {sp.tolist()} against {wsp.tolist()}, pJ/SOP "
+        f"max rel {prel:.3g}")
+    if rel > SPIKE_REL_TOL or srel > SPIKE_REL_TOL or prel > PJ_REL_TOL:
+        raise AssertionError(f"{what}: differs from the compiled engine "
+                             f"({rel:.3g}, {srel:.3g}, {prel:.3g})")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernel-API path
 # ---------------------------------------------------------------------------
 
@@ -1891,9 +2194,16 @@ def main() -> int:
     mp = main_path(ARCH, args.seed)
 
     # 7. the main path faulted and traced (phase 4's weights and mapping)
+    ctx = mp.pop("ctx")
     t0 = time.perf_counter()
-    fp = fault_path(ARCH, mp.pop("ctx"), smi)
+    fp = fault_path(ARCH, ctx, smi)
     log(f"fault phase: {time.perf_counter() - t0:.1f} s")
+
+    # 8. on-chip plasticity and the interpretive engine (the same network)
+    t0 = time.perf_counter()
+    pp = plasticity_path(ARCH, ctx, smi)
+    log(f"plasticity phase: {time.perf_counter() - t0:.1f} s")
+    del ctx
 
     # 5. kernel-API path
     api = api_path(ARCH, qws, args.seed)
@@ -1907,10 +2217,10 @@ def main() -> int:
         f"checks {t1 - t0:.1f} s)")
 
     # kernels line, then the result; launches from phase 4 (fused), phase
-    # 7 (the faulted runs), phase 5 (kernel API, all three loops) and
-    # phase 6 (the served run)
+    # 7 (the faulted runs), phase 8 (the plastic runs), phase 5 (kernel
+    # API, all three loops) and phase 6 (the served run)
     launches = dict(mp["launches"])
-    for loop in [fp, *api.values()]:
+    for loop in [fp, pp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = lm["launches"]["flash_attention"]

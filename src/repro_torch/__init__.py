@@ -18,8 +18,11 @@ torch.backends.cudnn.allow_tf32 = False
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.core.quant import (CodebookConfig, QuantizedTensor,  # noqa: E402
                                     quantize)
+from repro_torch.core.plasticity import (NULL_PLASTICITY,  # noqa: E402
+                                         PlasticityConfig)
 from repro_torch.core.soc import ChipSimulator  # noqa: E402
 from repro_torch.convert import convert, convert_lm  # noqa: E402
 
-__all__ = ["ChipSimulator", "CodebookConfig", "QuantizedTensor", "convert",
-           "convert_lm", "quantize", "resolve_device"]
+__all__ = ["NULL_PLASTICITY", "ChipSimulator", "CodebookConfig",
+           "PlasticityConfig", "QuantizedTensor", "convert", "convert_lm",
+           "quantize", "resolve_device"]

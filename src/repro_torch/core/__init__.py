@@ -6,6 +6,11 @@ C3  non-uniform codebook quantization      -> repro_torch.core.quant
 C4  fullerene-like NoC                     -> repro_torch.core.noc
 C5  heterogeneous SoC                      -> repro_torch.core.soc
 calibrated 55nm energy model               -> repro_torch.core.energy
+on-chip learning (STDP, R-STDP)            -> repro_torch.core.plasticity
 
-Import the modules directly; this package imports none of them.
+Import the modules directly; this package exports only the plasticity
+config (`PlasticityConfig`, `NULL_PLASTICITY`).
 """
+from repro_torch.core.plasticity import NULL_PLASTICITY, PlasticityConfig
+
+__all__ = ["NULL_PLASTICITY", "PlasticityConfig"]

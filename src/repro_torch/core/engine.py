@@ -1,7 +1,7 @@
 """Batched chip engines of the port: a loop over T, an explicit batch axis.
 
-Port of `repro.core.engine`, inference path.  Two array engines share one
-lowering (`lower_tables`) and one pricing/report stage
+Port of `repro.core.engine` (the sharded engine aside).  Two array
+engines share one lowering (`lower_tables`) and one pricing/report stage
 (`_EngineBase.run_batch` -> `energy.price_batched`).  NoC accounting is
 source-exact: each step emits integer per-core fired counts
 (`out @ slice_onehot`) and the host replays them against the per-flow
@@ -33,6 +33,16 @@ masks of a run are drawn once per layer, all T at a time.  An enabled
 the compiled engine's skip-word count), from which `run_batch` builds the
 run's `ChipTrace`.  With no drop plan and the trace off the engines issue
 exactly the ops of a fault-free, untraced build.
+
+On-chip plasticity (`core/plasticity.py`) threads through both engines
+as well.  An enabled `PlasticityConfig` lowers each learnable layer to its
+register-table indexes (`lower_plasticity_tables`) and carries them, with
+the STDP traces and the eligibility, through the run (`PlasticRun`, batch
+leading).  A learnable layer leaves the fused kernel, since its weights
+are per-sample run state: both engines run it through the same torch
+expression, so they learn bit-identical indexes; frozen layers keep the
+kernel.  Index writes price into the cycle model's plasticity stage and
+the report.  Disabled, the engines issue exactly the inference ops.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ import torch
 
 from repro_torch.core import energy as E
 from repro_torch.core import noc as NOC
+from repro_torch.core import plasticity as PLC
 from repro_torch.core import zspe as Z
 from repro_torch.core.neuron import LIFState, init_state, lif_step, touch_mask
 from repro_torch.telemetry.trace import build_trace
@@ -136,16 +147,20 @@ class FusedLayerWeights:
         return self.idx is not None
 
 
-def _lower_codebook_layer(sim: "ChipSimulator", li: int,
+def _lower_codebook_layer(sim: "ChipSimulator", li: int, fill: float = 0.0,
                           ) -> tuple[np.ndarray, np.ndarray] | None:
     """Rebuild (idx, cbw) for layer `li` from the per-core RegisterTables.
 
     Returns None when any slice lacks a programmed table or the table
     words do not reproduce the executed weights bit-exactly — the caller
-    then falls back to the dense-weight kernel.  Unprogrammed codebook
-    rows (slices whose table holds fewer than the layer-max levels) are
-    0.0, so they dequantize to nothing.  numpy on the host, as in the
-    reference, so the indexes are the reference's bit for bit.
+    then falls back to the dense-weight kernel.  numpy on the host, as in
+    the reference, so the indexes are the reference's bit for bit.
+
+    `fill` pads unprogrammed codebook rows (slices whose table holds
+    fewer than the layer-max levels).  The fused kernel wants 0.0 (a
+    padded row dequantizes to nothing); the plasticity lowering wants
+    +inf so `quant.project_to_codebook` can never select a row the
+    core's table does not hold.
     """
     w = sim.weights[li].detach().cpu().numpy().astype(np.float32, copy=False)
     n_pre, n_post = w.shape
@@ -164,7 +179,7 @@ def _lower_codebook_layer(sim: "ChipSimulator", li: int,
         return None
     n_levels = max(rt.weight_levels for _, rt in slices)
     idx = np.zeros((n_pre, n_post), np.int8)
-    cbw = np.zeros((n_levels, n_post), np.float32)
+    cbw = np.full((n_levels, n_post), fill, np.float32)
     for a, rt in slices:
         if not rt.codebook_words:
             return None
@@ -176,6 +191,42 @@ def _lower_codebook_layer(sim: "ChipSimulator", li: int,
         idx[:, a.neuron_lo:a.neuron_hi] = ii.astype(np.int8)
         cbw[:len(cb), a.neuron_lo:a.neuron_hi] = cb[:, None]
     return idx, cbw
+
+
+def lower_plasticity_tables(sim: "ChipSimulator") -> tuple:
+    """Per-layer plasticity lowering: None for frozen layers, else the
+    (idx0 int8 (n_pre, n_post), cbw f32 (L, n_post)) pair, on the
+    simulator's device, whose indexes every engine carries and learns.
+
+    Initial indexes come from the post-fault RegisterTables (faults
+    corrupt tables in `ChipSimulator.__init__`, before any lowering), so
+    `FaultConfig` codebook corruption lands in the *initial* state only.
+    Unprogrammed codebook rows are +inf so projection cannot select them;
+    both the argmin here and `project_to_codebook` break ties to the
+    lowest index, making every initial index a projection fixed point (a
+    zero update never counts as a write).
+    """
+    cfg = sim.plasticity
+    if not cfg.enabled:
+        return tuple(None for _ in sim.weights)
+    out = []
+    for li in range(len(sim.weights)):
+        if not cfg.learns(li):
+            out.append(None)
+            continue
+        t = _lower_codebook_layer(sim, li, fill=np.inf)
+        if t is None:
+            raise ValueError(
+                f"plasticity on layer {li} requires table-exact codebook "
+                f"register tables (quantized weights, or float weights "
+                f"with a quant_cfg) — the chip has no register words to "
+                f"write otherwise")
+        out.append(tuple(torch.as_tensor(a, device=sim.device) for a in t))
+    if not any(t is not None for t in out):
+        raise ValueError(
+            f"plasticity enabled but layers={cfg.layers} selects none of "
+            f"the network's {len(sim.weights)} layers")
+    return tuple(out)
 
 
 def lower_fused_weights(sim: "ChipSimulator") -> tuple[FusedLayerWeights, ...]:
@@ -213,9 +264,11 @@ def lower_fused_weights(sim: "ChipSimulator") -> tuple[FusedLayerWeights, ...]:
 class _EngineBase:
     """Lowering + execution + pricing shared by both array engines.
 
-    Subclasses provide `_run(trains)`: an f32 (B, T, n_in) tensor on the
-    simulator's device -> (per-step counter dict, (B, n_out) output
-    counts), every counter shaped (B, T, ...).  `run_batch` prices the
+    Subclasses provide `_run(trains, idx0)`: an f32 (B, T, n_in) tensor
+    on the simulator's device, and None or the learnable layers' initial
+    indexes -> (per-step counter dict, (B, n_out) output counts), every
+    counter shaped (B, T, ...), plus a plastic run's final
+    `learned_idx_{li}` (and `elig_{li}`).  `run_batch` prices the
     counters through `energy.price_batched`.
     """
 
@@ -234,9 +287,65 @@ class _EngineBase:
              torch.as_tensor(lt.slice_onehot, device=dev))
             for lt in self.tables.layers]
         self._has_flow = [ft is not None for ft in self.tables.flows]
+        # on-chip learning (core/plasticity.py): disabled, a run issues
+        # exactly the inference ops
+        self.plast = sim.plasticity
+        self.plast_tables = sim.plasticity_tables()     # all None if off
+        self.last_learned = None     # per-layer learned indexes (B leading)
+        self.last_elig = None        # per-layer eligibility (reward mode)
 
-    def _run(self, trains: torch.Tensor):
+    def _run(self, trains: torch.Tensor, idx0: list | None):
         raise NotImplementedError
+
+    # -- plasticity state plumbing ------------------------------------------
+
+    def _adapt_learned(self, li: int, idx: torch.Tensor) -> torch.Tensor:
+        """Engine-layout view of a (B, n_pre, n_post) learned-index tensor
+        (the fused engine pads rows to the spike-word boundary)."""
+        return idx
+
+    def _initial_learned(self, batch: int, learned) -> list:
+        """The per-layer initial-index operand: table idx0 by default,
+        overridden per layer by `learned` entries ((n_pre, n_post)
+        broadcast over the batch, or per-sample (B, ...))."""
+        if learned is not None and len(learned) != len(self.plast_tables):
+            raise ValueError(
+                f"learned must carry one entry per layer "
+                f"({len(self.plast_tables)}), got {len(learned)}")
+        out = []
+        for li, pt in enumerate(self.plast_tables):
+            if pt is None:
+                if learned is not None and learned[li] is not None:
+                    raise ValueError(
+                        f"learned[{li}] given but layer {li} is frozen")
+                out.append(None)
+                continue
+            src = pt[0] if learned is None or learned[li] is None \
+                else learned[li]
+            base = PLC.as_indexes(src, self.sim.device)
+            if base.dim() == 2:
+                base = base.expand((batch,) + tuple(base.shape))
+            if base.dim() != 3 or int(base.shape[0]) != batch:
+                raise ValueError(
+                    f"learned[{li}]: expected (n_pre, n_post) or "
+                    f"({batch}, n_pre, n_post), got {tuple(base.shape)}")
+            # a copy: the run's state never aliases the caller's tensors
+            out.append(self._adapt_learned(
+                li, base.clone(memory_format=torch.contiguous_format)))
+        return out
+
+    def apply_reward(self, reward):
+        """Reward-mode trial commit: convert the eligibility the last run
+        accumulated into projected index writes, priced per sample."""
+        if self.plast.mode != "reward" or self.last_elig is None:
+            raise ValueError(
+                "apply_reward needs a completed reward-mode run to commit")
+        self.last_learned, info = PLC.commit_reward(
+            self.plast, self.plast_tables, self.last_learned,
+            self.last_elig, reward, self.sim.write_model,
+            self.sim.cycle_model)
+        self.last_elig = None
+        return info
 
     def _drop_masks(self, steps: int) -> list | None:
         """Per layer the (steps, n_post) f32 survival masks of the
@@ -251,24 +360,32 @@ class _EngineBase:
                 for li, p in enumerate(plan.keep_p)]
         return self._drop_cache[steps]
 
-    def _layer_counters(self, li, nnz, tc, out, wall, step):
+    def _layer_counters(self, li, nnz, tc, out, wall, step, col_writes=None):
         """Per-core cycles into `wall` and the step's counters of layer li.
 
         `nnz` (B,) f32 input spikes, `tc` (B, n_post) touched mask, `out`
-        (B, n_post) f32 output spikes; appends to the `step` lists.
+        (B, n_post) f32 output spikes, `col_writes` None or the (B,
+        n_post) f32 index writes per post neuron of an STDP layer-step;
+        appends to the `step` lists (a plastic run's step has "writes").
         """
         sim = self.sim
         lt, slices, core_idx, onehot = self._layer_consts[li]
         # integer-exact per-core-slice touched counts: the cycle model
         # ceils them, and exact ints cannot straddle a ceil boundary
         core_touched = tc.to(torch.float32) @ onehot            # (B, A)
+        # per-core plasticity-stage occupancy, integer-exact as well
+        core_writes = None if col_writes is None else col_writes @ onehot
         core_cyc = sim.cycle_model.timestep_cycles_array(
             lt.n_pre, slices, nnz[:, None], core_touched,
-            sim.zero_skip, sim.partial_update)                   # (B, A)
+            sim.zero_skip, sim.partial_update, writes=core_writes)
         wall.index_add_(1, core_idx, core_cyc)
         step["nnz"].append(nnz)
         step["touched"].append(tc.sum(-1).to(torch.float32))
         step["fired"].append(out.sum(-1))
+        if "writes" in step:
+            step["writes"].append(
+                torch.zeros_like(nnz) if col_writes is None
+                else col_writes.sum(-1))
         if self._has_flow[li] or self.trace.enabled:
             # per-source-core fired counts, row-aligned with the layer's
             # FlowTable; priced exactly on the host
@@ -285,17 +402,25 @@ class _EngineBase:
             ys[key] = torch.stack(per_t, dim=1)
         return ys
 
-    def run_raw(self, spike_trains) -> tuple[dict, torch.Tensor]:
+    def run_raw(self, spike_trains, learned=None
+                ) -> tuple[dict, torch.Tensor]:
         """Run the engine: per-step counters (on the device) and output
-        counts."""
+        counts.  `learned` (plasticity only) warm-starts the learnable
+        layers' indexes."""
         trains = torch.as_tensor(spike_trains).to(self.sim.device,
                                                   torch.float32)
         if trains.dim() != 3:
             raise ValueError(
                 f"expected (batch, T, n_in), got {tuple(trains.shape)}")
-        return self._run(trains)
+        if not self.plast.enabled:
+            if learned is not None:
+                raise ValueError("learned indexes passed but plasticity "
+                                 "is off")
+            return self._run(trains, None)
+        return self._run(trains, self._initial_learned(int(trains.shape[0]),
+                                                       learned))
 
-    def run_batch(self, spike_trains
+    def run_batch(self, spike_trains, learned=None
                   ) -> tuple[torch.Tensor, list["ChipReport"]]:
         """(B, T, n_in) spike trains -> ((B, n_out) counts, per-sample
         ChipReports).
@@ -309,13 +434,26 @@ class _EngineBase:
 
         sim = self.sim
         tbl = self.tables
-        ys_dev, out_counts = self.run_raw(spike_trains)
+        ys_dev, out_counts = self.run_raw(spike_trains, learned=learned)
         # injected transient dispatch faults fire HERE: the run happened,
         # the readback is lost (mid-flight), so a retry can succeed
         sim._consume_transient_fault()
-        # the one device -> host crossing of the run
+        if self.plast.enabled:
+            # learned state stays on the device (B leading, global neuron
+            # layout) for warm-starting the next run / the reward commit
+            self.last_learned = [
+                ys_dev.pop(f"learned_idx_{li}") if pt is not None else None
+                for li, pt in enumerate(self.plast_tables)]
+            if self.plast.mode == "reward":
+                self.last_elig = [
+                    ys_dev.pop(f"elig_{li}") if pt is not None else None
+                    for li, pt in enumerate(self.plast_tables)]
+        # the one device -> host crossing of the run's counters
         ys = {k: v.cpu().numpy().astype(np.float64) for k, v in ys_dev.items()}
         B, T = ys["wall"].shape
+        writes = ys.pop("writes", None)                  # (B, T, L)
+        writes_total = (writes.sum(axis=(1, 2)) if writes is not None
+                        else np.zeros(B))
 
         n_posts = np.array([lt.n_post for lt in tbl.layers], np.float64)
         nnz = ys["nnz"]                                  # (B, T, L)
@@ -359,7 +497,8 @@ class _EngineBase:
                                axis=-1),
                 nnz,
                 (ys["skip_words"]
-                 if self.trace.skip_words and "skip_words" in ys else None))
+                 if self.trace.skip_words and "skip_words" in ys else None),
+                weight_writes=writes)
 
         priced = E.price_batched(
             sim.core_model, sim.riscv,
@@ -367,7 +506,7 @@ class _EngineBase:
             noc_energy_pj=noc_pj, wall_cycles=wall, steps=T,
             freq_hz=sim.freq_hz, zero_skip=sim.zero_skip,
             partial_update=sim.partial_update,
-            weight_writes=np.zeros(B), write_model=sim.write_model)
+            weight_writes=writes_total, write_model=sim.write_model)
 
         reports = []
         for b in range(B):
@@ -381,6 +520,7 @@ class _EngineBase:
                 noc_energy_pj=float(noc_pj[b]),
                 noc_contention_cycles=float(noc_contention[b]),
                 spike_words_skipped=float(skipped_words[b]),
+                weight_writes=float(writes_total[b]),
             )
             reports.append(ChipReport(
                 steps=T, stats=acc,
@@ -392,14 +532,91 @@ class _EngineBase:
                 write_energy_pj=float(priced["write_pj"][b])))
         return out_counts, reports
 
-    def run(self, spike_train) -> tuple[torch.Tensor, "ChipReport"]:
+    def run(self, spike_train, learned=None
+            ) -> tuple[torch.Tensor, "ChipReport"]:
         """Single-sample convenience wrapper (batch of 1)."""
-        counts, reports = self.run_batch(torch.as_tensor(spike_train)[None])
+        counts, reports = self.run_batch(torch.as_tensor(spike_train)[None],
+                                         learned=learned)
         return counts[0], reports[0]
 
 
-def _new_step() -> dict:
-    return {"nnz": [], "touched": [], "fired": []}
+def _new_step(plastic: bool = False) -> dict:
+    step = {"nnz": [], "touched": [], "fired": []}
+    if plastic:
+        step["writes"] = []
+    return step
+
+
+class PlasticRun:
+    """The learnable layers' state through one plastic run (indexes,
+    traces, eligibility; batch leading) and their layer-step.
+
+    Every engine runs a learnable layer through `step`, one torch
+    expression: the per-column dequant gather of the carried indexes, the
+    batched products, `lif_step` and the rule (the reference engine with a
+    batch of one).  So at word-aligned widths the fused and compiled
+    engines learn bit-identical indexes, and the reference engine those of
+    the compiled engine run a sample at a time.  `idx0` holds each
+    layer's None or (B, rows, n_post) initial indexes; `rows[li]` is the
+    engine's pre-synaptic width (the fused engine pads to the spike-word
+    boundary; padded rows never see a spike and their pre-trace stays 0,
+    so they never write).
+    """
+
+    def __init__(self, sim: "ChipSimulator", idx0: list, rows: list[int]):
+        self.cfg = sim.plasticity
+        self.cbws = [None if pt is None else pt[1]
+                     for pt in sim.plasticity_tables()]
+        self.idx = list(idx0)
+        self.n_pre = [int(w.shape[0]) for w in sim.weights]
+        reward = self.cfg.mode == "reward"
+
+        def zeros(li, *shape):
+            return (None if idx0[li] is None else torch.zeros(
+                (int(idx0[li].shape[0]),) + shape, device=sim.device))
+
+        n_posts = [int(w.shape[1]) for w in sim.weights]
+        self.x_pre = [zeros(li, rows[li]) for li in range(len(rows))]
+        self.x_post = [zeros(li, n) for li, n in enumerate(n_posts)]
+        self.elig = [zeros(li, rows[li], n) if reward else None
+                     for li, n in enumerate(n_posts)]
+
+    def learns(self, li: int) -> bool:
+        return self.cbws[li] is not None
+
+    def step(self, li: int, spikes: torch.Tensor, state: LIFState, lif):
+        """One learnable layer-step on (B, rows) f32 spikes -> (state',
+        out, touched, None or the (B, n_post) f32 writes per post neuron)."""
+        cfg = self.cfg
+        # live weights from the carried indexes — the chip's SPEs
+        # dequantizing the current register state
+        w = PLC.dequant_indices(self.idx[li], self.cbws[li])
+        current = torch.einsum("bk,bkn->bn", spikes, w)
+        nzw = (w != 0).to(torch.float32)
+        touched = torch.einsum("bk,bkn->bn", spikes, nzw) > 0
+        del w, nzw
+        state, out, tc = lif_step(state, current, lif, touched=touched)
+        if cfg.mode == "reward":
+            self.x_pre[li], self.x_post[li], self.elig[li] = PLC.elig_step(
+                cfg, spikes, out, self.x_pre[li], self.x_post[li],
+                self.elig[li])
+            return state, out, tc, None
+        self.idx[li], self.x_pre[li], self.x_post[li], changed = \
+            PLC.stdp_step(cfg, spikes, out, self.x_pre[li], self.x_post[li],
+                          self.idx[li], self.cbws[li])
+        return state, out, tc, changed.sum(-2).to(torch.float32)
+
+    def finals(self) -> dict:
+        """The run's final learned indexes (and eligibilities), rows
+        cropped back to each layer's n_pre."""
+        out = {}
+        for li, cbw in enumerate(self.cbws):
+            if cbw is None:
+                continue
+            out[f"learned_idx_{li}"] = self.idx[li][:, :self.n_pre[li]]
+            if self.cfg.mode == "reward":
+                out[f"elig_{li}"] = self.elig[li][:, :self.n_pre[li]]
+        return out
 
 
 class CompiledEngine(_EngineBase):
@@ -407,11 +624,13 @@ class CompiledEngine(_EngineBase):
     as an explicit axis.  Spike semantics are the reference
     CompiledEngine's; it is the port's own oracle for the fused engine."""
 
-    def _run(self, trains):
+    def _run(self, trains, idx0):
         sim = self.sim
         B, T, _ = trains.shape
         states = [init_state(int(w.shape[1]), (B,), sim.device)
                   for w in sim.weights]
+        learn = (None if idx0 is None else PlasticRun(
+            sim, idx0, [lt.n_pre for lt in self.tables.layers]))
         n_active = self.tables.n_active_cores
         out_counts = torch.zeros((B, int(sim.weights[-1].shape[1])),
                                  device=sim.device)
@@ -421,7 +640,7 @@ class CompiledEngine(_EngineBase):
         for t in range(T):
             spikes = trains[:, t].contiguous()
             wall = torch.zeros((B, n_active), device=sim.device)
-            step = _new_step()
+            step = _new_step(learn is not None)
             skips = []
             for li, w in enumerate(sim.weights):
                 nnz = (spikes != 0).sum(-1).to(torch.float32)
@@ -430,11 +649,17 @@ class CompiledEngine(_EngineBase):
                     # packed as the fused engine's native counter packs
                     skips.append(Z.empty_spike_words(
                         Z.pack_spike_words(spikes)).to(torch.float32))
-                current = spikes @ w
-                states[li], out, touched = lif_step(
-                    states[li], current, sim.lif,
-                    touched=touch_mask(spikes, sim.nonzero_weights[li]))
-                self._layer_counters(li, nnz, touched, out, wall, step)
+                col_writes = None
+                if learn is not None and learn.learns(li):
+                    states[li], out, touched, col_writes = learn.step(
+                        li, spikes, states[li], sim.lif)
+                else:
+                    current = spikes @ w
+                    states[li], out, touched = lif_step(
+                        states[li], current, sim.lif,
+                        touched=touch_mask(spikes, sim.nonzero_weights[li]))
+                self._layer_counters(li, nnz, touched, out, wall, step,
+                                     col_writes)
                 # counters above are pre-drop; the next layer integrates
                 # what survived the hops
                 spikes = (out if drop is None or drop[li] is None
@@ -444,7 +669,10 @@ class CompiledEngine(_EngineBase):
             step["wall"] = wall.amax(-1)
             out_counts += spikes
             steps.append(step)
-        return self._collect(steps), out_counts
+        ys = self._collect(steps)
+        if learn is not None:
+            ys.update(learn.finals())
+        return ys, out_counts
 
 
 class FusedEngine(_EngineBase):
@@ -485,10 +713,20 @@ class FusedEngine(_EngineBase):
         return fused_timestep_dense(packed, lw.dense, state.v, state.elapsed,
                                     **kw)
 
-    def _run(self, trains):
+    def _adapt_learned(self, li: int, idx: torch.Tensor) -> torch.Tensor:
+        """Pad learned-index rows to the spike-word boundary."""
+        lw = self.fused_weights[li]
+        return torch.nn.functional.pad(
+            idx, (0, 0, 0, lw.kw * Z.SPIKE_WORD_BITS - lw.n_pre))
+
+    def _run(self, trains, idx0):
         sim = self.sim
         B, T, _ = trains.shape
         fused_w = self.fused_weights
+        # learnable layers leave the kernel: their weights are per-sample
+        # run state (`PlasticRun.step`); frozen layers keep the kernel
+        learn = (None if idx0 is None else PlasticRun(
+            sim, idx0, [lw.kw * Z.SPIKE_WORD_BITS for lw in fused_w]))
         # the kernel updates v and elapsed in place (the reference donates
         # these buffers to XLA for the same effect), so one allocation per
         # layer serves the whole run
@@ -501,14 +739,23 @@ class FusedEngine(_EngineBase):
         for t in range(T):
             packed = packed_t[t]
             wall = torch.zeros((B, n_active), device=sim.device)
-            step = _new_step()
+            step = _new_step(learn is not None)
             skips = []
             for li, lw in enumerate(fused_w):
-                _, _, out, tc, nnz_rows, ew = self._layer_apply(
-                    lw, packed, states[li])
-                self._layer_counters(li, nnz_rows[:, 0].to(torch.float32),
-                                     tc, out, wall, step)
-                skips.append(ew[:, 0].to(torch.float32))
+                if learn is not None and learn.learns(li):
+                    s = Z.unpack_spike_words(packed)           # (B, kp)
+                    states[li], out, tc, col_writes = learn.step(
+                        li, s, states[li], sim.lif)
+                    self._layer_counters(li, (s != 0).sum(-1).to(
+                        torch.float32), tc, out, wall, step, col_writes)
+                    skips.append(Z.empty_spike_words(packed).to(
+                        torch.float32))
+                else:
+                    _, _, out, tc, nnz_rows, ew = self._layer_apply(
+                        lw, packed, states[li])
+                    self._layer_counters(li, nnz_rows[:, 0].to(
+                        torch.float32), tc, out, wall, step)
+                    skips.append(ew[:, 0].to(torch.float32))
                 # counters above are pre-drop; the next layer's spike
                 # words carry only the packets that survived the hops
                 nxt = (out if drop is None or drop[li] is None
@@ -518,4 +765,7 @@ class FusedEngine(_EngineBase):
             step["wall"] = wall.amax(-1)
             out_counts += out
             steps.append(step)
-        return self._collect(steps), out_counts
+        ys = self._collect(steps)
+        if learn is not None:
+            ys.update(learn.finals())
+        return ys, out_counts

@@ -1,6 +1,7 @@
 """Non-uniform (codebook / LUT) weight quantization — paper C3, in torch.
 
-Port of `repro.core.quant` (inference side).  On the chip all synapses of
+Port of `repro.core.quant` (inference side, and the plasticity
+projection `project_to_codebook`).  On the chip all synapses of
 a core share an N x W-bit weight table and each synapse stores a
 log2(N)-bit index, so a weight tensor is
 
@@ -145,6 +146,41 @@ def quantize(w, cfg: CodebookConfig, device=None) -> QuantizedTensor:
                .reshape(w.shape))
     return QuantizedTensor(idx=idx, codebook=cents, scale=scale,
                            group_axis_size=gsize)
+
+
+def project_to_codebook(values, codebook) -> torch.Tensor:
+    """Nearest-level projection: float candidate weights -> int8 indexes.
+
+    The on-chip plasticity constraint (paper C3): a learning rule may
+    compute an update in float, but the synapse stores a codebook index,
+    so every write lands on the nearest table level.
+
+    `codebook` is a shared (N,) level vector, or an (N, cols) per-column
+    table whose column j quantizes `values[..., j]`.  Ties resolve to the
+    LOWEST index, which keeps the projection idempotent when a table holds
+    duplicate levels; +inf rows (the lowering's unprogrammed levels) are
+    never chosen.  The reference's argmin over a broadcast (..., L, cols)
+    distance tensor would be L times the candidates' size (8.6 GB at the
+    paper's widest learnable layer with B = 32), so this loops over the
+    levels keeping the best distance and its index, replacing only on a
+    strictly smaller distance: the same first-occurrence rule, the same
+    single f32 subtraction and abs per distance, so the same indexes bit
+    for bit, in about two candidate-sized temporaries.
+    """
+    v = torch.as_tensor(values, dtype=torch.float32)
+    cb = torch.as_tensor(codebook, dtype=torch.float32, device=v.device)
+    if cb.dim() != 1 and (cb.dim() != 2 or cb.shape[-1] != v.shape[-1]):
+        raise ValueError(
+            f"codebook must be (N,) or (N, cols) with cols matching "
+            f"values' last axis; got {tuple(cb.shape)} vs {tuple(v.shape)}")
+    best = (v - cb[0]).abs_()
+    idx = torch.zeros(v.shape, dtype=torch.int8, device=v.device)
+    for level in range(1, cb.shape[0]):
+        dist = (v - cb[level]).abs_()
+        closer = dist < best
+        idx.masked_fill_(closer, level)
+        torch.minimum(best, dist, out=best)
+    return idx
 
 
 def dequantize(q: QuantizedTensor) -> torch.Tensor:

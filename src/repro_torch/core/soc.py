@@ -5,10 +5,11 @@ array engines and full energy/cycle accounting.
 Port of `repro.core.soc`.  The mapping, register-table and report code is
 numpy, copied from the reference; weights and engine state are torch
 tensors on the simulator's device.  The port has the two array engines
-(`engine="compiled"` and `engine="fused"`) on the inference path, with
-faults (`repro_torch.faults`) and tracing (`repro_torch.telemetry`); the
-options that later slices bring raise `NotImplementedError` naming the
-ROADMAP.md item that brings them.
+(`engine="compiled"` and `engine="fused"`) and the interpretive
+`engine="reference"`, with faults (`repro_torch.faults`), tracing
+(`repro_torch.telemetry`) and on-chip plasticity
+(`repro_torch.core.plasticity`); the sharded engine raises
+`NotImplementedError` naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from repro_torch.core.quant import CodebookConfig
 from repro_torch.core.zspe import CoreGeometry, CycleModel
 from repro_torch.device import resolve_device
 from repro_torch.faults import model as FM
-from repro_torch.telemetry.trace import TraceConfig
+from repro_torch.telemetry.trace import ChipTrace, TraceConfig, build_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,20 +264,6 @@ class ChipReport:
         return self.stats.nominal_sops / max(t_s, 1e-12) / 1e9
 
 
-# the options later slices of the port bring, with their ROADMAP.md item
-_NOT_PORTED = {
-    "reference": "Queue 1 item 9 (interpretive reference engine)",
-    "sharded": "Queue 1 item 10 (multi-GPU ShardedEngine)",
-    "plasticity": "Queue 1 item 8 (plasticity)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it arrives with ROADMAP.md "
-        f"{_NOT_PORTED[what]}")
-
-
 class ChipSimulator:
     """Functional + energy simulation of the whole SoC for a feed-forward
     SNN described by per-layer weight matrices, on a torch device.
@@ -287,11 +274,17 @@ class ChipSimulator:
     * ``engine="fused"`` — `engine.FusedEngine`: each layer-step is one
       fused-timestep kernel (kernels/fused_timestep.py) on bitpacked uint16
       spike words with codebook-compressed weights.  This is the main path.
+    * ``engine="reference"`` — the interpretive loop (one sample, one
+      timestep, one layer at a time, counters crossing to the host each
+      layer-step): the port's own semantic oracle, launching no kernel.
 
     ``faults`` (a `faults.FaultConfig`) folds a faulty chip into the
     weights, register tables and a seeded drop plan at construction;
     ``trace`` (a `telemetry.TraceConfig`) makes each run leave a
-    `ChipTrace` in `last_trace()`.  `device` defaults to the card
+    `ChipTrace` in `last_trace()`; ``plasticity`` (a
+    `plasticity.PlasticityConfig`) makes the chosen layers learn their
+    codebook indexes during a run (`last_learned`, `apply_reward`, and
+    `run_batch(learned=)` to warm-start).  `device` defaults to the card
     (`repro_torch.resolve_device`); pass ``device="cpu"`` to run the plain
     versions on the CPU.
     """
@@ -319,15 +312,15 @@ class ChipSimulator:
     ):
         from repro_torch.core import quant as Q
         from repro_torch.core.neuron import LIFParams
+        from repro_torch.core.plasticity import NULL_PLASTICITY
 
         if engine not in ("compiled", "fused", "sharded", "reference"):
             raise ValueError(f"engine must be 'compiled', 'fused', "
                              f"'sharded' or 'reference', got {engine!r}")
-        for what, given in (("reference", engine == "reference"),
-                            ("sharded", engine == "sharded"),
-                            ("plasticity", plasticity is not None)):
-            if given:
-                raise _not_ported(what)
+        if engine == "sharded":
+            raise NotImplementedError(
+                "sharded is not in the PyTorch port yet; it arrives with "
+                "ROADMAP.md Queue 1 item 10 (multi-GPU ShardedEngine)")
         self.device = resolve_device(device)
         weights = list(weights)
         n_quant = sum(isinstance(w, Q.QuantizedTensor) for w in weights)
@@ -436,8 +429,16 @@ class ChipSimulator:
         # opt-in per-timestep capture (repro_torch.telemetry): trace-off
         # runs issue no extra ops
         self.trace = trace or TraceConfig()
-        self._compiled = None    # CompiledEngine, built lazily
-        self._fused = None       # FusedEngine, built lazily
+        # opt-in on-chip learning (core/plasticity.py): disabled, runs
+        # issue exactly the inference ops
+        self.plasticity = (plasticity if plasticity is not None
+                           else NULL_PLASTICITY)
+        self._plast_tables = None  # lazy lower_plasticity_tables result
+        self._ref_learned = None   # reference-engine learned indexes
+        self._ref_elig = None      # reference-engine eligibility traces
+        self._last_trace = None    # reference-engine ChipTrace
+        self._compiled = None      # CompiledEngine, built lazily
+        self._fused = None         # FusedEngine, built lazily
 
     def _as_weight(self, w) -> torch.Tensor:
         if isinstance(w, torch.Tensor):
@@ -459,17 +460,62 @@ class ChipSimulator:
         return self._fused
 
     def array_engine(self):
-        """The array engine selected at construction."""
+        """The array engine selected at construction; raises for the
+        reference engine, which has no lowering."""
         if self.engine == "fused":
             return self.fused_engine()
-        return self.compiled_engine()
+        if self.engine == "compiled":
+            return self.compiled_engine()
+        raise ValueError("the reference engine is interpretive — no "
+                         "array lowering to return")
+
+    def _built_engine(self):
+        """The selected array engine if it was built, else None."""
+        return self._fused if self.engine == "fused" else self._compiled
 
     def last_trace(self):
         """The ChipTrace captured by the most recent run (None when the
         simulator was built without `trace=TraceConfig(enabled=True)` or
-        has not run yet).  Schema-identical across both engines."""
-        eng = self._fused if self.engine == "fused" else self._compiled
+        has not run yet).  Schema-identical across the three engines."""
+        if self.engine == "reference":
+            return self._last_trace
+        eng = self._built_engine()
         return eng.last_trace if eng is not None else None
+
+    def plasticity_tables(self):
+        """Per-layer plasticity lowering: None for frozen layers, else the
+        (idx0 int8, cbw f32 inf-padded) pair every engine learns over —
+        one lowering, so initial state cannot drift."""
+        if self._plast_tables is None:
+            from repro_torch.core.engine import lower_plasticity_tables
+            self._plast_tables = lower_plasticity_tables(self)
+        return self._plast_tables
+
+    @property
+    def last_learned(self):
+        """Per-layer learned codebook indexes from the most recent
+        plasticity-enabled run (None entries for frozen layers; batch axis
+        leading for batched runs)."""
+        if self.engine == "reference":
+            return self._ref_learned
+        eng = self._built_engine()
+        return eng.last_learned if eng is not None else None
+
+    def apply_reward(self, reward):
+        """Reward-mode trial commit: turn the eligibility accumulated by
+        the last run into priced register writes (see
+        plasticity.commit_reward).  Returns the write-accounting dict."""
+        if self.engine != "reference":
+            return self.array_engine().apply_reward(reward)
+        from repro_torch.core import plasticity as PLC
+        if self.plasticity.mode != "reward" or self._ref_elig is None:
+            raise ValueError("apply_reward needs a completed reward-mode "
+                             "run to commit")
+        self._ref_learned, info = PLC.commit_reward(
+            self.plasticity, self.plasticity_tables(), self._ref_learned,
+            self._ref_elig, reward, self.write_model, self.cycle_model)
+        self._ref_elig = None
+        return info
 
     def _build_register_tables(self) -> list[RegisterTable]:
         """One programmed RegisterTable per core assignment: with quantized
@@ -505,11 +551,229 @@ class ChipSimulator:
             raise FM.TransientChipFault(
                 f"injected transient fault at dispatch {i}")
 
-    def run(self, spike_train) -> tuple[torch.Tensor, ChipReport]:
-        """spike_train: (T, n_in) binary -> (out_spike_counts, report)."""
-        return self.array_engine().run(spike_train)
+    def run(self, spike_train, learned=None
+            ) -> tuple[torch.Tensor, ChipReport]:
+        """spike_train: (T, n_in) binary -> (out_spike_counts, report).
 
-    def run_batch(self, spike_trains) -> tuple[torch.Tensor, list[ChipReport]]:
+        `learned` (plasticity only) warm-starts the learnable layers'
+        codebook indexes, e.g. with a previous run's `last_learned`.
+        """
+        if self.engine != "reference":
+            return self.array_engine().run(spike_train, learned=learned)
+        return self.run_reference(spike_train, learned=learned)
+
+    def run_batch(self, spike_trains, learned=None
+                  ) -> tuple[torch.Tensor, list[ChipReport]]:
         """spike_trains: (B, T, n_in) -> ((B, n_out) counts, one ChipReport
-        per sample), the batch run as one pass of the selected engine."""
-        return self.array_engine().run_batch(spike_trains)
+        per sample).  The array engines run the batch as one pass; the
+        reference engine loops samples.
+
+        With plasticity enabled every sample starts from the same initial
+        indexes (broadcast `learned`, or per-sample (B, ...) entries) and
+        `last_learned` holds per-sample finals — learning is not chained
+        across the batch.
+        """
+        if self.engine != "reference":
+            return self.array_engine().run_batch(spike_trains,
+                                                 learned=learned)
+        outs, reports, traces, finals, eligs = [], [], [], [], []
+        trains = torch.as_tensor(spike_trains)
+        for b in range(int(trains.shape[0])):
+            lb = None
+            if learned is not None:
+                lb = [None if l is None else (l[b] if np.ndim(l) == 3 else l)
+                      for l in learned]
+            counts, rep = self.run_reference(trains[b], learned=lb)
+            outs.append(counts)
+            reports.append(rep)
+            if self._ref_learned is not None:
+                finals.append(self._ref_learned)
+                eligs.append(self._ref_elig)
+            if self._last_trace is not None:
+                traces.append(self._last_trace)
+        self._consume_transient_fault()
+        if traces:
+            self._last_trace = ChipTrace.concat(traces)
+        if finals:
+            self._ref_learned = [
+                None if finals[0][li] is None
+                else torch.stack([f[li] for f in finals])
+                for li in range(len(finals[0]))]
+            self._ref_elig = (None if eligs[0] is None else [
+                None if eligs[0][li] is None
+                else torch.stack([e[li] for e in eligs])
+                for li in range(len(eligs[0]))])
+        return torch.stack(outs), reports
+
+    def run_reference(self, spike_train, learned=None
+                      ) -> tuple[torch.Tensor, ChipReport]:
+        """The interpretive per-timestep loop, the port's semantic oracle:
+        one sample, one timestep, one layer at a time on the simulator's
+        device, each layer-step's spikes crossing to the host for the
+        scalar cycle model and the NoC replay.  Tensors keep a batch axis
+        of one, so a layer-step issues the compiled engine's ops for a
+        batch of one, and a learnable layer runs `engine.PlasticRun`."""
+        from repro_torch.core import plasticity as PLC
+        from repro_torch.core import zspe as Z
+        from repro_torch.core.engine import PlasticRun
+        from repro_torch.core.neuron import init_state, lif_step, touch_mask
+
+        plast = self.plasticity
+        if learned is not None and not plast.enabled:
+            raise ValueError("learned indexes passed but plasticity is off")
+        dev = self.device
+        learn = None
+        if plast.enabled:
+            idx0 = [None if pt is None else PLC.as_indexes(
+                        pt[0] if learned is None or learned[li] is None
+                        else learned[li], dev)[None]
+                    for li, pt in enumerate(self.plasticity_tables())]
+            learn = PlasticRun(self, idx0,
+                               [int(w.shape[0]) for w in self.weights])
+
+        train = torch.as_tensor(spike_train).to(dev, torch.float32)
+        T = int(train.shape[0])
+        states = [init_state(int(w.shape[1]), (1,), dev)
+                  for w in self.weights]
+        out_counts = torch.zeros((1, int(self.weights[-1].shape[1])),
+                                 device=dev)
+        acc = StepStats()
+        wall = 0.0
+        traced = self.trace.enabled
+        trace_skips = traced and self.trace.skip_words
+        # raw trace counters (the four tensors the array engines emit);
+        # every derived series comes from telemetry.build_trace
+        rec_fired: list[list[float]] = []
+        rec_touched: list[list[float]] = []
+        rec_nnz: list[list[float]] = []
+        rec_skip: list[list[float]] = []
+        rec_writes: list[list[float]] = []
+
+        for t in range(T):
+            spikes = train[t][None]                            # (1, n_in)
+            per_core_cycles: dict[int, float] = {}
+            step_load = np.zeros(self.adj.shape[0], np.float64)
+            if traced:
+                for rec in (rec_fired, rec_touched, rec_nnz, rec_skip,
+                            rec_writes):
+                    rec.append([])
+            for li, w in enumerate(self.weights):
+                n_pre, n_post = int(w.shape[0]), int(w.shape[1])
+                nnz = float((spikes != 0).sum())
+                acc.spikes_in += nnz
+                if traced:
+                    rec_nnz[-1].append(nnz)
+                    if trace_skips:
+                        rec_skip[-1].append(float(Z.empty_spike_words(
+                            Z.pack_spike_words(spikes))[0]))
+                col_ch = None
+                if learn is not None and learn.learns(li):
+                    # live weights from the carried indexes, through the
+                    # layer-step the array engines run
+                    states[li], out, touched, col_w = learn.step(
+                        li, spikes, states[li], self.lif)
+                    if col_w is not None:
+                        col_ch = col_w[0].cpu().numpy().astype(np.float64)
+                        acc.weight_writes += float(col_ch.sum())
+                else:
+                    states[li], out, touched = lif_step(
+                        states[li], spikes @ w, self.lif,
+                        touched=touch_mask(spikes, self.nonzero_weights[li]))
+                touched_np = touched[0].cpu().numpy()
+                out_np = out[0].cpu().numpy()
+                acc.nominal_sops += n_pre * n_post
+                acc.performed_sops += nnz * n_post
+                acc.neurons_touched += float(touched_np.sum())
+                if traced:
+                    rec_writes[-1].append(
+                        float(col_ch.sum()) if col_ch is not None else 0.0)
+                asn = self.mapping.cores_of_layer(li + 1)
+                # cycles for each core holding a slice of this layer, from
+                # the exact (integer) touched count of the core's slice
+                for a in asn:
+                    core_touched = float(
+                        touched_np[a.neuron_lo:a.neuron_hi].sum())
+                    cyc = self.cycle_model.timestep_cycles(
+                        n_pre, a.n_neurons, nnz, core_touched,
+                        self.zero_skip, self.partial_update,
+                        writes=(float(
+                            col_ch[a.neuron_lo:a.neuron_hi].sum())
+                            if col_ch is not None else None))
+                    per_core_cycles[a.core_id] = (
+                        per_core_cycles.get(a.core_id, 0.0) + cyc)
+                    if traced:
+                        rec_touched[-1].append(core_touched)
+                        rec_fired[-1].append(
+                            float(out_np[a.neuron_lo:a.neuron_hi].sum()))
+                # NoC: the spikes each source core fired travel its own
+                # precompiled flow (replay, no BFS here) — source-exact
+                fired = float(out_np.sum())
+                if fired > 0 and li + 1 < len(self.weights):
+                    routes = self._layer_routes[li + 1]
+                    fired_per_src = [
+                        int(out_np[a.neuron_lo:a.neuron_hi].sum())
+                        for a in asn]
+                    rep = NOC.replay_flows(
+                        list(zip(routes, fired_per_src)), self.router,
+                        n_nodes=self.adj.shape[0],
+                        interconnect=self.interconnect)
+                    acc.noc_hops += rep.total_hops
+                    acc.noc_energy_pj += rep.energy_pj
+                    acc.spikes_routed += fired
+                    step_load += rep.router_load
+                # per-hop packet drop (faults.DropPlan): fired counters
+                # above are pre-drop (the source committed the energy);
+                # what the next layer integrates is post-drop
+                if (self.drop_plan is not None
+                        and self.drop_plan.keep_p[li] is not None):
+                    spikes = out * self.drop_plan.mask(li, t, dev)
+                else:
+                    spikes = out
+            out_counts = out_counts + spikes
+            core_wall = (max(per_core_cycles.values()) if per_core_cycles
+                         else 1.0)
+            # bottleneck-router contention stalls the timestep barrier
+            cont = float(NOC.contention_cycles(
+                step_load.max(), core_wall, self.router))
+            acc.noc_contention_cycles += cont
+            wall += core_wall + cont
+
+        if learn is not None:
+            finals = learn.finals()
+            self._ref_learned = [
+                finals[f"learned_idx_{li}"][0] if learn.learns(li) else None
+                for li in range(len(self.weights))]
+            self._ref_elig = ([
+                finals[f"elig_{li}"][0] if learn.learns(li) else None
+                for li in range(len(self.weights))]
+                if plast.mode == "reward" else None)
+        if traced:
+            self._last_trace = build_trace(
+                self,
+                np.asarray(rec_fired, np.float64)[None],      # (1, T, S)
+                np.asarray(rec_touched, np.float64)[None],
+                np.asarray(rec_nnz, np.float64)[None],
+                (np.asarray(rec_skip, np.float64)[None]
+                 if trace_skips else None),
+                weight_writes=(np.asarray(rec_writes, np.float64)[None]
+                               if plast.enabled else None))
+        return out_counts[0], self._report(T, acc, wall)
+
+    def _report(self, steps: int, acc: StepStats, wall: float) -> ChipReport:
+        # one pricing implementation for every engine (energy.price_batched;
+        # the array engines call it with batch arrays)
+        priced = E.price_batched(
+            self.core_model, self.riscv,
+            nominal_sops=acc.nominal_sops, performed_sops=acc.performed_sops,
+            noc_energy_pj=acc.noc_energy_pj, wall_cycles=wall, steps=steps,
+            freq_hz=self.freq_hz, zero_skip=self.zero_skip,
+            partial_update=self.partial_update,
+            weight_writes=acc.weight_writes, write_model=self.write_model)
+        return ChipReport(
+            steps=steps, stats=acc,
+            energy_pj=float(priced["total_pj"]),
+            core_energy_pj=float(priced["core_pj"]),
+            noc_energy_pj=acc.noc_energy_pj,
+            riscv_energy_pj=float(priced["riscv_pj"]),
+            wall_cycles=wall, freq_hz=self.freq_hz,
+            write_energy_pj=float(priced["write_pj"]))

@@ -1,5 +1,6 @@
 """ZSPE + SPE — zero-skip sparse spike processing (paper C1) and its cycle
-model, in torch.  Port of `repro.core.zspe`.
+model, in torch.  Port of `repro.core.zspe`: the scalar cycle model serves
+the interpretive reference engine, the array form the array engines.
 
 Spike words are the chip's on-wire spike format: 16 spikes per uint16
 word, LSB first, the last word zero-padded.  torch has no shifts for
@@ -10,6 +11,7 @@ which keeps the packed layout bit-for-bit that of the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -87,7 +89,11 @@ class CoreGeometry:
     spike_lanes: int = 16        # ZSPE parallel spike window
     spe_lanes: int = 4           # synapses processed per cycle (2 SPEs x 2)
     freq_hz: float = 200e6       # nominal core clock
+    max_neurons: int = 8192      # 160K neurons / 20 cores
     pipeline_depth: int = 4      # caches -> ZSPE -> SPE -> updater
+    write_lanes: int = 4         # register-table index writes per cycle
+                                 # (plasticity stage; shares the SPE port
+                                 # width into the weight-index SRAM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,11 +102,37 @@ class CycleModel:
 
     Per core-timestep: spike-load cycles ceil(n_pre / 16) (ZSPE scan),
     synapse cycles ceil(nnz * n_post / 4) (SPE, zero-skip), update cycles
-    ceil(n_touched) (neuron updater); the 4-stage pipeline overlaps them,
-    so a step costs the slowest stage plus the pipeline depth.
+    ceil(n_touched) (neuron updater), and with plasticity the index writes
+    through `write_lanes` ports; the pipeline overlaps them, so a step
+    costs the slowest stage plus the pipeline depth.
     """
 
     geom: CoreGeometry = CoreGeometry()
+
+    def stage_cycles(self, n_pre: int, n_post: int, nnz: float,
+                     touched: float, zero_skip: bool = True,
+                     partial_update: bool = True):
+        """(load, synapse, update) cycles of one core-timestep, as ints:
+        the SPEs cannot issue a fractional cycle."""
+        g = self.geom
+        load = -(-n_pre // g.spike_lanes)
+        syn = math.ceil((nnz if zero_skip else n_pre) * n_post
+                        / g.spe_lanes)
+        upd = math.ceil(touched) if partial_update else n_post
+        return load, syn, upd
+
+    def timestep_cycles(self, n_pre: int, n_post: int, nnz: float,
+                        touched: float, zero_skip: bool = True,
+                        partial_update: bool = True,
+                        writes: float | None = None) -> float:
+        """Cycles of one core-timestep: the slowest stage (the plasticity
+        stage's index writes among them, when `writes` is given) plus the
+        pipeline depth."""
+        crit = max(self.stage_cycles(n_pre, n_post, nnz, touched,
+                                     zero_skip, partial_update))
+        if writes is not None:
+            crit = max(crit, math.ceil(writes / self.geom.write_lanes))
+        return crit + self.geom.pipeline_depth
 
     def stage_cycles_array(self, n_pre: int, n_post, nnz, touched,
                            zero_skip: bool = True,
@@ -117,12 +149,17 @@ class CycleModel:
 
     def timestep_cycles_array(self, n_pre: int, n_post, nnz, touched,
                               zero_skip: bool = True,
-                              partial_update: bool = True):
+                              partial_update: bool = True, writes=None):
         """Cycles of one core-timestep per slice: the slowest stage plus
-        the pipeline depth, in f32 like the reference."""
+        the pipeline depth, in f32 like the reference.  `writes` (per
+        slice, integer-exact) adds the plasticity stage; None issues the
+        inference ops alone."""
         load, syn, upd = self.stage_cycles_array(
             n_pre, n_post, nnz, touched, zero_skip, partial_update)
         crit = torch.maximum(torch.clamp(syn, min=float(load)),
                              torch.as_tensor(upd, dtype=torch.float32,
                                              device=syn.device))
+        if writes is not None:
+            crit = torch.maximum(crit,
+                                 torch.ceil(writes / self.geom.write_lanes))
         return crit + self.geom.pipeline_depth

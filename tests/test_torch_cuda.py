@@ -9,7 +9,9 @@ instantiations), the padded `ops.fused_timestep`
 against itself on the CPU, a fused run and an LM prefill counting their
 launches; a faulted ARCH chip's layer-steps against the plain versions,
 its traced run's launches, and the drop masks drawn on the card bitwise
-equal to the CPU's.  Marked `cuda`; every test skips without a card.  Run on the
+equal to the CPU's; plastic fused runs (STDP, R-STDP) counting their
+launches and learning the compiled engine's indexes, and the interpretive
+engine learning them a sample at a time.  Marked `cuda`; every test skips without a card.  Run on the
 card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -353,6 +355,115 @@ def test_faulted_traced_run_counts_launches(faulted_arch):
     assert trace.fired.shape[:2] == (8, 4)
     np.testing.assert_allclose(trace.wall_cycles(),
                                [r.wall_cycles for r in reports], rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# plasticity and the interpretive engine on the card (chip_smoke.py phase
+# 8 at a small size)
+# ---------------------------------------------------------------------------
+
+PLASTIC_SIZES = (64, 96, 96, 16)
+PLASTIC_RULES = {
+    "stdp": dict(enabled=True, mode="stdp", lr=0.4, layers=(1, 2)),
+    "reward": dict(enabled=True, mode="reward", lr=0.05, elig_pre=0.5,
+                   layers=(2,)),
+}
+
+
+def _plastic_sim(dev, rule, engine, mapping=None, trace=False):
+    from repro_torch import ChipSimulator, CodebookConfig, PlasticityConfig
+    from repro_torch.telemetry import TraceConfig
+
+    rng = np.random.default_rng(0)
+    ws = [rng.normal(0, 1.2 / np.sqrt(a), (a, b)).astype(np.float32)
+          for a, b in zip(PLASTIC_SIZES[:-1], PLASTIC_SIZES[1:])]
+    return ChipSimulator(ws, quant_cfg=CodebookConfig(8, 8), engine=engine,
+                         mapping=mapping, device=dev,
+                         trace=TraceConfig(enabled=True) if trace else None,
+                         plasticity=PlasticityConfig(**PLASTIC_RULES[rule]))
+
+
+def _same_frozen(ys_a, ys_b, frozen):
+    """Samples whose frozen layers fired the same per-core counts at every
+    step in both runs."""
+    same = torch.ones(ys_a["fired"].shape[0], dtype=torch.bool,
+                      device=ys_a["fired"].device)
+    for li in frozen:
+        same &= (ys_a[f"fired_core_{li}"] == ys_b[f"fired_core_{li}"]
+                 ).flatten(1).all(1)
+    return same
+
+
+@pytest.mark.parametrize("rule", list(PLASTIC_RULES))
+def test_plastic_fused_run_on_the_card(dev, rule):
+    """Frozen layers launch the kernel once a step, learnable ones none;
+    in every sample whose frozen layers fired as the compiled engine's,
+    learned indexes and writes are bitwise the compiled engine's."""
+    fused = _plastic_sim(dev, rule, "fused")
+    comp = _plastic_sim(dev, rule, "compiled", mapping=fused.mapping)
+    layers = PLASTIC_RULES[rule]["layers"]
+    frozen = [li for li in range(3) if li not in layers]
+    trains = (np.random.default_rng(1).random((8, 6, PLASTIC_SIZES[0]))
+              < 0.25).astype(np.float32)
+    FT.reset_launches()
+    ys_f, counts = fused.fused_engine().run_raw(trains)
+    torch.cuda.synchronize()
+    assert FT.launches == {"fused_timestep_codebook": 6 * len(frozen),
+                           "fused_timestep_dense": 0}
+    ys_c, _ = comp.compiled_engine().run_raw(trains)
+    same = _same_frozen(ys_f, ys_c, frozen)
+    assert bool(same.any())
+    assert torch.equal(ys_f["writes"][same], ys_c["writes"][same])
+    for li in layers:
+        key = f"learned_idx_{li}"
+        assert ys_f[key].device.type == "cuda"
+        assert torch.equal(ys_f[key][same], ys_c[key][same])
+    if rule == "stdp":
+        assert float(ys_f["writes"].sum()) > 0
+    else:
+        fused.run_batch(trains)
+        comp.run_batch(trains)
+        reward = torch.zeros(PLASTIC_SIZES[-1])
+        reward[3], reward[7] = 1.0, -1.0
+        info_f, info_c = fused.apply_reward(reward), comp.apply_reward(reward)
+        rows = same.cpu().numpy()
+        for k in info_c:
+            np.testing.assert_array_equal(info_f[k][rows], info_c[k][rows])
+        assert torch.equal(fused.last_learned[2][same],
+                           comp.last_learned[2][same])
+
+
+def test_reference_engine_on_the_card(dev):
+    """The interpretive engine, STDP traced, launches no kernel and learns
+    what the compiled engine learns a sample at a time."""
+    ref = _plastic_sim(dev, "stdp", "reference", trace=True)
+    comp = _plastic_sim(dev, "stdp", "compiled", mapping=ref.mapping,
+                        trace=True)
+    trains = (np.random.default_rng(2).random((2, 6, PLASTIC_SIZES[0]))
+              < 0.25).astype(np.float32)
+    FT.reset_launches()
+    counts, reports = ref.run_batch(trains)
+    torch.cuda.synchronize()
+    assert sum(FT.launches.values()) == 0
+    assert counts.device.type == "cuda"
+    trace = ref.last_trace()
+    np.testing.assert_array_equal(trace.weight_writes.sum(axis=(1, 2)),
+                                  [r.stats.weight_writes for r in reports])
+    held = 0
+    for b in range(2):
+        ys, c = comp.compiled_engine().run_raw(trains[b:b + 1])
+        fired0 = ys["fired_core_0"][0].cpu().numpy()
+        if not np.array_equal(fired0,
+                              trace.fired[b][:, trace.slice_layer == 0]):
+            continue                  # a near-tie flip in the frozen layer
+        held += 1
+        assert torch.equal(c[0], counts[b])
+        for li in (1, 2):
+            assert torch.equal(ys[f"learned_idx_{li}"][0],
+                               ref.last_learned[li][b])
+        np.testing.assert_array_equal(ys["writes"][0].cpu().numpy(),
+                                      trace.weight_writes[b])
+    assert held
 
 
 # ---------------------------------------------------------------------------

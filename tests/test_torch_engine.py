@@ -95,9 +95,7 @@ def test_single_sample_run_and_cpu_launches_uncounted():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(engine="reference"), "Queue 1 item 9"),
     (dict(engine="sharded"), "Queue 1 item 10"),
-    (dict(plasticity=object()), "Queue 1 item 8"),
 ])
 def test_options_of_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):

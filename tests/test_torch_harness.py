@@ -4,8 +4,8 @@ tests of the port's device policy, which need no reference.
 * `port_from_reference`: a JAX `repro` simulator -> numpy -> the port's
   `repro_torch.convert` -> a port `ChipSimulator` computing the same
   network (same quantized tensors, mapping and register tables), under
-  the same faults and trace config when asked — built from the
-  pre-fault network, since a faulted reference holds post-fault state;
+  the same faults, trace and plasticity config when asked — built from
+  the pre-fault network, since a faulted reference holds post-fault state;
 * `assert_step_close`: the teacher-forced layer-step comparator — the
   same inputs and state through a reference step and a port step;
 * `tie_free_trains`: a search for input trains on which no touched
@@ -64,11 +64,12 @@ def reference_arrays(ref_sim) -> dict:
 
 
 def port_from_reference(ref_sim, engine: str = "fused", device="cpu", *,
-                        faults=None, trace=None, weights=None):
+                        faults=None, trace=None, plasticity=None,
+                        weights=None):
     """A port ChipSimulator of the same network as `ref_sim`.
 
-    `faults` / `trace` are the port's FaultConfig / TraceConfig, equal to
-    the reference's.  A faulted reference's `weights` and
+    `faults` / `trace` / `plasticity` are the port's FaultConfig /
+    TraceConfig / PlasticityConfig, equal to the reference's.  A faulted reference's `weights` and
     `register_tables` are post-fault, and folding the faults in again
     would apply them twice (a bit-flip applied twice flips back).  So
     with `faults` the port starts from the pre-fault network and folds
@@ -99,7 +100,7 @@ def port_from_reference(ref_sim, engine: str = "fused", device="cpu", *,
                          leak=ref_sim.lif.leak,
                          threshold=ref_sim.lif.threshold,
                          engine=engine, faults=faults, trace=trace,
-                         device=device)
+                         plasticity=plasticity, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,584 @@
+"""The port's on-chip plasticity (`repro_torch.core.plasticity`, the
+projection `quant.project_to_codebook`, the learnable layers of the three
+engines) against the JAX package's `repro.core.plasticity`, on the CPU.
+
+Fixtures are the reference suite's (tests/test_plasticity.py): SIZES
+64-96-96-16, an 8-level 8-bit codebook, lr 0.4, B 1 and 4, T 6.
+
+* `project_to_codebook` bitwise equal to the reference's, shared and
+  per-column tables, duplicate levels and +inf rows;
+* the rule functions: traces within 2 ulp (XLA may contract
+  `x * decay + s` into an FMA), indexes equal, on a fixture whose
+  candidates all lie clear of the midpoints between levels;
+* whole runs of the port's compiled, fused and reference engines against
+  the same engine of the reference: spikes, learned indexes and
+  `weight_writes` equal, report fields within 1e-6; warm starts
+  (broadcast and per-sample), the scalar and vector reward commit, and a
+  codebook fault in the initial indexes;
+* inside the port, fused equals compiled bitwise under both rules;
+* zero cost off: plasticity None, NULL_PLASTICITY and a default
+  PlasticityConfig() issue the same aten ops;
+* the reference's error cases.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from repro.core import plasticity as REF_PLC  # noqa: E402
+from repro.core import quant as REF_Q  # noqa: E402
+from repro.core.energy import WeightWriteModel as RefWriteModel  # noqa: E402
+from repro.core.quant import CodebookConfig as RefCodebookConfig  # noqa: E402
+from repro.core.soc import ChipSimulator as RefChipSimulator  # noqa: E402
+from repro.core.zspe import CycleModel as RefCycleModel  # noqa: E402
+from repro.faults import CodebookFault as RefCodebookFault  # noqa: E402
+from repro.faults import FaultConfig as RefFaultConfig  # noqa: E402
+from test_torch_harness import (assert_reports_close,  # noqa: E402
+                                port_from_reference, run_raw_ops)
+
+from repro_torch import (NULL_PLASTICITY, ChipSimulator,  # noqa: E402
+                         CodebookConfig, PlasticityConfig)
+from repro_torch.core import plasticity as PLC  # noqa: E402
+from repro_torch.core import quant as Q  # noqa: E402
+from repro_torch.core.energy import WeightWriteModel  # noqa: E402
+from repro_torch.core.zspe import CycleModel  # noqa: E402
+from repro_torch.faults import CodebookFault, FaultConfig  # noqa: E402
+
+SIZES = [64, 96, 96, 16]          # widths stay multiples of 16 (fused pack)
+STDP = dict(enabled=True, mode="stdp", lr=0.4)
+REWARD = dict(enabled=True, mode="reward", lr=0.4, elig_pre=0.1, layers=(2,))
+RULES = {"stdp": STDP, "reward": REWARD}
+ENGINES = ("compiled", "fused", "reference")
+REPORT_FIELDS = ("energy_pj", "core_energy_pj", "noc_energy_pj",
+                 "riscv_energy_pj", "wall_cycles", "write_energy_pj")
+CB_FAULT = (("stuck", 12, 0, 0, 3), ("bitflip", 13, 2, 5, 0))
+MAX_ULP = 2
+
+
+def _weights(sizes=SIZES, seed=0):
+    rng = np.random.default_rng(seed)
+    return [np.asarray(rng.normal(0, 1.2 / np.sqrt(a), (a, b)), np.float32)
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def _trains(batch=4, T=6, seed=1):
+    rng = np.random.default_rng(seed)
+    return np.asarray(rng.random((batch, T, SIZES[0])) < 0.25, np.float32)
+
+
+def _faults(port: bool):
+    cls, fc = ((CodebookFault, FaultConfig) if port
+               else (RefCodebookFault, RefFaultConfig))
+    return fc(codebook_faults=tuple(
+        cls(kind=k, core_id=c, word=w, bit=b, value=v)
+        for k, c, w, b, v in CB_FAULT))
+
+
+def _pair(rule, engine="compiled", faulted=False):
+    """(reference simulator, the port's of the same network)."""
+    ref = RefChipSimulator(
+        _weights(), engine=engine, quant_cfg=RefCodebookConfig(8, 8),
+        plasticity=REF_PLC.PlasticityConfig(**RULES[rule]),
+        faults=_faults(False) if faulted else None)
+    port = port_from_reference(
+        ref, engine=engine, plasticity=PlasticityConfig(**RULES[rule]),
+        faults=_faults(True) if faulted else None)
+    return ref, port
+
+
+def _port_sim(engine, rule=None, mapping=None, **kw):
+    return ChipSimulator(_weights(), engine=engine, device="cpu",
+                         quant_cfg=CodebookConfig(8, 8), mapping=mapping,
+                         plasticity=None if rule is None
+                         else PlasticityConfig(**RULES[rule]), **kw)
+
+
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_learned_equal(got, want, msg=""):
+    assert len(got) == len(want), msg
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None), msg
+        if w is not None:
+            np.testing.assert_array_equal(_np(g), _np(w), err_msg=msg)
+
+
+def _assert_runs_equal(got, want, msg=""):
+    """Two (counts, reports, learned) runs: spikes, learned indexes and
+    writes equal, report fields within 1e-6."""
+    (c_g, r_g, l_g), (c_w, r_w, l_w) = got, want
+    np.testing.assert_array_equal(_np(c_g), _np(c_w), err_msg=msg)
+    _assert_learned_equal(l_g, l_w, msg)
+    for a, b in zip(r_g, r_w):
+        assert a.stats.weight_writes == b.stats.weight_writes, msg
+        for f in REPORT_FIELDS:
+            va, vb = getattr(a, f), getattr(b, f)
+            assert abs(va - vb) <= 1e-6 * max(abs(vb), 1.0), (msg, f, va, vb)
+
+
+def _run(sim, trains, learned=None):
+    if isinstance(sim, RefChipSimulator):
+        trains = jax.numpy.asarray(trains)
+    counts, reports = sim.run_batch(trains, learned=learned)
+    return counts, reports, sim.last_learned
+
+
+# ---------------------------------------------------------------------------
+# the projection
+
+
+def _levels(rng, n, cols=None):
+    """Codebook levels with a duplicate; per column, +inf rows past each
+    column's own table size (as the lowering pads them)."""
+    if cols is None:
+        cb = np.sort(rng.normal(0, 1, n)).astype(np.float32)
+        cb[3] = cb[2]
+        return cb
+    cb = rng.normal(0, 1, (n, cols)).astype(np.float32)
+    cb[2] = cb[1]
+    for j in range(cols):
+        cb[rng.integers(n // 2, n + 1):, j] = np.inf
+    return cb
+
+
+@pytest.mark.parametrize("form", ["shared", "per-column"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_project_to_codebook_bitwise_equal(form, seed):
+    rng = np.random.default_rng(seed)
+    cols = 37
+    cb = _levels(rng, 8, None if form == "shared" else cols)
+    v = rng.normal(0, 1.2, (3, 29, cols)).astype(np.float32)
+    # candidates on every level, on the midpoints, and far outside
+    finite = cb[np.isfinite(cb)]
+    v.flat[:len(finite)] = finite
+    v.flat[len(finite):2 * len(finite) - 1] = (finite[:-1] + finite[1:]) / 2
+    v[0, 0, :4] = (-1e30, 1e30, 0.0, -0.0)
+    got = Q.project_to_codebook(torch.tensor(v), torch.tensor(cb))
+    want = np.asarray(REF_Q.project_to_codebook(v, cb))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    if form == "per-column":
+        assert np.isfinite(cb[got.numpy().astype(np.int64),
+                              np.arange(cols)]).all()
+    # idempotent on its own levels, duplicates included
+    lv = torch.tensor(cb).gather(0, got.reshape(-1, cols).long()) \
+        if form == "per-column" else torch.tensor(cb)[got.long()]
+    again = Q.project_to_codebook(lv.reshape(v.shape), torch.tensor(cb))
+    assert torch.equal(again, got)
+
+
+def test_project_to_codebook_rejects_bad_tables():
+    v = torch.zeros((4, 5))
+    with pytest.raises(ValueError, match="codebook must be"):
+        Q.project_to_codebook(v, torch.zeros((8, 6)))
+    with pytest.raises(ValueError, match="codebook must be"):
+        Q.project_to_codebook(v, torch.zeros((2, 8, 5)))
+
+
+# ---------------------------------------------------------------------------
+# the rule functions, teacher-forced
+
+
+def _rule_inputs(seed=0, batch=3, k=48, n=40, levels=8):
+    rng = np.random.default_rng(seed)
+    cfg_words = rng.integers(-127, 128, (levels, n))
+    cbw = (cfg_words * np.float32(0.011)).astype(np.float32)
+    for j in range(n):                 # some columns hold fewer levels
+        cbw[rng.integers(levels - 2, levels + 1):, j] = np.inf
+    top = np.isfinite(cbw).sum(0)
+    idx = (rng.random((batch, k, n)) * top).astype(np.int8)
+    return dict(
+        pre=(rng.random((batch, k)) < 0.3).astype(np.float32),
+        post=(rng.random((batch, n)) < 0.2).astype(np.float32),
+        x_pre=rng.random((batch, k)).astype(np.float32) * 2,
+        x_post=rng.random((batch, n)).astype(np.float32) * 2,
+        elig=rng.normal(0, 1, (batch, k, n)).astype(np.float32),
+        idx=idx, cbw=cbw)
+
+
+def _midpoint_margin(cand, cbw):
+    """Per candidate, how far (f64) it lies from the nearest midpoint
+    between two distinct levels of its column: where rounding could move
+    the projection."""
+    d = np.abs(np.asarray(cand, np.float64)[..., None, :]
+               - cbw.astype(np.float64))                 # (..., L, n)
+    d = np.where(np.isfinite(d), d, np.inf)
+    best = d.min(axis=-2)
+    nearest = np.take_along_axis(cbw.astype(np.float64)[None, None],
+                                 d.argmin(axis=-2)[..., None, :],
+                                 axis=-2)[..., 0, :]
+    other = np.where(cbw.astype(np.float64)[None, None] == nearest[..., None, :],
+                     np.inf, d).min(axis=-2)
+    return other - best
+
+
+def _tensors(inp):
+    return {k: torch.tensor(v) for k, v in inp.items()}
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(enabled=True, lr=0.4), dict(enabled=True, lr=0.05, a_plus=0.7,
+                                     a_minus=1.3, tau_pre=3.0, tau_post=1.5)],
+    ids=["reference-suite", "asymmetric"])
+def test_stdp_step_matches_reference(cfg):
+    inp = _rule_inputs()
+    t = _tensors(inp)
+    port_cfg, ref_cfg = PlasticityConfig(**cfg), REF_PLC.PlasticityConfig(**cfg)
+    got = PLC.stdp_step(port_cfg, t["pre"], t["post"], t["x_pre"],
+                        t["x_post"], t["idx"], t["cbw"])
+    want = REF_PLC.stdp_step(ref_cfg, inp["pre"], inp["post"], inp["x_pre"],
+                             inp["x_post"], inp["idx"], inp["cbw"])
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_array_max_ulp(g.numpy(), np.asarray(w), MAX_ULP)
+    # the fixture's candidates lie clear of every midpoint, so an ulp in
+    # the traces cannot move an index
+    xp, xq = (np.asarray(a, np.float64) for a in want[1:3])
+    pair = (ref_cfg.a_plus * xp[..., :, None] * inp["post"][..., None, :]
+            - ref_cfg.a_minus * inp["pre"][..., :, None] * xq[..., None, :])
+    w0 = np.take_along_axis(inp["cbw"][None], inp["idx"].astype(np.int64),
+                            axis=-2)
+    cand = w0 + ref_cfg.lr * pair
+    assert _midpoint_margin(cand, inp["cbw"]).min() > 1e-5
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert got[3].any() and not got[3].all()
+
+
+@pytest.mark.parametrize("elig_pre", [0.0, 0.1])
+def test_elig_step_matches_reference(elig_pre):
+    inp = _rule_inputs(seed=1)
+    t = _tensors(inp)
+    cfg = dict(enabled=True, mode="reward", elig_pre=elig_pre)
+    got = PLC.elig_step(PlasticityConfig(**cfg), t["pre"], t["post"],
+                        t["x_pre"], t["x_post"], t["elig"])
+    want = REF_PLC.elig_step(REF_PLC.PlasticityConfig(**cfg), inp["pre"],
+                             inp["post"], inp["x_pre"], inp["x_post"],
+                             inp["elig"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_max_ulp(g.numpy(), np.asarray(w), MAX_ULP)
+
+
+def _reward(kind, batch, n, seed=3):
+    rng = np.random.default_rng(seed)
+    if kind == "scalar":
+        return np.float32(0.7)
+    shape = (n,) if kind == "vector" else (batch, n)
+    return rng.choice([-1.0, 0.0, 1.0], shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["scalar", "vector", "per-sample"])
+def test_apply_reward_matches_reference(kind):
+    inp = _rule_inputs(seed=2)
+    t = _tensors(inp)
+    cfg = dict(enabled=True, mode="reward", lr=0.4)
+    r = _reward(kind, *inp["post"].shape)
+    got = PLC.apply_reward(PlasticityConfig(**cfg), t["idx"], t["cbw"],
+                           t["elig"], torch.tensor(r))
+    want = REF_PLC.apply_reward(REF_PLC.PlasticityConfig(**cfg), inp["idx"],
+                                inp["cbw"], inp["elig"], r)
+    w0 = np.take_along_axis(inp["cbw"][None], inp["idx"].astype(np.int64),
+                            axis=-2)
+    rr = r[..., None, :] if np.ndim(r) else r
+    cand = w0 + np.float64(0.4) * rr * inp["elig"].astype(np.float64)
+    assert _midpoint_margin(cand, inp["cbw"]).min() > 1e-5
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].any()
+
+
+@pytest.mark.parametrize("kind", ["scalar", "vector"])
+def test_commit_reward_matches_reference(kind):
+    inp = _rule_inputs(seed=4)
+    t = _tensors(inp)
+    cfg = dict(enabled=True, mode="reward", lr=0.4)
+    r = _reward(kind, *inp["post"].shape)
+    got_l, got = PLC.commit_reward(
+        PlasticityConfig(**cfg), [None, (t["idx"][0], t["cbw"])],
+        [None, t["idx"]], [None, t["elig"]], r, WeightWriteModel(),
+        CycleModel())
+    want_l, want = REF_PLC.commit_reward(
+        REF_PLC.PlasticityConfig(**cfg), [None, (inp["idx"][0], inp["cbw"])],
+        [None, inp["idx"]], [None, inp["elig"]], r, RefWriteModel(),
+        RefCycleModel())
+    _assert_learned_equal(got_l, want_l)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+    assert got["weight_writes"].dtype == np.float64
+
+
+def test_dequant_indices_matches_reference():
+    inp = _rule_inputs(seed=5)
+    got = PLC.dequant_indices(torch.tensor(inp["idx"]),
+                              torch.tensor(inp["cbw"]))
+    want = REF_PLC.dequant_indices(inp["idx"], inp["cbw"])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_config_matches_reference():
+    for kw in ({}, STDP, REWARD, dict(tau_pre=3.5, tau_elig=7.0)):
+        got, want = PlasticityConfig(**kw), REF_PLC.PlasticityConfig(**kw)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.decay_pre, got.decay_post, got.decay_elig) == \
+            (want.decay_pre, want.decay_post, want.decay_elig)
+        assert [got.learns(li) for li in range(4)] == \
+            [want.learns(li) for li in range(4)]
+    assert NULL_PLASTICITY == PlasticityConfig()
+
+
+# ---------------------------------------------------------------------------
+# whole runs against the reference
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("batch", [1, 4])
+def test_stdp_run_matches_reference(engine, batch):
+    ref, port = _pair("stdp", engine)
+    trains = _trains(batch=batch)
+    got, want = _run(port, trains), _run(ref, trains)
+    _assert_runs_equal(got, want, f"stdp/{engine}/B{batch}")
+    assert sum(r.stats.weight_writes for r in got[1]) > 0
+    assert sum(r.write_energy_pj for r in got[1]) > 0
+    for got_t, want_t in zip(port.plasticity_tables(),
+                             ref.plasticity_tables()):
+        assert (got_t is None) == (want_t is None)
+        if want_t is not None:
+            _assert_learned_equal(got_t, want_t)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("kind", ["scalar", "vector"])
+def test_reward_run_and_commit_match_reference(engine, kind):
+    ref, port = _pair("reward", engine)
+    trains = _trains()
+    got, want = _run(port, trains), _run(ref, trains)
+    _assert_runs_equal(got, want, f"reward/{engine}")
+    # in-trial: eligibility only, zero register writes
+    assert all(r.stats.weight_writes == 0 for r in got[1])
+    if kind == "scalar":
+        reward = 1.0
+    else:
+        reward = np.zeros(SIZES[-1], np.float32)
+        reward[3], reward[7] = 1.0, -1.0
+    info_g, info_w = port.apply_reward(reward), ref.apply_reward(reward)
+    np.testing.assert_array_equal(info_g["weight_writes"],
+                                  np.asarray(info_w["weight_writes"]))
+    np.testing.assert_allclose(info_g["write_energy_pj"],
+                               info_w["write_energy_pj"], rtol=1e-6)
+    np.testing.assert_array_equal(info_g["write_cycles"],
+                                  np.asarray(info_w["write_cycles"]))
+    assert info_g["weight_writes"].sum() > 0
+    _assert_learned_equal(port.last_learned, ref.last_learned,
+                          f"reward/{engine}: committed indexes")
+    # the committed indexes warm-start the next trial
+    _assert_runs_equal(_run(port, trains, port.last_learned),
+                       _run(ref, trains, ref.last_learned),
+                       f"reward/{engine}: warm")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("form", ["broadcast", "per-sample"])
+def test_warm_start_matches_reference(engine, form):
+    ref, port = _pair("stdp", engine)
+    trains = _trains()
+    _run(ref, trains)
+    learned = [None if l is None else np.asarray(l) for l in ref.last_learned]
+    if form == "broadcast":
+        learned = [None if l is None else l[1] for l in learned]
+    _assert_runs_equal(_run(port, trains, learned),
+                       _run(ref, trains, learned), f"warm/{engine}/{form}")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_faulted_plasticity_matches_reference(engine):
+    ref, port = _pair("stdp", engine, faulted=True)
+    _assert_runs_equal(_run(port, _trains()), _run(ref, _trains()),
+                       f"fault+stdp/{engine}")
+
+
+def test_codebook_fault_corrupts_initial_plasticity_tables():
+    clean = _port_sim("compiled", "stdp")
+    faulty = _port_sim("compiled", "stdp", mapping=clean.mapping,
+                       faults=_faults(True))
+    pt_c, pt_f = clean.plasticity_tables(), faulty.plasticity_tables()
+    # the fault reprograms codebook words => the plasticity lowering
+    # (which runs AFTER fault application) must see the corrupted levels
+    assert any(a is not None and not torch.equal(a[1], b[1])
+               for a, b in zip(pt_c, pt_f))
+    trains = _trains()
+    c_clean, _ = clean.run_batch(trains)
+    c_fault, _ = faulty.run_batch(trains)
+    assert not torch.equal(c_clean, c_fault)
+    assert any(a is not None and not torch.equal(a, b)
+               for a, b in zip(clean.last_learned, faulty.last_learned))
+
+
+# ---------------------------------------------------------------------------
+# inside the port
+
+
+@pytest.mark.parametrize("rule", ["stdp", "reward"])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_fused_bitwise_equal_to_compiled(rule, batch):
+    comp = _port_sim("compiled", rule)
+    fused = _port_sim("fused", rule, mapping=comp.mapping)
+    assert fused.fused_engine().codebook_layers == len(SIZES) - 1
+    trains = _trains(batch=batch)
+    ys_c, c_c = comp.compiled_engine().run_raw(trains)
+    ys_f, c_f = fused.fused_engine().run_raw(trains)
+    assert torch.equal(c_f, c_c) and float(c_f.sum()) > 0
+    learned = [k for k in ys_c if k.startswith(("learned_idx", "elig"))]
+    assert learned and "writes" in ys_c
+    for key in ys_c:
+        assert torch.equal(ys_f[key], ys_c[key]), key
+    _, rep_c = comp.run_batch(trains)
+    _, rep_f = fused.run_batch(trains)
+    # the fused engine counts skipped spike words untraced, the compiled
+    # one only traced; every other field is equal
+    assert_reports_close(rep_f, rep_c, rel=0.0)
+    assert [(r.stats.weight_writes, r.write_energy_pj) for r in rep_f] == \
+        [(r.stats.weight_writes, r.write_energy_pj) for r in rep_c]
+    _assert_learned_equal(fused.last_learned, comp.last_learned)
+    if rule == "reward":
+        info_c = comp.apply_reward(0.5)
+        info_f = fused.apply_reward(0.5)
+        for k in info_c:
+            np.testing.assert_array_equal(info_f[k], info_c[k])
+        _assert_learned_equal(fused.last_learned, comp.last_learned)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_warm_start_resumes_learning(engine):
+    trains = _trains()
+    sim = _port_sim(engine, "stdp")
+    c_cold, _ = sim.run_batch(trains)
+    learned = sim.last_learned
+    assert learned[0].shape == (4, SIZES[0], SIZES[1])
+    c_warm, _ = sim.run_batch(trains, learned=learned)
+    assert not torch.equal(c_cold, c_warm)
+    c_warm2, _ = sim.run_batch(trains, learned=learned)
+    assert torch.equal(c_warm, c_warm2)
+    # the run never writes into the caller's tensors
+    before = [l.clone() for l in learned if l is not None]
+    sim.run_batch(trains, learned=learned)
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, [l for l in learned if l is not None]))
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_silent_input_writes_nothing(engine):
+    """dw == 0 is a projection fixed point: no spikes, no writes."""
+    sim = _port_sim(engine, "stdp")
+    _, reps = sim.run_batch(np.zeros((2, 6, SIZES[0]), np.float32))
+    assert all(r.stats.weight_writes == 0 for r in reps)
+    assert all(r.write_energy_pj == 0 for r in reps)
+    _assert_learned_equal(
+        sim.last_learned,
+        [None if pt is None else pt[0].expand(2, -1, -1)
+         for pt in sim.plasticity_tables()])
+
+
+@pytest.mark.parametrize("engine", ["compiled", "fused"])
+def test_plasticity_off_issues_the_same_ops(engine):
+    trains = _trains(batch=2, T=3)
+    base = _port_sim(engine)
+    ops, ys, counts = run_raw_ops(base, trains)
+    for plast in (NULL_PLASTICITY, PlasticityConfig(),
+                  PlasticityConfig(mode="reward", layers=(1,))):
+        sim = ChipSimulator(_weights(), engine=engine, device="cpu",
+                            quant_cfg=CodebookConfig(8, 8),
+                            mapping=base.mapping, plasticity=plast)
+        assert sim.array_engine().plast_tables == (None,) * (len(SIZES) - 1)
+        got_ops, got_ys, got_counts = run_raw_ops(sim, trains)
+        assert got_ops == ops
+        assert torch.equal(got_counts, counts)
+        assert got_ys.keys() == ys.keys()
+        for k in ys:
+            assert torch.equal(got_ys[k], ys[k]), k
+    stdp = ChipSimulator(_weights(), engine=engine, device="cpu",
+                         quant_cfg=CodebookConfig(8, 8),
+                         mapping=base.mapping,
+                         plasticity=PlasticityConfig(**STDP))
+    assert run_raw_ops(stdp, trains)[0] != ops
+
+
+# ---------------------------------------------------------------------------
+# config and error paths (the reference suite's cases)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_learned_with_plasticity_off_raises(engine):
+    sim = _port_sim(engine)
+    with pytest.raises(ValueError, match="plasticity"):
+        sim.run_batch(_trains(), learned=[None, None, None])
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_apply_reward_needs_reward_mode(engine):
+    sim = _port_sim(engine, "stdp")
+    sim.run_batch(_trains(batch=1, T=2))
+    with pytest.raises(ValueError, match="reward"):
+        sim.apply_reward(1.0)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_apply_reward_needs_a_completed_run(engine):
+    sim = _port_sim(engine, "reward")
+    with pytest.raises(ValueError, match="completed"):
+        sim.apply_reward(1.0)
+    sim.run_batch(_trains(batch=1, T=2))
+    sim.apply_reward(1.0)
+    with pytest.raises(ValueError, match="completed"):
+        sim.apply_reward(1.0)
+
+
+def test_vector_reward_width_mismatch_raises():
+    # layers=None makes both hidden layers learnable (96 and 96 and 16
+    # wide): a 16-wide error vector cannot broadcast onto all of them
+    sim = ChipSimulator(_weights(), engine="compiled", device="cpu",
+                        quant_cfg=CodebookConfig(8, 8),
+                        plasticity=PlasticityConfig(**dict(REWARD,
+                                                           layers=None)))
+    sim.run_batch(_trains())
+    with pytest.raises(ValueError, match="readout"):
+        sim.apply_reward(np.ones(SIZES[-1], np.float32))
+
+
+def test_plasticity_requires_table_exact_codebooks():
+    with pytest.raises(ValueError, match="table-exact"):
+        ChipSimulator(_weights(), engine="compiled", device="cpu",
+                      plasticity=PlasticityConfig(**STDP)
+                      ).plasticity_tables()
+
+
+def test_bad_mode_raises():
+    with pytest.raises(ValueError, match="mode"):
+        PlasticityConfig(enabled=True, mode="hebbian")
+
+
+def test_empty_layer_selection_raises():
+    with pytest.raises(ValueError, match="selects none"):
+        ChipSimulator(_weights(), engine="compiled", device="cpu",
+                      quant_cfg=CodebookConfig(8, 8),
+                      plasticity=PlasticityConfig(enabled=True, layers=(99,))
+                      ).plasticity_tables()
+
+
+@pytest.mark.parametrize("learned,match", [
+    ([None, None], "one entry per layer"),
+    (["idx", None, None], "is frozen"),
+    ([None, None, "bad"], "expected"),
+], ids=["count", "frozen", "shape"])
+def test_bad_learned_raises(learned, match):
+    sim = _port_sim("compiled", "reward")
+    idx = torch.zeros((SIZES[0], SIZES[1]), dtype=torch.int8)
+    bad = torch.zeros((3, SIZES[2], SIZES[3]), dtype=torch.int8)
+    learned = [idx if x == "idx" else bad if x == "bad" else x
+               for x in learned]
+    with pytest.raises(ValueError, match=match):
+        sim.run_batch(_trains(), learned=learned)
