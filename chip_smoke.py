@@ -119,8 +119,40 @@ Phases, each of which must pass:
    run and device busy of (a), (b) and the healthy run, ms per sample of
    (c) (its first runs, and warm on one sample with its device busy).
 
+9. SNN serving — right after phase 8, on phase 4's quantized weights:
+   (a) `SnnServer(batch_slots=32)` on a greedy-mapped ARCH simulator
+   (cores 12, 13, 14), engine "fused", 80 requests of T = 20 at density
+   0.10, every 4th with a deadline: exactly 3 slot groups (32, 32, 16)
+   and 180 codebook launches, every request's counts, prediction,
+   energy and pJ/SOP equal to its row of the same padded batch through
+   `run_batch`, none carrying a padded slot's report, `host_summary()`
+   and each request's DMA energy equal to `HostDmaModel`'s prices
+   reckoned here in numpy; (b) tenancy: a second ARCH network (weights
+   from --seed + 2) remapped by `remap_mapping_cores` onto 3 cores
+   disjoint from (a)'s, interleaved requests equal to two solo servers'
+   with 2 model swaps, then phase 4's anneal-mapped simulator (all 20
+   cores) as a third tenant evicting both, every swap priced by
+   `table_load`; (c) resilience: `FaultConfig(transient_dispatches=(0,))`
+   raises once and is retried (no-op sleep) to the healthy server's
+   results, then a primary over a 0 s dispatch budget with
+   `RetryPolicy(max_retries=1)` and breaker threshold 1 completes through
+   phase 7 (b)'s repaired chip with `degraded=True`, each request equal
+   to its row of the repaired chip's `run_batch`; (d) requests/s,
+   latency p50 / p99, ms per group beside phase 4's ms per run, and one
+   group's device busy and idle share.
+10. SNN training — `SNNTrainer` on `SNNConfig(ARCH widths, T = 20,
+   qat=True)`, B = 32, the hardware-aware loss (rate 1.0 at 0.08, L1
+   1e-3), 5 steps of `EventStream` (34 x 34 x 2) with a checkpoint every
+   2: loss and gradient norm finite at every step, parameters moved;
+   step 0 on the card against the same step on the CPU from the same
+   parameters and batch (loss and spikes per layer within 1e-3, the
+   gradient norm within TRAIN_GRAD_REL); a fit stopped after step 2 and
+   resumed from its checkpoint ends within TRAIN_RESUME_ATOL of the
+   uninterrupted fit; ms per step, device busy, idle share and peak
+   memory.
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 5 and 6); the last line is
+4, 7, 8, 9, 5 and 6); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -128,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1376,7 +1409,7 @@ def fault_path(arch, ctx: dict, smi: str) -> dict:
     return {"launches": {
         "fused_timestep_codebook": launches["fused_timestep_codebook"],
         "fused_timestep_dense": dense["fused_timestep_dense"]},
-        "perf": perf}
+        "perf": perf, "repaired": rsim}
 
 
 # ---------------------------------------------------------------------------
@@ -1659,6 +1692,426 @@ def _hold_totals(what, counts, reports, want_counts, want_reports) -> None:
     if rel > SPIKE_REL_TOL or srel > SPIKE_REL_TOL or prel > PJ_REL_TOL:
         raise AssertionError(f"{what}: differs from the compiled engine "
                              f"({rel:.3g}, {srel:.3g}, {prel:.3g})")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: SNN serving at full width
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS = 32
+SERVE_REQUESTS = 80            # 3 slot groups, the last 16 real + 16 padded
+SERVE_DEADLINE_MS = 6e4        # every 4th request; never expires here
+TENANT_REQUESTS = 12           # per tenant in (b), interleaved
+RESILIENT_REQUESTS = 8         # in each of (c)'s two runs
+
+
+def _serve_trains(arch, seed: int, n: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, arch.timesteps, arch.layer_sizes[0]))
+            < TIME_DENSITY).astype(np.float32)
+
+
+def _groups(done) -> list:
+    """Served requests as their slot groups (one `t_dequeue` each), each
+    in slot order: the order `admission.form_group` took them in."""
+    by = {}
+    for r in done:
+        by.setdefault(r.t_dequeue, []).append(r)
+    key = (lambda r: (r.deadline if r.deadline is not None else np.inf,
+                      r.t_enqueue))
+    return [sorted(g, key=key) for _, g in sorted(by.items())]
+
+
+def _padded(group, slots: int) -> np.ndarray:
+    batch = np.zeros((slots,) + group[0].events.shape, np.float32)
+    for i, r in enumerate(group):
+        batch[i] = r.events
+    return batch
+
+
+def _hold_rows(what: str, sim, groups, slots: int) -> None:
+    """Each request of each group equal to its row of the same padded
+    batch through `sim.run_batch`: counts, prediction, energy, pJ/SOP."""
+    import torch
+
+    for group in groups:
+        counts, reports = sim.run_batch(torch.as_tensor(
+            _padded(group, slots), device=sim.device))
+        counts = counts.cpu().numpy()
+        for i, r in enumerate(group):
+            if not (np.array_equal(r.spike_counts, counts[i])
+                    and r.prediction == int(counts[i].argmax())
+                    and r.energy_pj == reports[i].energy_pj
+                    and r.pj_per_sop == reports[i].pj_per_sop):
+                raise AssertionError(f"{what}: request {r.uid} differs from "
+                                     f"row {i} of its padded batch")
+
+
+def _dma_reckoned(arch, sim, n_req: int) -> dict:
+    """HostDmaModel's default prices reckoned here in numpy: 3.2 pJ per
+    32-bit word, a header word per 64, 120 setup cycles."""
+    def transfer(words):
+        total = words + -(-words // 64)
+        return total * 3.2, 120.0 + total
+
+    chip_words = math.ceil(arch.layer_sizes[0] / 16)   # 16 spikes a word
+    words_up = arch.timesteps * math.ceil(chip_words / 2)
+    per_req = transfer(words_up)[0] + transfer(arch.layer_sizes[-1])[0]
+    nbytes = sum((t.weight_levels * t.weight_bits + 7) // 8 + 20
+                 for t in sim.register_tables)
+    swap_pj, swap_cycles = transfer(-(-nbytes // 4))
+    return {"dma_pj": n_req * per_req, "model_swaps": 1.0,
+            "swap_pj": swap_pj, "swap_cycles": swap_cycles}
+
+
+def _launched(what: str, fn) -> int:
+    """Codebook-timestep launches of `fn()` (counts zeroed before, read
+    after; no dense launch allowed)."""
+    import torch
+
+    from repro_torch.kernels import fused_timestep as FT
+
+    FT.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(FT.launches)
+    if got["fused_timestep_dense"]:
+        raise AssertionError(f"{what}: dense launches {got}")
+    return got["fused_timestep_codebook"], out
+
+
+def serving_snn_path(arch, ctx: dict, repaired, mp_perf: dict, seed: int,
+                     smi: str) -> dict:
+    """Phase 9: `SnnServer` on ARCH simulators built from phase 4's
+    quantized weights."""
+    import torch
+
+    from repro_torch import ChipSimulator
+    from repro_torch.core import noc as NOC
+    from repro_torch.core.soc import HostDmaModel, remap_mapping_cores
+    from repro_torch.faults import FaultConfig
+    from repro_torch.serve import SnnRequest, SnnServer
+    from repro_torch.serve.resilience import RetryPolicy
+
+    qws, dev = ctx["qws"], ctx["sim"].device
+    kw = dict(freq_hz=arch.freq_hz, threshold=arch.threshold,
+              leak=arch.leak, device=dev)
+    T, L = arch.timesteps, len(qws)
+    launches = {}
+
+    # (a) one tenant, greedy-mapped: 80 requests, 3 slot groups
+    sim = ChipSimulator(qws, engine="fused", mapping_strategy="greedy", **kw)
+    cores = sorted(sim.mapping.active_core_ids())
+    if cores != [12, 13, 14]:
+        raise AssertionError(f"greedy ARCH mapping on cores {cores}")
+    sim.fused_engine()                         # lowered before serving
+    trains = _serve_trains(arch, seed + 3, SERVE_REQUESTS)
+    srv = SnnServer(sim, batch_slots=SERVE_SLOTS)
+
+    def serve():
+        t0 = time.perf_counter()
+        reqs = [srv.submit(SnnRequest(
+            uid=i, events=ev, deadline_ms=SERVE_DEADLINE_MS
+            if i % 4 == 0 else None)) for i, ev in enumerate(trains)]
+        done = srv.run()
+        torch.cuda.synchronize()
+        return reqs, done, time.perf_counter() - t0
+
+    n, (reqs, done, wall_s) = _launched("served ARCH", serve)
+    launches["a"] = n
+    want = -(-SERVE_REQUESTS // SERVE_SLOTS) * T * L
+    if n != want:
+        raise AssertionError(f"served ARCH: {n} codebook launches, "
+                             f"expected {want}")
+    if sorted(r.uid for r in done) != list(range(SERVE_REQUESTS)) \
+            or any(r.status != "served" for r in reqs):
+        raise AssertionError("served ARCH: not every request served")
+    groups = _groups(done)
+    sizes = [len(g) for g in groups]
+    if sizes != [32, 32, 16]:
+        raise AssertionError(f"served ARCH: groups of {sizes}")
+    _hold_rows("served ARCH", sim, groups, SERVE_SLOTS)
+    _, [pad] = sim.run_batch(torch.zeros((1, T, arch.layer_sizes[0]),
+                                         device=dev))
+    if any(r.energy_pj == pad.energy_pj for r in done):
+        raise AssertionError("served ARCH: a request carries a padded "
+                             "slot's report")
+    hs = srv.host_summary()
+    reckoned = _dma_reckoned(arch, sim, SERVE_REQUESTS)
+    if any(abs(hs[k] - v) > 1e-9 * max(abs(v), 1.0)
+           for k, v in reckoned.items()) or any(
+               abs(r.dma_pj - reckoned["dma_pj"] / SERVE_REQUESTS) > 1e-9
+               for r in done):
+        raise AssertionError(f"served ARCH: host summary {hs} against "
+                             f"{reckoned}")
+    lat = srv.metrics.get("snn_request_latency_ms")
+    perf = {"requests_per_s": SERVE_REQUESTS / wall_s,
+            "serve_wall_ms": wall_s * 1e3,
+            "ms_per_group": wall_s * 1e3 / len(groups),
+            "latency_p50_ms": lat.percentile(0.5),
+            "latency_p99_ms": lat.percentile(0.99),
+            "phase4_ms_per_run": mp_perf["ms_per_run"]}
+    log(f"served ARCH: {SERVE_REQUESTS} requests in groups {sizes}, {n} "
+        f"codebook launches, every request equal to its padded batch row, "
+        f"host summary {json.dumps(hs)} equal to HostDmaModel reckoned in "
+        f"numpy")
+
+    # (b) tenancy: a second network on 3 disjoint cores, then a third on
+    # the anneal mapping (all 20 cores) that evicts both
+    qws_b = _arch_quantized(arch, seed + 2)
+    base_b = ChipSimulator(qws_b, engine="fused", mapping_strategy="greedy",
+                           **kw)
+    pool = [int(c) for c in NOC.core_ids() if int(c) not in cores]
+    sim_b = ChipSimulator(qws_b, engine="fused", mapping=remap_mapping_cores(
+        base_b.mapping, pool[-3:]), **kw)
+    sim_c = ctx["sim"]
+    for s in (sim_b, sim_c):
+        s.fused_engine()
+    dma = HostDmaModel()
+    multi = SnnServer(sim, batch_slots=SERVE_SLOTS, dma=dma)
+    multi.add_model("b", sim_b)
+    if multi.tenants["default"].core_ids & multi.tenants["b"].core_ids:
+        raise AssertionError("tenancy: the remapped cores overlap")
+    mixed = _serve_trains(arch, seed + 4, 2 * TENANT_REQUESTS)
+
+    def interleave():
+        for i, ev in enumerate(mixed):
+            multi.submit(SnnRequest(uid=i, events=ev,
+                                    model="b" if i % 2 else "default"))
+        return {r.uid: r for r in multi.run()}
+
+    nb, served = _launched("tenancy", interleave)
+    solo = {}
+    for name, s in (("default", sim), ("b", sim_b)):
+        one = SnnServer(s, batch_slots=SERVE_SLOTS)
+        for i, ev in enumerate(mixed):
+            if (i % 2 == 1) == (name == "b"):
+                one.submit(SnnRequest(uid=i, events=ev))
+        solo.update({r.uid: r for r in one.run()})
+    for uid, r in served.items():
+        if not (np.array_equal(r.spike_counts, solo[uid].spike_counts)
+                and r.energy_pj == solo[uid].energy_pj):
+            raise AssertionError(f"tenancy: request {uid} differs from the "
+                                 f"solo server's")
+    if multi.host_summary()["model_swaps"] != 2:
+        raise AssertionError(f"tenancy: {multi.host_summary()} swaps")
+    tc = multi.add_model("c", sim_c)
+    if not (tc.core_ids & multi.tenants["default"].core_ids
+            and tc.core_ids & multi.tenants["b"].core_ids):
+        raise AssertionError("tenancy: the anneal tenant overlaps neither")
+    order = ["c", "default", "b"]
+
+    def evict():
+        for i, name in enumerate(order):
+            multi.submit(SnnRequest(uid=100 + i, events=mixed[i],
+                                    model=name))
+            multi.step()
+
+    nc, _ = _launched("eviction", evict)
+    launches["b"] = nb + nc
+    prices = {name: dma.table_load(t.sim.register_tables)[0]
+              for name, t in multi.tenants.items()}
+    want_pj = prices["default"] * 2 + prices["b"] * 2 + prices["c"]
+    hs = multi.host_summary()
+    if hs["model_swaps"] != 5 or abs(hs["swap_pj"] - want_pj) > 1e-9 * want_pj:
+        raise AssertionError(f"eviction: {hs} against 5 swaps, {want_pj} pJ")
+    cores_b = sorted(sim_b.mapping.active_core_ids())
+    log(f"tenancy: {2 * TENANT_REQUESTS} interleaved requests equal to two "
+        f"solo servers', cores {cores} and {cores_b}, 2 swaps; tenant c on {len(tc.core_ids)} cores evicted both: 5 "
+        f"swaps, {hs['swap_pj']:.1f} pJ = table_load of each load "
+        f"({json.dumps(prices)})")
+
+    # (c) resilience: a transient fault retried; a primary that always
+    # times out, served by phase 7 (b)'s repaired chip
+    few = _serve_trains(arch, seed + 5, RESILIENT_REQUESTS)
+    flaky = ChipSimulator(qws, engine="fused", mapping=sim.mapping,
+                          faults=FaultConfig(transient_dispatches=(0,)), **kw)
+    rsrv = SnnServer(flaky, batch_slots=SERVE_SLOTS, sleep=lambda s: None)
+    healthy = SnnServer(sim, batch_slots=SERVE_SLOTS)
+    for i, ev in enumerate(few):
+        rsrv.submit(SnnRequest(uid=i, events=ev))
+        healthy.submit(SnnRequest(uid=i, events=ev))
+    n1, got = _launched("retried", rsrv.run)
+    want = healthy.run()
+    if (rsrv._m_faults.value, rsrv._m_retries.value) != (1, 1) or any(
+            not np.array_equal(g.spike_counts, w.spike_counts)
+            or g.energy_pj != w.energy_pj or g.degraded
+            for g, w in zip(got, want)):
+        raise AssertionError("retried: not the healthy server's results, "
+                             "or not one fault and one retry")
+    dsrv = SnnServer(None, batch_slots=SERVE_SLOTS, dispatch_timeout_s=0.0,
+                     retry=RetryPolicy(max_retries=1, base_delay_s=0.0),
+                     breaker_threshold=1, sleep=lambda s: None)
+    dsrv.add_model("default", sim, degraded_sim=repaired)
+    dreqs = [dsrv.submit(SnnRequest(uid=i, events=ev))
+             for i, ev in enumerate(few)]
+    n2, _ = _launched("degraded", dsrv.run)
+    launches["c"] = n1 + n2
+    _hold_rows("degraded", repaired, [dreqs], SERVE_SLOTS)
+    if not all(r.degraded for r in dreqs) or \
+            dsrv.breakers["default"].state != "open" or \
+            (dsrv._m_faults.value, dsrv._m_retries.value,
+             dsrv._m_degraded.value) != (2, 1, RESILIENT_REQUESTS):
+        raise AssertionError("degraded: not served through the repaired chip")
+    log(f"resilience: a transient fault raised once and was retried "
+        f"(snn_faults_injected 1, snn_retries 1), results equal to the "
+        f"healthy server's; a primary over its 0 s budget: 2 timeouts, 1 "
+        f"retry, breaker open, {RESILIENT_REQUESTS} requests degraded=True, "
+        f"each equal to its row of the repaired chip's run_batch")
+
+    # (d) times: one full slot group alone, then the same profiled
+    def one_group():
+        for i, ev in enumerate(trains[:SERVE_SLOTS]):
+            srv.submit(SnnRequest(uid=1000 + i, events=ev))
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    perf["group_ms"] = statistics.median(one_group() for _ in range(5))
+    for i, ev in enumerate(trains[:SERVE_SLOTS]):
+        srv.submit(SnnRequest(uid=2000 + i, events=ev))
+    perf.update(_device_breakdown(srv.step, perf["group_ms"]))
+    log(f"SNN serving timing ({smi}): {json.dumps(perf)}")
+    return {"launches": {"fused_timestep_codebook": sum(launches.values()),
+                         "fused_timestep_dense": 0},
+            "by_part": launches, "perf": perf}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: SNN training at ARCH widths
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 5
+TRAIN_BATCH = 32
+TRAIN_GRAD_REL = 1e-2          # card vs CPU global gradient norm, step 0
+TRAIN_RESUME_ATOL = 3e-3       # resumed vs uninterrupted params: under one
+                               # AdamW step of lr 2e-3 per element
+
+
+def training_path(arch, seed: int, smi: str) -> dict:
+    """Phase 10: `SNNTrainer` at the paper's widths on the card."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.synthetic import EventStream
+    from repro_torch.models import snn as SNN
+    from repro_torch.optim import adamw
+    from repro_torch.train.snn_trainer import (HWLossConfig, SNNTrainConfig,
+                                               SNNTrainer, train_step)
+
+    ev = EventStream(height=34, width=34, timesteps=arch.timesteps,
+                     seed=seed)
+    if ev.n_inputs != arch.layer_sizes[0]:
+        raise AssertionError(f"EventStream gives {ev.n_inputs} inputs")
+    cfg = SNN.SNNConfig(layer_sizes=tuple(arch.layer_sizes),
+                        timesteps=arch.timesteps, qat=True)
+    hw = HWLossConfig(rate_weight=1.0, target_rate=0.08, l1_weight=1e-3)
+
+    def trainer(d, device=DEVICE):
+        return SNNTrainer(cfg, SNNTrainConfig(
+            steps=TRAIN_STEPS, batch=TRAIN_BATCH, hw=hw, ckpt_dir=d,
+            save_every=2), device=device)
+
+    def batches(stop=None):
+        def fn(step):
+            if step == stop:
+                raise KeyboardInterrupt(f"stopped at step {step}")
+            return ev.batch(TRAIN_BATCH, step, device=DEVICE)
+        return fn
+
+    gen = (lambda: torch.Generator().manual_seed(seed))
+    p0 = [p.clone() for p in trainer(None).init(gen())[0]]
+    rows, step_ms = [], []
+    last = [time.perf_counter()]
+
+    def on_metrics(step, row):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - last[0]) * 1e3)
+        last[0] = now
+        rows.append(row)
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.reset_peak_memory_stats()
+        last[0] = time.perf_counter()
+        whole, hist = trainer(str(Path(d) / "a")).fit(
+            batches(), gen(), on_metrics)
+        peak = torch.cuda.max_memory_allocated()
+        for r in hist:
+            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+                raise AssertionError(f"training: step {r['step']} {r}")
+        moved = max(float((a - b).abs().max()) for a, b in zip(whole, p0))
+        if not moved > 0:
+            raise AssertionError("training: the parameters did not move")
+        log(f"training: {TRAIN_STEPS} steps at {list(arch.layer_sizes)}, "
+            f"losses {[round(r['loss'], 6) for r in hist]}, gradient norms "
+            f"{[round(r['grad_norm'], 6) for r in hist]}, max |param "
+            f"change| {moved:.4g}")
+
+        # step 0 on the card against the port on the CPU, same params
+        # and batch
+        s, l = ev.batch(TRAIN_BATCH, 0, device="cpu")
+        out = {}
+        for device in (DEVICE, "cpu"):
+            tr = trainer(None, device)
+            params = [p.to(device) for p in p0]
+            st, lt = s.to(device), l.to(device)
+            with torch.no_grad():
+                _, stats = SNN.forward(params, cfg, st)
+            _, _, m = train_step(params, adamw.init(params), cfg, hw,
+                                 tr.opt_cfg, st, lt)
+            out[device] = ({k: float(v) for k, v in m.items()},
+                           (stats["rates"] * TRAIN_BATCH * arch.timesteps
+                            * torch.tensor(arch.layer_sizes[1:],
+                                           device=device)).tolist())
+        (mg, sg), (mc, sc) = out[DEVICE], out["cpu"]
+        rel = {"loss": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+               "spikes": max(abs(a - b) / max(b, 1.0)
+                             for a, b in zip(sg, sc)),
+               "grad_norm": abs(mg["grad_norm"] - mc["grad_norm"])
+               / mc["grad_norm"]}
+        log(f"training step 0, card against CPU: loss {mg['loss']} / "
+            f"{mc['loss']}, spikes per layer {sg} / {sc}, gradient norm "
+            f"{mg['grad_norm']} / {mc['grad_norm']} (rel {json.dumps(rel)})")
+        if rel["loss"] > SPIKE_REL_TOL or rel["spikes"] > SPIKE_REL_TOL \
+                or rel["grad_norm"] > TRAIN_GRAD_REL:
+            raise AssertionError(f"training step 0: card and CPU differ "
+                                 f"{rel}")
+
+        # a fit stopped after step 2, resumed from its checkpoint
+        b = str(Path(d) / "b")
+        try:
+            trainer(b).fit(batches(stop=2), gen())
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("training: the stopped fit did not stop")
+        if trainer(b).ckpt.latest_step() != 2:
+            raise AssertionError("training: no checkpoint at step 2")
+        resumed, rhist = trainer(b).fit(batches(), gen())
+        if [r["step"] for r in rhist] != list(range(2, TRAIN_STEPS)):
+            raise AssertionError(f"training: resumed at {rhist[:1]}")
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(resumed, whole))
+        log(f"training: resumed from step 2, max |param diff| against the "
+            f"uninterrupted fit {diff:.4g} (tolerance {TRAIN_RESUME_ATOL})")
+        if diff > TRAIN_RESUME_ATOL:
+            raise AssertionError(f"training: resumed params differ by {diff}")
+
+    # times: a step at its steady state, profiled
+    tr = trainer(None)
+    params, opt = tr.init(gen())
+    st, lt = ev.batch(TRAIN_BATCH, 0, device=DEVICE)
+    ms = _timed_ms(lambda: tr.step(params, opt, st, lt), reps=3)
+    perf = {"ms_per_step": ms, "fit_step_ms": step_ms,
+            "peak_memory_gb": peak / 1e9, "resume_max_diff": diff,
+            "card_vs_cpu_rel": rel}
+    perf.update(_device_breakdown(lambda: tr.step(params, opt, st, lt), ms,
+                                  sums=(("gemm_ms", "gemm"),)))
+    log(f"SNN training timing ({smi}): {json.dumps(perf)}")
+    return {"perf": perf}
 
 
 # ---------------------------------------------------------------------------
@@ -2200,10 +2653,21 @@ def main() -> int:
     log(f"fault phase: {time.perf_counter() - t0:.1f} s")
 
     # 8. on-chip plasticity and the interpretive engine (the same network)
+    repaired = fp.pop("repaired")
     t0 = time.perf_counter()
     pp = plasticity_path(ARCH, ctx, smi)
     log(f"plasticity phase: {time.perf_counter() - t0:.1f} s")
-    del ctx
+
+    # 9. SNN serving (phase 4's weights; phase 7 b's repaired chip)
+    t0 = time.perf_counter()
+    sp = serving_snn_path(ARCH, ctx, repaired, mp["perf"], args.seed, smi)
+    log(f"SNN serving phase: {time.perf_counter() - t0:.1f} s")
+    del ctx, repaired
+
+    # 10. SNN training at ARCH widths
+    t0 = time.perf_counter()
+    training_path(ARCH, args.seed, smi)
+    log(f"SNN training phase: {time.perf_counter() - t0:.1f} s")
 
     # 5. kernel-API path
     api = api_path(ARCH, qws, args.seed)
@@ -2217,10 +2681,11 @@ def main() -> int:
         f"checks {t1 - t0:.1f} s)")
 
     # kernels line, then the result; launches from phase 4 (fused), phase
-    # 7 (the faulted runs), phase 8 (the plastic runs), phase 5 (kernel
-    # API, all three loops) and phase 6 (the served run)
+    # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
+    # server), phase 5 (kernel API, all three loops) and phase 6 (the
+    # served LM run)
     launches = dict(mp["launches"])
-    for loop in [fp, pp, *api.values()]:
+    for loop in [fp, pp, sp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = lm["launches"]["flash_attention"]

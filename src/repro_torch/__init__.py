@@ -21,8 +21,9 @@ from repro_torch.core.quant import (CodebookConfig, QuantizedTensor,  # noqa: E4
 from repro_torch.core.plasticity import (NULL_PLASTICITY,  # noqa: E402
                                          PlasticityConfig)
 from repro_torch.core.soc import ChipSimulator  # noqa: E402
-from repro_torch.convert import convert, convert_lm  # noqa: E402
+from repro_torch.convert import (convert, convert_adamw,  # noqa: E402
+                                 convert_lm, convert_params)
 
 __all__ = ["NULL_PLASTICITY", "ChipSimulator", "CodebookConfig",
-           "PlasticityConfig", "QuantizedTensor", "convert", "convert_lm",
-           "quantize", "resolve_device"]
+           "PlasticityConfig", "QuantizedTensor", "convert", "convert_adamw",
+           "convert_lm", "convert_params", "quantize", "resolve_device"]

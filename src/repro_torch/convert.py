@@ -4,7 +4,9 @@
 another package — so anything that can export its quantized tensors,
 mapping and register tables as arrays (the JAX reference, a checkpoint)
 hands the port the very same network, and both compute the same thing.
-`convert_lm` does the same for the LM's nested parameter dict.
+`convert_lm` does the same for the LM's nested parameter dict, and
+`convert_params` / `convert_adamw` for an SNN's training state (the
+parameter tree and the AdamW step and moments).
 """
 from __future__ import annotations
 
@@ -103,3 +105,27 @@ def convert_lm(params: _Map, cfg, device=None):
     return Transformer(cfg, _lm_tensor(params["embed"], dev),
                        _lm_tensor(params["unembed"], dev),
                        _lm_tensor(params["final_norm"], dev), layers)
+
+
+def convert_params(tree, device=None):
+    """A tree (lists, tuples, dicts) of arrays as the same tree of
+    tensors, types kept bit for bit (bf16 too); tensors go to `device`
+    (default: the card).  For the SNN models' parameter lists and the
+    conv model's dict."""
+    from repro_torch.optim.adamw import tree_map
+
+    dev = resolve_device(device)
+    return tree_map(lambda a: _lm_tensor(np.asarray(a), dev), tree)
+
+
+def convert_adamw(step, m, v, device=None):
+    """The port's `AdamWState` from a step count and moment trees of
+    arrays (the reference's `AdamWState` fields as numpy); the step
+    becomes a () int32 tensor."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=convert_params(m, dev), v=convert_params(v, dev))

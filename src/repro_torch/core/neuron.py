@@ -1,6 +1,7 @@
 """LIF neuron model with partial membrane-potential (MP) update (paper C2),
-in torch.  Port of `repro.core.neuron`, inference side: the surrogate
-gradient (`spike_fn` as an `autograd.Function`) comes with training.
+in torch.  Port of `repro.core.neuron`, with the surrogate gradient of
+BPTT training: `spike_fn` is an `autograd.Function`, a Heaviside forward
+and a fast-sigmoid backward.
 
 Partial update only touches neurons that received at least one valid
 input spike this timestep; untouched neurons keep their raw potential and
@@ -24,6 +25,7 @@ class LIFParams:
     reset: float = 0.0           # reset potential after a spike
     reset_mode: str = "hard"     # "hard" (V<-reset) or "soft" (V<-V-theta)
     partial_update: bool = True  # paper C2: skip neurons with no input
+    surrogate_beta: float = 4.0  # steepness of the surrogate gradient
 
 
 class LIFState(NamedTuple):
@@ -43,6 +45,37 @@ def init_state(n: int, batch: tuple[int, ...] = (), device=None
     shape = tuple(batch) + (n,)
     return LIFState(v=torch.zeros(shape, dtype=torch.float32, device=dev),
                     elapsed=torch.zeros(shape, dtype=torch.int32, device=dev))
+
+
+def init_batch_state(batch: int, n: int, device=None) -> LIFState:
+    """Zero (batch, n) state on `device` (default: the card)."""
+    return init_state(n, (batch,), device)
+
+
+class SpikeFn(torch.autograd.Function):
+    """Heaviside spike with the fast-sigmoid surrogate gradient:
+    d/dx [x / (1 + beta|x|)] = 1 / (1 + beta|x|)^2 (the reference's
+    `spike_fn` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, beta):
+        ctx.save_for_backward(x)
+        ctx.beta = beta
+        return (x >= 0.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (1.0 / (1.0 + ctx.beta * x.abs()) ** 2), None
+
+
+def spike_fn(v_minus_theta: torch.Tensor, beta: float) -> torch.Tensor:
+    """Heaviside spike; differentiable through `SpikeFn` when its input
+    requires grad, else the bare comparison (inference issues no extra
+    op)."""
+    if v_minus_theta.requires_grad and torch.is_grad_enabled():
+        return SpikeFn.apply(v_minus_theta, beta)
+    return (v_minus_theta >= 0.0).to(v_minus_theta.dtype)
 
 
 def lif_step(state: LIFState, current: torch.Tensor, p: LIFParams,
@@ -67,11 +100,11 @@ def lif_step(state: LIFState, current: torch.Tensor, p: LIFParams,
                                   pending)
         # A neuron can only fire when touched (its readout happens on touch).
         v_eff = torch.where(has_input, v_int, torch.full_like(v, -torch.inf))
-        spikes = ((v_eff - p.threshold) >= 0.0).to(v.dtype)
+        spikes = spike_fn(v_eff - p.threshold, p.surrogate_beta)
         updated = has_input
     else:
         v_int = v * p.leak + current
-        spikes = ((v_int - p.threshold) >= 0.0).to(v.dtype)
+        spikes = spike_fn(v_int - p.threshold, p.surrogate_beta)
         new_elapsed = torch.zeros_like(state.elapsed)
         updated = torch.ones_like(has_input)
 
@@ -88,3 +121,10 @@ def touch_mask(spikes: torch.Tensor, nonzero_w: torch.Tensor) -> torch.Tensor:
     valid spike reaches one of its nonzero synapses.  The counts are small
     integers, exact in f32 under any summation order."""
     return (spikes @ nonzero_w) > 0
+
+
+def settle_state(state: LIFState, p: LIFParams) -> LIFState:
+    """Flush pending lazy leak (used at readout / end of sample)."""
+    decay = p.leak ** state.elapsed.to(state.v.dtype)
+    return LIFState(v=state.v * decay,
+                    elapsed=torch.zeros_like(state.elapsed))

@@ -117,8 +117,10 @@ def as_indexes(src, device) -> torch.Tensor:
 
 
 def dequant_indices(idx: torch.Tensor, cbw: torch.Tensor) -> torch.Tensor:
-    """Per-column codebook gather: w[..., k, n] = cbw[idx[..., k, n], n]."""
-    flat = idx.reshape(-1, idx.shape[-1]).long()
+    """Per-column codebook gather: w[..., k, n] = cbw[idx[..., k, n], n],
+    an index outside [0, L) read by JAX's gather rule
+    (`quant.gather_index`), as the reference's `cbw[idx, cols]` reads it."""
+    flat = Q.gather_index(idx.reshape(-1, idx.shape[-1]), cbw.shape[0])
     return torch.gather(cbw, 0, flat).reshape(idx.shape)
 
 

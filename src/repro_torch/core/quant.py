@@ -1,7 +1,8 @@
 """Non-uniform (codebook / LUT) weight quantization — paper C3, in torch.
 
-Port of `repro.core.quant` (inference side, and the plasticity
-projection `project_to_codebook`).  On the chip all synapses of
+Port of `repro.core.quant`: quantization, the register-word round trip,
+the plasticity projection `project_to_codebook`, and the QAT forward
+`fake_quant` (straight-through gradient).  On the chip all synapses of
 a core share an N x W-bit weight table and each synapse stores a
 log2(N)-bit index, so a weight tensor is
 
@@ -11,10 +12,12 @@ log2(N)-bit index, so a weight tensor is
 
 Codebooks are fit by 1-D k-means (Lloyd) on the tensor's own device.  At
 the paper's widths the (M, N) distance matrix of one Lloyd step is about
-600 MB in f32, which the card holds easily.  Float sums over a cluster run
-in another order than XLA's, so centroids agree with the reference to a
-few ulp, not bit for bit; the harness carries the reference's fitted
-tensors across with `repro_torch.convert` where equality matters.
+600 MB in f32, which the card holds easily; the cluster sums are a
+one-hot column sum of the same size, so a fit is deterministic.  Float
+sums over a cluster run in another order than XLA's, so centroids agree
+with the reference to a few ulp, not bit for bit; the harness carries
+the reference's fitted tensors across with `repro_torch.convert` where
+equality matters.
 """
 from __future__ import annotations
 
@@ -88,11 +91,15 @@ def _kmeans_1d(x: torch.Tensor, n: int, iters: int) -> torch.Tensor:
     # Percentile init is robust for bell-shaped weight distributions.
     qs = (torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) / n
     cents = _quantile_linear(x, qs)
+    levels = torch.arange(n, device=x.device)
     for _ in range(iters):
         assign = torch.argmin((x[:, None] - cents[None, :]).abs(), dim=1)
         tot = torch.bincount(assign, minlength=n).to(x.dtype)
-        sums = torch.zeros(n, dtype=x.dtype, device=x.device)
-        sums.index_add_(0, assign, x)
+        # cluster sums as the reference's one-hot reduction: a column sum
+        # in a fixed order, so a fit is the same on every call (an
+        # `index_add_` on the card adds in the atomics' order)
+        sums = torch.where(assign[:, None] == levels, x[:, None],
+                           0.0).sum(dim=0)
         cents = torch.where(tot > 0, sums / torch.clamp(tot, min=1), cents)
     return torch.sort(cents).values
 
@@ -165,7 +172,9 @@ def project_to_codebook(values, codebook) -> torch.Tensor:
     levels keeping the best distance and its index, replacing only on a
     strictly smaller distance: the same first-occurrence rule, the same
     single f32 subtraction and abs per distance, so the same indexes bit
-    for bit, in about two candidate-sized temporaries.
+    for bit, in about two candidate-sized temporaries.  A NaN distance
+    wins as in `jnp.argmin`, the first one kept: a +inf candidate against
+    a +inf level (the lowering's fill) keeps that level.
     """
     v = torch.as_tensor(values, dtype=torch.float32)
     cb = torch.as_tensor(codebook, dtype=torch.float32, device=v.device)
@@ -175,12 +184,55 @@ def project_to_codebook(values, codebook) -> torch.Tensor:
             f"values' last axis; got {tuple(cb.shape)} vs {tuple(v.shape)}")
     best = (v - cb[0]).abs_()
     idx = torch.zeros(v.shape, dtype=torch.int8, device=v.device)
+    best.nan_to_num_(nan=-1.0, posinf=torch.inf)
     for level in range(1, cb.shape[0]):
         dist = (v - cb[level]).abs_()
+        # jnp.argmin returns the first NaN: a NaN distance (a NaN level,
+        # or +inf against +inf) becomes -1, below every real distance,
+        # and a later -1 is not strictly below it
+        dist.nan_to_num_(nan=-1.0, posinf=torch.inf)
         closer = dist < best
         idx.masked_fill_(closer, level)
         torch.minimum(best, dist, out=best)
     return idx
+
+
+class _FakeQuant(torch.autograd.Function):
+    """quantize -> dequantize forward, straight-through backward (the
+    reference's `fake_quant` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, w, cfg):
+        return dequantize(quantize(w, cfg))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+_FQ_CACHE: dict = {}
+
+
+def fake_quant(w: torch.Tensor, cfg_n: int, cfg_w: int) -> torch.Tensor:
+    """QAT forward: quantize->dequantize with a whole-tensor codebook fit
+    where `w` lies; the gradient passes straight through (STE).  The
+    (N, W) config is built once per pair, as the reference caches its
+    closure."""
+    key = (cfg_n, cfg_w)
+    if key not in _FQ_CACHE:
+        _FQ_CACHE[key] = CodebookConfig(n_levels=cfg_n, bit_width=cfg_w)
+    return _FakeQuant.apply(w, _FQ_CACHE[key])
+
+
+def gather_index(idx: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """The int64 index JAX's gather reads for `idx` into an axis of
+    `n_levels`: a negative index wraps by +L, then the index clamps into
+    [0, L - 1], so -1, L and 127 read level L - 1 and -128 level 0.
+    An int8 index with L <= 127 is wrapped and clamped in int8 (-128 + L
+    and -1 + L cannot overflow), an eighth of the int64 traffic."""
+    ix = idx if idx.dtype == torch.int8 and n_levels <= 127 else idx.long()
+    ix = torch.where(ix < 0, ix + n_levels, ix).clamp_(0, n_levels - 1)
+    return ix.long()
 
 
 def dequantize(q: QuantizedTensor) -> torch.Tensor:

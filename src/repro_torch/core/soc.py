@@ -9,7 +9,9 @@ tensors on the simulator's device.  The port has the two array engines
 `engine="reference"`, with faults (`repro_torch.faults`), tracing
 (`repro_torch.telemetry`) and on-chip plasticity
 (`repro_torch.core.plasticity`); the sharded engine raises
-`NotImplementedError` naming the ROADMAP.md item that brings it.
+`NotImplementedError` naming the ROADMAP.md item that brings it.  The
+serving tier's host model (`register_table_bytes`, `HostDmaModel`),
+`remap_mapping_cores` and the ENU control program are copies.
 """
 from __future__ import annotations
 
@@ -66,6 +68,86 @@ class RegisterTable:
         """The (N,) f32 weight table the SPEs read (words * scale)."""
         return (np.asarray(self.codebook_words, np.float32)
                 * np.float32(self.codebook_scale))
+
+
+def register_table_bytes(table: RegisterTable) -> int:
+    """Configuration payload the host DMAs to program one core.
+
+    Codebook: N words of W bits each (packed).  Neuron registers:
+    threshold/leak/reset plus the codebook scale, one 32-bit word each,
+    plus one 32-bit control word (enable bit, N/W fields, core id) — the
+    Fig. 1 register file as the host interface sees it.
+    """
+    codebook_bits = table.weight_levels * table.weight_bits
+    neuron_regs_bytes = 4 * 4          # threshold, leak, reset, scale
+    control_bytes = 4
+    return (codebook_bits + 7) // 8 + neuron_regs_bytes + control_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class HostDmaModel:
+    """Host↔chip DMA interface model (SpikeHard-style packetized DMA).
+
+    SpikeHard's host stack moves spikes and configuration over a
+    descriptor-driven AXI DMA: the driver sets up a transfer (descriptor
+    write + doorbell), then the engine streams fixed-size word bursts,
+    each burst carrying a small packet header.  We keep that shape —
+    per-transfer setup cost plus per-word streaming cost with packet
+    header overhead — and price it in the chip's units (pJ, cycles at
+    `freq_hz` of the consumer).  The per-word energy is an off-chip-I/O
+    estimate in the same spirit as `energy.LEVEL2_HOP_PJ` (an off-die
+    word movement costs roughly an order of magnitude more than on-die),
+    not a paper anchor.
+
+    Three transfer kinds the serve tier prices:
+
+    * **spike upload** — the input event train, bitpacked 16 spikes per
+      chip word exactly as the NoC/fused engine carry them
+      (`core.zspe.pack_spike_words`), two chip words per 32-bit DMA word;
+    * **table load** — reconfiguration: the register tables of a model
+      being made resident (`register_table_bytes` each) — the
+      NPARAM.INIT path, and the runtime model-swap cost of multi-tenant
+      serving;
+    * **output read** — the OBUF.READ path, one 32-bit count per output
+      neuron.
+    """
+
+    word_bits: int = 32            # DMA/AXI word
+    words_per_packet: int = 64     # burst length between headers
+    header_words: int = 1          # per-packet header (dst/len/kind)
+    setup_cycles: float = 120.0    # descriptor write + doorbell, per transfer
+    cycles_per_word: float = 1.0   # streaming rate, words per chip cycle
+    pj_per_word: float = 3.2       # off-chip word movement (estimate)
+
+    def packets(self, n_words: int) -> int:
+        return -(-int(n_words) // self.words_per_packet) if n_words else 0
+
+    def transfer(self, n_words: int) -> tuple[float, float]:
+        """(energy_pj, cycles) for one packetized transfer of n_words."""
+        n_words = int(n_words)
+        if n_words <= 0:
+            return 0.0, 0.0
+        total = n_words + self.packets(n_words) * self.header_words
+        return (total * self.pj_per_word,
+                self.setup_cycles + total * self.cycles_per_word)
+
+    def spike_upload(self, timesteps: int, n_in: int) -> tuple[float, float]:
+        """Upload one (T, n_in) binary event train, bitpacked 16
+        spikes/chip-word (the chip's native spike-word layout)."""
+        chip_words_per_step = -(-int(n_in) // 16)
+        dma_words_per_step = -(-chip_words_per_step
+                               // (self.word_bits // 16))
+        return self.transfer(int(timesteps) * dma_words_per_step)
+
+    def table_load(self, tables: Sequence[RegisterTable]
+                   ) -> tuple[float, float]:
+        """Reconfiguration DMA: stream every table's register payload."""
+        n_bytes = sum(register_table_bytes(t) for t in tables)
+        return self.transfer(-(-n_bytes // (self.word_bits // 8)))
+
+    def output_read(self, n_out: int) -> tuple[float, float]:
+        """Read back one 32-bit spike count per output neuron (OBUF)."""
+        return self.transfer(int(n_out))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +226,35 @@ def map_network(layer_sizes: Sequence[int],
             placed += take
             nxt += 1
     return Mapping(assignments=assignments, layer_sizes=list(layer_sizes))
+
+
+def remap_mapping_cores(mapping: Mapping,
+                        core_ids: Sequence[int]) -> Mapping:
+    """Re-home a mapping onto an explicit set of physical cores.
+
+    Used by multi-tenant packing: each tenant's network is compiled
+    independently (so every mapping starts from the same low core ids),
+    then remapped onto its disjoint slice of the chip.  The mapping's
+    distinct cores (sorted) are assigned to `core_ids` (sorted)
+    one-for-one, preserving every neuron slice; raises when the set is
+    too small or contains non-core node ids.
+    """
+    used = sorted({a.core_id for a in mapping.assignments})
+    pool = sorted(int(c) for c in core_ids)
+    if len(pool) < len(used):
+        raise ValueError(
+            f"mapping uses {len(used)} cores but only {len(pool)} "
+            f"physical cores were offered")
+    valid = set(int(c) for c in NOC.core_ids())
+    bad = [c for c in pool if c not in valid]
+    if bad:
+        raise ValueError(f"not chip core ids: {bad} (cores are "
+                         f"{min(valid)}..{max(valid)})")
+    table = dict(zip(used, pool))
+    return Mapping(
+        assignments=[dataclasses.replace(a, core_id=table[a.core_id])
+                     for a in mapping.assignments],
+        layer_sizes=list(mapping.layer_sizes))
 
 
 def build_register_tables(mapping: Mapping, qweights=None, lif=None,
@@ -777,3 +888,54 @@ class ChipSimulator:
             riscv_energy_pj=float(priced["riscv_pj"]),
             wall_cycles=wall, freq_hz=self.freq_hz,
             write_energy_pj=float(priced["write_pj"]))
+
+
+
+# ---------------------------------------------------------------------------
+# ENU — extended neuromorphic instruction set (paper C5)
+# ---------------------------------------------------------------------------
+
+ENU_OPCODES = {
+    "NPARAM.INIT": 0x0,   # network parameter initialization (DMA descriptors)
+    "CORE.EN": 0x1,       # core enable mask -> register tables / clock gates
+    "NET.START": 0x2,     # network startup (timestep engine go)
+    "NET.WAIT": 0x3,      # sleep until network-computing-finish IRQ
+    "TS.SYNC": 0x4,       # timestep-switch barrier
+    "OBUF.READ": 0x5,     # read one of the 4 x 0.2 KB output buffers
+}
+
+
+@dataclasses.dataclass
+class EnuInstruction:
+    op: str
+    arg: int = 0
+
+    def encode(self) -> int:
+        return (ENU_OPCODES[self.op] << 28) | (self.arg & 0x0FFFFFFF)
+
+
+class EnuProgram:
+    """A control program for one inference — used by the SoC timeline model
+    to derive the RISC-V duty cycle (Fig. 6) instead of assuming it."""
+
+    def __init__(self, instrs: list[EnuInstruction]):
+        self.instrs = instrs
+
+    @staticmethod
+    def standard_inference(core_mask: int, timesteps: int) -> "EnuProgram":
+        body = [EnuInstruction("NPARAM.INIT"), EnuInstruction("CORE.EN", core_mask),
+                EnuInstruction("NET.START", timesteps)]
+        body += [EnuInstruction("TS.SYNC", t) for t in range(timesteps)]
+        body += [EnuInstruction("NET.WAIT"), EnuInstruction("OBUF.READ", 0)]
+        return EnuProgram(body)
+
+    def timeline(self, cycles_per_timestep: float,
+                 cpu_cycles_per_instr: float = 40.0,
+                 cpu_freq_hz: float = 16e6, net_freq_hz: float = 100e6
+                 ) -> tuple[float, float]:
+        """Returns (t_active_s, t_sleep_s) for the RISC-V core."""
+        active_instr = [i for i in self.instrs if i.op not in ("NET.WAIT", "TS.SYNC")]
+        t_active = len(active_instr) * cpu_cycles_per_instr / cpu_freq_hz
+        n_wait = sum(1 for i in self.instrs if i.op in ("NET.WAIT", "TS.SYNC"))
+        t_sleep = n_wait * cycles_per_timestep / net_freq_hz
+        return t_active, t_sleep

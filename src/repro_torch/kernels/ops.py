@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import zspe as Z
+from repro_torch.core.quant import gather_index
 from repro_torch.kernels import codebook_matmul as _cbm
 from repro_torch.kernels import fused_timestep as _fused
 from repro_torch.kernels import lif_update as _lif
@@ -52,10 +53,7 @@ def _pick_block(m: int, k: int, n: int) -> tuple[int, int, int]:
 def _gather_weights(idx: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """codebook[idx] by JAX's gather rule: a negative index wraps by +L,
     then clamps into [0, L - 1] (src/repro/kernels/ops.py:110-111)."""
-    n_levels = codebook.shape[0]
-    ix = idx.long()
-    ix = torch.where(ix < 0, ix + n_levels, ix).clamp(0, n_levels - 1)
-    return codebook[ix]
+    return codebook[gather_index(idx, codebook.shape[0])]
 
 
 class _CodebookMatmul(torch.autograd.Function):

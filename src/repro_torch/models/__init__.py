@@ -1,1 +1,2 @@
-"""LM substrate of the port: configs, attention, the dense transformer."""
+"""Models of the port: the SNN MLP (`snn`) and conv SNN (`snn_conv`) with
+BPTT, and the LM substrate (configs, attention, the dense transformer)."""

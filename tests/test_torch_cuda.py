@@ -11,7 +11,10 @@ launches; a faulted ARCH chip's layer-steps against the plain versions,
 its traced run's launches, and the drop masks drawn on the card bitwise
 equal to the CPU's; plastic fused runs (STDP, R-STDP) counting their
 launches and learning the compiled engine's indexes, and the interpretive
-engine learning them a sample at a time.  Marked `cuda`; every test skips without a card.  Run on the
+engine learning them a sample at a time; `SnnServer` groups equal to
+their padded batch's rows, its retry and degraded paths, and one QAT
+training step against the same step on the CPU.  Marked `cuda`; every
+test skips without a card.  Run on the
 card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -792,3 +795,129 @@ def test_lm_prefill_takes_the_flash_kernel(dev):
     assert FA.launches == {"flash_attention": cfg.n_layers,
                            "flash_attention_wgmma": 0}   # f32: SIMT
     assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all())
+
+
+# ---------------------------------------------------------------------------
+# SNN serving and training on the card
+
+
+def _serve_sim(dev, seed=0, **kw):
+    from repro_torch import ChipSimulator, CodebookConfig, quantize
+
+    rng = np.random.default_rng(seed)
+    sizes = (64, 96, 96, 16)
+    qws = [quantize(rng.normal(0, 1.2 / np.sqrt(a), (a, b)).astype(
+        np.float32), CodebookConfig(8, 8), device=dev)
+        for a, b in zip(sizes[:-1], sizes[1:])]
+    return ChipSimulator(qws, engine="fused", device=dev, **kw)
+
+
+def _serve_trains(n, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, 6, 64)) < 0.25).astype(np.float32)
+
+
+def _slot_batch(group, slots):
+    batch = np.zeros((slots,) + group[0].events.shape, np.float32)
+    for i, r in enumerate(group):
+        batch[i] = r.events
+    return batch
+
+
+def test_snn_server_groups_equal_their_batch_rows(dev):
+    """Six requests in slot groups of 4 (one partial): 2 x T x 3 fused
+    launches, and each request's counts, prediction and energies are its
+    row of the same padded batch through `run_batch`."""
+    from repro_torch.serve import SnnRequest, SnnServer
+
+    sim = _serve_sim(dev, mapping_strategy="greedy")
+    srv = SnnServer(sim, batch_slots=4)
+    trains = _serve_trains(6)
+    reqs = [srv.submit(SnnRequest(uid=i, events=ev, deadline_ms=(
+        6e4 if i % 3 == 0 else None))) for i, ev in enumerate(trains)]
+    FT.reset_launches()
+    done = srv.run()
+    torch.cuda.synchronize()
+    assert FT.launches == {"fused_timestep_codebook": 2 * 6 * 3,
+                           "fused_timestep_dense": 0}
+    assert sorted(r.uid for r in done) == list(range(6))
+    groups = {}
+    for r in done:
+        groups.setdefault(r.t_dequeue, []).append(r)
+    assert sorted(len(g) for g in groups.values()) == [2, 4]
+    for group in groups.values():
+        counts, reports = sim.run_batch(torch.as_tensor(
+            _slot_batch(group, 4), device=dev))
+        counts = counts.cpu().numpy()
+        for i, r in enumerate(group):
+            np.testing.assert_array_equal(r.spike_counts, counts[i])
+            assert r.prediction == int(counts[i].argmax())
+            assert (r.energy_pj, r.pj_per_sop) == (reports[i].energy_pj,
+                                                   reports[i].pj_per_sop)
+    assert all(r.status == "served" for r in reqs)
+
+
+def test_snn_server_retry_and_degraded_on_the_card(dev):
+    from repro_torch.faults import FaultConfig
+    from repro_torch.serve import SnnRequest, SnnServer
+    from repro_torch.serve.resilience import RetryPolicy
+
+    healthy = _serve_sim(dev, mapping_strategy="greedy")
+    trains = _serve_trains(3, seed=4)
+    flaky = _serve_sim(dev, mapping=healthy.mapping,
+                       faults=FaultConfig(transient_dispatches=(0,)))
+    srv = SnnServer(flaky, batch_slots=4, sleep=lambda s: None)
+    solo = SnnServer(healthy, batch_slots=4)
+    for i, ev in enumerate(trains):
+        srv.submit(SnnRequest(uid=i, events=ev))
+        solo.submit(SnnRequest(uid=i, events=ev))
+    got, want = srv.run(), solo.run()
+    assert (srv._m_faults.value, srv._m_retries.value) == (1, 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.spike_counts, w.spike_counts)
+        assert not g.degraded and g.energy_pj == w.energy_pj
+    degraded = _serve_sim(dev, seed=1)
+    srv = SnnServer(None, batch_slots=4, dispatch_timeout_s=0.0,
+                    retry=RetryPolicy(max_retries=1, base_delay_s=0.0),
+                    breaker_threshold=1, sleep=lambda s: None)
+    srv.add_model("default", healthy, degraded_sim=degraded)
+    reqs = [srv.submit(SnnRequest(uid=i, events=ev))
+            for i, ev in enumerate(trains)]
+    srv.run()
+    counts, _ = degraded.run_batch(torch.as_tensor(_slot_batch(reqs, 4),
+                                                   device=dev))
+    counts = counts.cpu().numpy()
+    assert srv.breakers["default"].state == "open"
+    for i, r in enumerate(reqs):
+        assert r.degraded
+        np.testing.assert_array_equal(r.spike_counts, counts[i])
+
+
+def test_snn_train_step_on_the_card_matches_the_cpu(dev):
+    """One hardware-loss step at 128-48-10, T 6, B 16 from the same
+    parameters and batch: loss, rates and the gradient norm within 1e-4
+    of the same step on the CPU.  Float weights: a QAT fit of 6144
+    weights may settle a level apart under another summation order
+    (phase 10 of chip_smoke.py runs QAT at the paper's widths)."""
+    from repro_torch.data.synthetic import EventStream
+    from repro_torch.models.snn import SNNConfig
+    from repro_torch.train import snn_trainer as TR
+
+    ev = EventStream(timesteps=6, height=8, width=8, seed=3)
+    cfg = SNNConfig(layer_sizes=(ev.n_inputs, 48, 10), timesteps=6)
+    tcfg = TR.SNNTrainConfig(steps=3, hw=TR.HWLossConfig(
+        rate_weight=1.0, target_rate=0.08, l1_weight=1e-3))
+    out = {}
+    for d in ("cpu", dev):
+        tr = TR.SNNTrainer(cfg, tcfg, device=d)
+        params, opt = tr.init(torch.Generator().manual_seed(6))
+        s, l = ev.batch(16, 1, device=d)
+        new, opt, m = tr.step(params, opt, s, l)
+        out[str(d)] = ({k: float(v) for k, v in m.items()},
+                       [p.cpu() for p in new])
+        assert all(p.device.type == torch.device(d).type for p in new)
+    (mc, pc), (mg, pg) = out["cpu"], out[str(dev)]
+    for k in ("loss", "ce", "mean_rate", "grad_norm", "density"):
+        assert mg[k] == pytest.approx(mc[k], rel=1e-4), k
+    for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 1e-4

@@ -180,6 +180,43 @@ def test_project_to_codebook_rejects_bad_tables():
         Q.project_to_codebook(v, torch.zeros((2, 8, 5)))
 
 
+@pytest.mark.parametrize("levels,value,want", [
+    ((-0.5, 0.25, 1.0, np.inf), np.inf, 3),
+    ((-0.5, np.nan, 1.0), 0.9, 1),
+    ((np.nan, 0.0, np.nan), 0.5, 0),
+    ((-0.5, 0.25, np.inf, np.inf), np.inf, 2),
+], ids=["inf-level", "nan-level", "first-nan", "two-inf-levels"])
+def test_project_to_codebook_nan_distance_like_argmin(levels, value, want):
+    """A NaN distance wins as in `jnp.argmin`, the first one kept: +inf
+    against the lowering's +inf fill keeps that level, and a NaN level
+    beats a closer finite one."""
+    cb = np.asarray(levels, np.float32)
+    v = np.full((2, 3), value, np.float32)
+    ref = np.asarray(REF_Q.project_to_codebook(v, cb))
+    assert (ref == want).all()
+    got = Q.project_to_codebook(torch.tensor(v), torch.tensor(cb))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # per-column tables: the same rule column by column
+    cbc = np.repeat(cb[:, None], 3, axis=1)
+    got = Q.project_to_codebook(torch.tensor(v), torch.tensor(cbc))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(REF_Q.project_to_codebook(v, cbc)))
+
+
+def test_gather_index_is_jax_gather_rule():
+    """Measured against the reference with L = 8: -1, 8, 100 and 127 read
+    level 7, -3 level 5, -8 and -128 level 0."""
+    idx = np.array([[-1, 8, 100, 127], [-3, -8, -128, 4]], np.int8)
+    cbw = np.repeat(np.arange(8, dtype=np.float32)[:, None], 4, axis=1)
+    want = np.asarray(REF_PLC.dequant_indices(jax.numpy.asarray(idx),
+                                              jax.numpy.asarray(cbw)))
+    np.testing.assert_array_equal(want, [[7, 7, 7, 7], [5, 0, 0, 4]])
+    got = PLC.dequant_indices(torch.tensor(idx), torch.tensor(cbw))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(Q.gather_index(torch.tensor(idx), 8),
+                                  want.astype(np.int64))
+
+
 # ---------------------------------------------------------------------------
 # the rule functions, teacher-forced
 
@@ -392,6 +429,64 @@ def test_warm_start_matches_reference(engine, form):
         learned = [None if l is None else l[1] for l in learned]
     _assert_runs_equal(_run(port, trains, learned),
                        _run(ref, trains, learned), f"warm/{engine}/{form}")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("rule", ["stdp", "reward"])
+def test_out_of_range_learned_matches_reference(engine, rule):
+    """Caller-given indexes -1, 8 and 100 in layer 2 (L = 8) run as the
+    JAX engines run them: read by JAX's gather rule, then learned."""
+    ref, port = _pair(rule, engine)
+    idx = np.array(ref.plasticity_tables()[2][0], np.int8)
+    idx[0, :3] = (-1, 8, 100)
+    idx[5, 7], idx[17, 2] = 100, -1
+    learned = [None, None, idx]
+    trains = _trains()
+    got, want = _run(port, trains, learned), _run(ref, trains, learned)
+    _assert_runs_equal(got, want, f"{rule}/{engine}")
+    if rule == "reward":
+        info_g, info_w = port.apply_reward(1.0), ref.apply_reward(1.0)
+        np.testing.assert_array_equal(info_g["weight_writes"],
+                                      np.asarray(info_w["weight_writes"]))
+        _assert_learned_equal(port.last_learned, ref.last_learned,
+                              f"{rule}/{engine}: committed")
+
+
+ODD_SIZES = [50, 40, 24, 10]      # no width a multiple of 16
+
+
+def _odd_pair(rule, engine):
+    cfg = (dict(enabled=True, mode="stdp", lr=0.4) if rule == "stdp" else
+           dict(enabled=True, mode="reward", lr=0.4, elig_pre=0.1,
+                layers=(0, 1)))
+    ref = RefChipSimulator(_weights(ODD_SIZES, seed=3), engine=engine,
+                           quant_cfg=RefCodebookConfig(8, 8),
+                           plasticity=REF_PLC.PlasticityConfig(**cfg))
+    port = port_from_reference(ref, engine=engine,
+                               plasticity=PlasticityConfig(**cfg))
+    return ref, port
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_odd_widths_learn_as_reference(engine):
+    """50-40-24-10: STDP on every layer, then R-STDP on layers 0-1 with a
+    commit and a warm start, on rows the fused engine pads and crops."""
+    rng = np.random.default_rng(4)
+    trains = np.asarray(rng.random((3, 6, ODD_SIZES[0])) < 0.3, np.float32)
+    ref, port = _odd_pair("stdp", engine)
+    got, want = _run(port, trains), _run(ref, trains)
+    _assert_runs_equal(got, want, f"odd stdp/{engine}")
+    assert sum(r.stats.weight_writes for r in got[1]) > 0
+    ref, port = _odd_pair("reward", engine)
+    _assert_runs_equal(_run(port, trains), _run(ref, trains),
+                       f"odd reward/{engine}")
+    info_g, info_w = port.apply_reward(1.0), ref.apply_reward(1.0)
+    np.testing.assert_array_equal(info_g["weight_writes"],
+                                  np.asarray(info_w["weight_writes"]))
+    assert info_g["weight_writes"].sum() > 0
+    _assert_runs_equal(_run(port, trains, port.last_learned),
+                       _run(ref, trains, ref.last_learned),
+                       f"odd reward/{engine}: warm")
 
 
 @pytest.mark.parametrize("engine", ENGINES)
