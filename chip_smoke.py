@@ -151,8 +151,33 @@ Phases, each of which must pass:
    uninterrupted fit; ms per step, device busy, idle share and peak
    memory.
 
+11. deploy — right after phase 10: (a) `deploy.deploy` on
+   `SNNConfig(ARCH widths, T = 20, qat=True)` with `EventStream` 34 x 34 x
+   2 (seed --seed), 5 training steps at B = 32 with phase 10's
+   hardware-aware loss, `DeployConfig` otherwise at its defaults (anneal
+   mapping, eval 256 in chunks of 64, engine "fused"): exactly 420
+   codebook launches (4 eval chunks, the traced profile batch and 2
+   serving groups, 60 each) and no dense one, no aten op computing on a
+   host tensor (copies excepted, and the trainer's seeded CPU draw), a
+   finite report of plain values whose `save()` loads back, every gate
+   logged; (b) one `SNNTrainer.fit` of the same config, its parameters
+   deployed on the fused and on the compiled engine: equal register
+   tables, cores, compile summary and accuracies before the chip, SOPs
+   and pJ/SOP within phase 4's 1e-3, chip accuracy at most 2 of 256
+   samples apart; (c) `fit_per_core_codebooks` of those parameters on
+   the deployed mapping, on the card against the CPU: register words,
+   indexes, codebooks, scales and dequantized weights bitwise equal; (d)
+   `continual_adaptation` at its defaults, fused (exactly 786 codebook
+   launches: 3 evals and 128 trials of 6 layer-0 steps) against compiled:
+   equal accuracies, writes and write energy; (e) seconds per `deploy()`
+   stage (train, accuracy forwards, compile, PTQ, the two simulator
+   builds with their lowering, chip eval, profile, serving smoke), read
+   from deploy()'s profiler spans, beside an unprofiled call; per
+   `continual_adaptation`; and one eval chunk's ms, device busy and idle
+   share.
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 5 and 6); the last line is
+4, 7, 8, 9, 11, 5 and 6); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -2115,6 +2140,314 @@ def training_path(arch, seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the train -> deploy pipeline and continual adaptation
+# ---------------------------------------------------------------------------
+
+DEPLOY_STEPS = 5               # (a): training steps, phase 10's loss
+DEPLOY_BATCH = 32
+DEPLOY_LAUNCHES = 420          # (a): 7 runs x T 20 x 3 layers: 4 eval
+                               # chunks (256 / 64), the traced profile
+                               # batch, 2 serving groups (16 requests, 8
+                               # slots)
+ADAPT_LAUNCHES = 786           # (d): (3 evals + 128 trials) x T 6, layer 0
+ACC_CHIP_SLACK = 2             # (b): eval samples of 256 fused and compiled
+                               # may differ by: threshold ties between an
+                               # f64 k-order sum and a matmul
+# aten ops that may read a host tensor on the card's path: copies between
+# the host and the card, and reading a device scalar
+HOST_COPY_OPS = ("aten._to_copy.", "aten.copy_.", "aten.lift_fresh",
+                 "aten.detach.", "aten.alias.", "aten._local_scalar_dense.")
+# deploy()'s spans, `deploy.<stage>` (repro_torch/deploy/pipeline.py)
+DEPLOY_STAGES = ("train", "accuracy", "compile", "ptq", "build_sim",
+                 "chip_eval", "profile", "serving_smoke")
+
+
+def _host_compute():
+    """A dispatch mode that counts, by name, the aten ops that read a host
+    tensor of one dimension or more (a 0-d host tensor is a wrapped
+    scalar), copies to and from the card excepted; `paused` while
+    `models/snn.py` `init_params` draws on the CPU by design (a seed gives
+    the same weights on every device)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class HostCompute(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops: dict = {}
+            self.paused = False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            if not self.paused and not name.startswith(HOST_COPY_OPS) and any(
+                    isinstance(a, torch.Tensor) and a.device.type == "cpu"
+                    and a.dim() > 0
+                    for a in tree_leaves((args, kwargs or {}))):
+                self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    return HostCompute()
+
+
+def _stage_seconds(fn) -> tuple:
+    """(fn's result, seconds per stage) of one `deploy()` call, read from
+    the `deploy.*` and `soc.lower` spans that the pipeline and the
+    simulator mark (host clock; a stage that reads a value back ends in
+    a sync).  A simulator build's seconds hold the lowering that its
+    first run does, taken out of that run's stage."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    # the exported trace, not `prof.events()`: at ARCH the events' Python
+    # objects take about a minute to build, the export and parse seconds
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "deploy_trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    spans: dict = {}
+    for e in sorted((e for e in events if e.get("cat") == "user_annotation"),
+                    key=lambda e: e["ts"]):
+        if e["name"].startswith("deploy.") or e["name"] == "soc.lower":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    s = {name: spans.get(f"deploy.{name}", []) for name in DEPLOY_STAGES}
+    builds, lowers = s["build_sim"], spans.get("soc.lower", [])
+    if len(builds) != 2 or len(lowers) != 2:
+        raise AssertionError(f"phase 11: {len(builds)} simulator builds and "
+                             f"{len(lowers)} lowerings in one deploy()")
+    top = sum(sum(s[k]) for k in DEPLOY_STAGES if k != "build_sim") + builds[0]
+    return out, {"total_s": total, "train_s": sum(s["train"]),
+                 "accuracy_s": sum(s["accuracy"]),
+                 "compile_s": sum(s["compile"]), "ptq_s": sum(s["ptq"]),
+                 "sim_build_s": [b + l for b, l in zip(builds, lowers)],
+                 "chip_eval_s": sum(s["chip_eval"]) - lowers[0],
+                 "profile_s": sum(s["profile"]) - builds[1] - lowers[1],
+                 "serving_smoke_s": sum(s["serving_smoke"]),
+                 "rest_s": total - top}
+
+
+def _check_report(what: str, rep) -> dict:
+    """A finite DeployReport of plain Python values whose `save()` loads
+    back equal."""
+    import tempfile
+
+    doc = rep.to_dict()
+    bad = []
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        elif x is not None and type(x) not in (bool, int, float, str) or (
+                type(x) is float and not math.isfinite(x)):
+            bad.append((path, repr(x)[:60]))
+
+    walk(doc, "")
+    if bad:
+        raise AssertionError(f"phase 11 {what}: report fields {bad}")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "report.json"
+        rep.save(str(path))
+        back = json.loads(path.read_text())
+    if back != json.loads(json.dumps(doc, allow_nan=False)):
+        raise AssertionError(f"phase 11 {what}: save() does not load back")
+    if rep.passed != rep.gates["passed"]:
+        raise AssertionError(f"phase 11 {what}: passed {rep.passed}")
+    return doc
+
+
+def deploy_path(arch, seed: int, smi: str) -> dict:
+    """Phase 11: `deploy()` at the paper's widths on the fused engine, held
+    to the compiled engine, its PTQ on the card held to the CPU's, and
+    `continual_adaptation` at its defaults, fused against compiled."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import compiler as COMP
+    from repro_torch.core.soc import ChipSimulator
+    from repro_torch.data.synthetic import EventStream
+    from repro_torch.deploy import (AdaptConfig, DeployConfig,
+                                    continual_adaptation, deploy,
+                                    fit_per_core_codebooks)
+    from repro_torch.models import snn as SNN
+    from repro_torch.train.snn_trainer import (HWLossConfig, SNNTrainConfig,
+                                               SNNTrainer)
+
+    ev = EventStream(height=34, width=34, timesteps=arch.timesteps,
+                     seed=seed)
+    cfg = SNN.SNNConfig(layer_sizes=tuple(arch.layer_sizes),
+                        timesteps=arch.timesteps, qat=True)
+    hw = HWLossConfig(rate_weight=1.0, target_rate=0.08, l1_weight=1e-3)
+    tcfg = SNNTrainConfig(steps=DEPLOY_STEPS, batch=DEPLOY_BATCH, hw=hw)
+    dcfg = DeployConfig(train=tcfg)
+
+    # (a) deploy() trains, compiles, quantizes per core, runs the chip
+    host = _host_compute()
+    init = SNN.init_params
+
+    def paused_init(*a, **kw):
+        host.paused = True
+        try:
+            return init(*a, **kw)
+        finally:
+            host.paused = False
+
+    t0 = time.perf_counter()
+    with mock.patch.object(SNN, "init_params", paused_init), host:
+        launches, rep_a = _launched(
+            "phase 11 (a)", lambda: deploy(cfg, ev, dcfg, device=DEVICE))
+    a_s = time.perf_counter() - t0
+    if launches != DEPLOY_LAUNCHES:
+        raise AssertionError(f"phase 11 (a): {launches} codebook launches, "
+                             f"expected {DEPLOY_LAUNCHES}")
+    if host.ops:
+        raise AssertionError(f"phase 11 (a): host compute on the deploy "
+                             f"path: {host.ops}")
+    doc_a = _check_report("(a)", rep_a)
+    if not isinstance(rep_a.final_loss, float):
+        raise AssertionError(f"phase 11 (a): final loss {rep_a.final_loss}")
+    log(f"deploy (a): {launches} codebook launches, no host compute, "
+        f"{a_s:.1f} s (op check on); gates {json.dumps(rep_a.gates)}; "
+        f"acc train / dequant / chip {rep_a.acc_train} / "
+        f"{rep_a.acc_dequant} / {rep_a.acc_chip}, pJ/SOP "
+        f"{rep_a.pj_per_sop}, {rep_a.n_cores} cores, rms "
+        f"{rep_a.quant_rms_error}, serving "
+        f"{json.dumps(doc_a['serving_slo'])}")
+
+    # (b) the same parameters deployed fused and compiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _ = SNNTrainer(cfg, tcfg, device=DEVICE).fit(
+        lambda step: ev.batch(DEPLOY_BATCH, step, device=DEVICE))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    reps, clocks = {}, {}
+    for engine in ("fused", "compiled"):
+        reps[engine], clocks[engine] = _stage_seconds(lambda: deploy(
+            cfg, ev, dataclasses.replace(dcfg, engine=engine),
+            params=params, device=DEVICE))
+        _check_report(f"(b) {engine}", reps[engine])
+    # the profiler's own cost: the fused deploy once more, unprofiled
+    t0 = time.perf_counter()
+    deploy(cfg, ev, dcfg, params=params, device=DEVICE)
+    torch.cuda.synchronize()
+    clocks["fused"]["unprofiled_total_s"] = time.perf_counter() - t0
+    f, c = reps["fused"], reps["compiled"]
+    for key in ("n_register_tables", "n_cores", "compile_summary",
+                "acc_dequant", "acc_train"):
+        if getattr(f, key) != getattr(c, key):
+            raise AssertionError(f"phase 11 (b): {key} fused "
+                                 f"{getattr(f, key)} compiled "
+                                 f"{getattr(c, key)}")
+    rel = {key: abs(getattr(f, key) - getattr(c, key))
+           / max(abs(getattr(c, key)), 1e-300)
+           for key in ("nominal_sops", "performed_sops", "pj_per_sop")}
+    flips = round(abs(f.acc_chip - c.acc_chip) * f.eval_samples)
+    log(f"deploy (b) fused / compiled: acc chip {f.acc_chip} / "
+        f"{c.acc_chip} ({flips} of {f.eval_samples} apart), rel "
+        f"{json.dumps(rel)}; (a)'s acc train equal: "
+        f"{rep_a.acc_train == f.acc_train}")
+    if max(rel.values()) > PJ_REL_TOL or flips > ACC_CHIP_SLACK:
+        raise AssertionError(f"phase 11 (b): fused and compiled differ: "
+                             f"{rel}, {flips} samples")
+
+    # (c) per-core PTQ on the card against the CPU, on the deployed
+    # mapping: the profile-guided compile that deploy() runs
+    eval_sp, _ = ev.batch(dcfg.eval_batch, dcfg.eval_step, device=DEVICE)
+    compiled = COMP.compile_network(COMP.from_weights(
+        params, spike_rates=COMP.measure_spike_rates(params, eval_sp[0],
+                                                     lif=cfg.lif)),
+        strategy=dcfg.mapping_strategy)
+    if compiled.summary() != f.compile_summary:
+        raise AssertionError("phase 11 (c): the compile is not deploy()'s")
+    mapping = compiled.to_soc_mapping()
+    qcfg = dataclasses.replace(cfg.quant, zero_level=hw.l1_weight > 0.0)
+    t0 = time.perf_counter()
+    card = fit_per_core_codebooks(params, mapping, qcfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = fit_per_core_codebooks([p.cpu() for p in params], mapping, qcfg)
+    cpu_s = time.perf_counter() - t0
+    words = sum(a.codebook_words != b.codebook_words
+                for a, b in zip(card.tables, cpu.tables))
+    idx_diff = {str(k): int((card.slices[k].idx.cpu() != q.idx).sum())
+                for k, q in cpu.slices.items()}
+    # the fits are bitwise the CPU's (quant.py `_tree_colsum`): codebooks,
+    # scales and the dequantized weights are held equal, not within ulps
+    tables = sum(not (torch.equal(card.slices[k].codebook.cpu(), q.codebook)
+                      and torch.equal(card.slices[k].scale.cpu(), q.scale))
+                 for k, q in cpu.slices.items())
+    weights = sum(not torch.equal(a.cpu(), b)
+                  for a, b in zip(card.weights, cpu.weights))
+    log(f"PTQ (c) card / CPU: {card.n_tables} tables, {words} differ in a "
+        f"word, {sum(idx_diff.values())} of "
+        f"{sum(q.idx.numel() for q in cpu.slices.values())} indexes "
+        f"differ {json.dumps({k: v for k, v in idx_diff.items() if v})}, "
+        f"{tables} codebooks or scales and {weights} dequantized layers "
+        f"not bitwise equal; {card_s:.3f} s / {cpu_s:.1f} s")
+    if words or any(idx_diff.values()) or tables or weights:
+        raise AssertionError("phase 11 (c): PTQ on the card differs from "
+                             "the CPU's")
+
+    # (d) continual adaptation at its defaults, fused against compiled
+    adapt, adapt_s = {}, {}
+    for engine in ("fused", "compiled"):
+        t0 = time.perf_counter()
+        if engine == "fused":
+            n, adapt[engine] = _launched("phase 11 (d)", lambda: (
+                continual_adaptation(AdaptConfig(engine="fused"),
+                                     device=DEVICE)))
+            if n != ADAPT_LAUNCHES:
+                raise AssertionError(f"phase 11 (d): {n} codebook launches, "
+                                     f"expected {ADAPT_LAUNCHES}")
+        else:
+            adapt[engine] = continual_adaptation(
+                AdaptConfig(engine=engine), device=DEVICE)
+        torch.cuda.synchronize()
+        adapt_s[engine] = time.perf_counter() - t0
+    fa, ca = adapt["fused"].to_dict(), adapt["compiled"].to_dict()
+    log(f"adaptation (d) fused: {json.dumps(fa)}")
+    log(f"adaptation (d) compiled: {json.dumps(ca)}")
+    held = ("acc_base", "acc_drift", "acc_adapted", "weight_writes",
+            "write_energy_pj")
+    if any(fa[k] != ca[k] for k in held):
+        raise AssertionError(f"phase 11 (d): fused and compiled differ in "
+                             f"{[k for k in held if fa[k] != ca[k]]}")
+
+    # (e) times, on the deployed fused simulator (the card's fit is the
+    # deployed one: (c) holds it bitwise to the CPU's)
+    sim = ChipSimulator(card.weights, freq_hz=dcfg.chip_freq_hz,
+                        mapping=mapping, register_tables=card.tables,
+                        lif=cfg.lif, engine="fused", device=DEVICE)
+    if sim.fused_engine().codebook_layers != len(arch.layer_sizes) - 1:
+        raise AssertionError("phase 11 (e): a layer left codebook mode")
+    chunk = eval_sp[:dcfg.chip_chunk]
+    chunk_ms = _timed_ms(lambda: sim.run_batch(chunk))
+    perf = {"deploy_a_s_op_check": a_s, "train_s": train_s,
+            "deploy_fused": clocks["fused"],
+            "deploy_compiled": clocks["compiled"],
+            "ptq_card_s": card_s, "ptq_cpu_s": cpu_s,
+            "adapt_s": adapt_s, "eval_chunk_ms": chunk_ms}
+    perf.update(_device_breakdown(lambda: sim.run_batch(chunk), chunk_ms))
+    log(f"deploy timing ({smi}): {json.dumps(perf)}")
+    return {"launches": {"fused_timestep_codebook":
+                         DEPLOY_LAUNCHES + ADAPT_LAUNCHES}, "perf": perf}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernel-API path
 # ---------------------------------------------------------------------------
 
@@ -2669,6 +3002,11 @@ def main() -> int:
     training_path(ARCH, args.seed, smi)
     log(f"SNN training phase: {time.perf_counter() - t0:.1f} s")
 
+    # 11. the train -> deploy pipeline and continual adaptation
+    t0 = time.perf_counter()
+    dp = deploy_path(ARCH, args.seed, smi)
+    log(f"deploy phase: {time.perf_counter() - t0:.1f} s")
+
     # 5. kernel-API path
     api = api_path(ARCH, qws, args.seed)
 
@@ -2682,10 +3020,10 @@ def main() -> int:
 
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
-    # server), phase 5 (kernel API, all three loops) and phase 6 (the
-    # served LM run)
+    # server), phase 11 (deploy and adaptation), phase 5 (kernel API, all
+    # three loops) and phase 6 (the served LM run)
     launches = dict(mp["launches"])
-    for loop in [fp, pp, sp, *api.values()]:
+    for loop in [fp, pp, sp, dp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = lm["launches"]["flash_attention"]

@@ -1,8 +1,9 @@
 """Non-uniform (codebook / LUT) weight quantization — paper C3, in torch.
 
 Port of `repro.core.quant`: quantization, the register-word round trip,
-the plasticity projection `project_to_codebook`, and the QAT forward
-`fake_quant` (straight-through gradient).  On the chip all synapses of
+the plasticity projection `project_to_codebook`, the QAT forward
+`fake_quant` (straight-through gradient), the 4-bit index packing and the
+memory accounting.  On the chip all synapses of
 a core share an N x W-bit weight table and each synapse stores a
 log2(N)-bit index, so a weight tensor is
 
@@ -12,16 +13,18 @@ log2(N)-bit index, so a weight tensor is
 
 Codebooks are fit by 1-D k-means (Lloyd) on the tensor's own device.  At
 the paper's widths the (M, N) distance matrix of one Lloyd step is about
-600 MB in f32, which the card holds easily; the cluster sums are a
-one-hot column sum of the same size, so a fit is deterministic.  Float
-sums over a cluster run in another order than XLA's, so centroids agree
-with the reference to a few ulp, not bit for bit; the harness carries
-the reference's fitted tensors across with `repro_torch.convert` where
-equality matters.
+600 MB in f32, which the card holds easily; the cluster sums reduce a
+one-hot matrix of the same size by a pairwise tree whose pairs depend on
+M alone (`_tree_colsum`), so a fit is the same on every call and on
+every device, the card's bitwise the CPU's.  Float sums over a cluster
+run in another order than XLA's, so centroids agree with the reference
+to a few ulp, not bit for bit; the harness carries the reference's
+fitted tensors across with `repro_torch.convert` where equality matters.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -68,7 +71,10 @@ def _fixed_point(values: torch.Tensor, bit_width: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Snap codebook entries to signed W-bit fixed point (chip table format)."""
     qmax = 2.0 ** (bit_width - 1) - 1.0
-    scale = torch.clamp(values.abs().amax(dim=-1), min=1e-8) / qmax
+    amax = torch.clamp(values.abs().amax(dim=-1), min=1e-8)
+    # a tensor divisor: the card divides by a host scalar as a multiply
+    # by its reciprocal, an ulp off the CPU's (and the reference's) quotient
+    scale = amax / torch.full_like(amax, qmax)
     q = torch.clamp(torch.round(values / scale[..., None]), -qmax - 1, qmax)
     return q * scale[..., None], scale
 
@@ -86,6 +92,25 @@ def _quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return xs[lo] * (1.0 - hw) + xs[hi] * hw
 
 
+def _tree_colsum(m: torch.Tensor) -> torch.Tensor:
+    """Column sums of an (M, N) f32 matrix by a pairwise tree over its
+    rows: at each level row i adds row i + h (h = rows // 2) and an odd
+    last row is added into row h - 1.  The adds are fixed by M alone, so
+    the sums are bitwise equal on every device; `sum(dim=0)` splits the
+    rows by the device's own reduction layout (on an H100 against the
+    CPU, ARCH's per-core fits then differed in one index of 13.7 M).
+    Reduces in place (`m` is overwritten) and returns a copy of the sums:
+    a view would keep the whole of `m` alive."""
+    while m.shape[0] > 1:
+        h = m.shape[0] // 2
+        odd = m.shape[0] % 2
+        m[:h].add_(m[h:2 * h])
+        if odd:
+            m[h - 1].add_(m[2 * h])
+        m = m[:h]
+    return m[0].clone()
+
+
 def _kmeans_1d(x: torch.Tensor, n: int, iters: int) -> torch.Tensor:
     """Lloyd's algorithm on a flat value vector -> (n,) sorted centroids."""
     # Percentile init is robust for bell-shaped weight distributions.
@@ -95,11 +120,11 @@ def _kmeans_1d(x: torch.Tensor, n: int, iters: int) -> torch.Tensor:
     for _ in range(iters):
         assign = torch.argmin((x[:, None] - cents[None, :]).abs(), dim=1)
         tot = torch.bincount(assign, minlength=n).to(x.dtype)
-        # cluster sums as the reference's one-hot reduction: a column sum
-        # in a fixed order, so a fit is the same on every call (an
-        # `index_add_` on the card adds in the atomics' order)
-        sums = torch.where(assign[:, None] == levels, x[:, None],
-                           0.0).sum(dim=0)
+        # cluster sums as the reference's one-hot reduction, in an order
+        # that depends on the size alone (an `index_add_` on the card adds
+        # in the atomics' order, a `sum` in the device's layout)
+        sums = _tree_colsum(torch.where(assign[:, None] == levels,
+                                        x[:, None], 0.0))
         cents = torch.where(tot > 0, sums / torch.clamp(tot, min=1), cents)
     return torch.sort(cents).values
 
@@ -153,6 +178,28 @@ def quantize(w, cfg: CodebookConfig, device=None) -> QuantizedTensor:
                .reshape(w.shape))
     return QuantizedTensor(idx=idx, codebook=cents, scale=scale,
                            group_axis_size=gsize)
+
+
+def quantization_error(w, cfg: CodebookConfig, device=None) -> torch.Tensor:
+    """RMS relative error of a whole-tensor fit, as a 0-d f32 tensor —
+    used by tests and the PTQ calibration report.  Runs where `quantize`
+    runs (on `w`'s device when it is a tensor)."""
+    q = quantize(w, cfg, device=device)
+    w = torch.as_tensor(w if isinstance(w, torch.Tensor)
+                        else np.asarray(w, np.float32)
+                        ).to(q.idx.device, torch.float32)
+    wq = dequantize(q)
+    return torch.sqrt(torch.mean((w - wq) ** 2)) / torch.clamp(
+        torch.sqrt(torch.mean(w ** 2)), min=1e-12)
+
+
+def memory_bytes(shape: tuple[int, ...], cfg: CodebookConfig,
+                 n_groups: int = 1) -> int:
+    """Bytes to store a quantized tensor (indexes + tables), chip accounting."""
+    n_elems = math.prod(shape)
+    idx_bits = n_elems * cfg.index_bits
+    table_bits = n_groups * cfg.n_levels * cfg.bit_width
+    return (idx_bits + table_bits + 7) // 8
 
 
 def project_to_codebook(values, codebook) -> torch.Tensor:
@@ -339,3 +386,44 @@ def dequantize_via_registers(q: QuantizedTensor, bit_width: int | None = None
                            q.scale)
     return dequantize(QuantizedTensor(idx=q.idx, codebook=cb, scale=q.scale,
                                       group_axis_size=q.group_axis_size))
+
+
+# ---------------------------------------------------------------------------
+# 4-bit index packing — the chip's real storage format for N=16 tables
+# (log2(16) = 4 bits/synapse; two indexes per byte)
+# ---------------------------------------------------------------------------
+#
+# uint8 has shifts in torch (uint16 does not), so the packing is the
+# reference's uint8 arithmetic: an index outside [0, 16) wraps and
+# truncates exactly as it does there.
+
+def pack_indexes_4bit(idx: torch.Tensor) -> torch.Tensor:
+    """int8 indexes in [0,16) -> packed uint8, two per byte (last dim
+    halved; odd last dims are zero-padded)."""
+    if idx.dtype != torch.int8:
+        raise TypeError(f"pack_indexes_4bit takes int8 indexes, got "
+                        f"{idx.dtype}")
+    if int(idx.shape[-1]) % 2:
+        idx = torch.nn.functional.pad(idx, (0, 1))
+    lo = idx[..., 0::2].to(torch.uint8)
+    hi = idx[..., 1::2].to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_indexes_4bit(packed: torch.Tensor, last_dim: int) -> torch.Tensor:
+    """Inverse of pack_indexes_4bit; `last_dim` restores odd sizes."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    inter = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    return inter[..., :last_dim]
+
+
+def packed_memory_bytes(shape: tuple[int, ...], cfg: CodebookConfig,
+                        n_groups: int = 1) -> int:
+    """Bytes with 4-bit packing (N<=16): half the int8-index footprint."""
+    n_elems = math.prod(shape)
+    if cfg.n_levels <= 16:
+        idx_bytes = (n_elems + 1) // 2
+    else:
+        idx_bytes = n_elems
+    return idx_bytes + (n_groups * cfg.n_levels * cfg.bit_width + 7) // 8

@@ -560,14 +560,16 @@ class ChipSimulator:
         """The lazily-built dense array engine for this mapping."""
         if self._compiled is None:
             from repro_torch.core.engine import CompiledEngine
-            self._compiled = CompiledEngine(self)
+            with torch.profiler.record_function("soc.lower"):
+                self._compiled = CompiledEngine(self)
         return self._compiled
 
     def fused_engine(self):
         """The lazily-built fused-kernel engine for this mapping."""
         if self._fused is None:
             from repro_torch.core.engine import FusedEngine
-            self._fused = FusedEngine(self)
+            with torch.profiler.record_function("soc.lower"):
+                self._fused = FusedEngine(self)
         return self._fused
 
     def array_engine(self):

@@ -89,6 +89,39 @@ def test_quantize_matches_reference(group_size, zero_level):
         assert (got.codebook == 0).sum(-1).min() >= 1
 
 
+def _tree_colsum_numpy(m: np.ndarray) -> np.ndarray:
+    """`quant._tree_colsum`'s pairs, one f32 add at a time in numpy."""
+    m = m.astype(np.float32)
+    while m.shape[0] > 1:
+        h = m.shape[0] // 2
+        top = m[:h] + m[h:2 * h]
+        if m.shape[0] % 2:
+            top[h - 1] = top[h - 1] + m[2 * h]
+        m = top
+    return m[0]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 7, 1000, 100003])
+def test_cluster_sums_do_not_depend_on_the_layout(rows):
+    """k-means cluster sums take pairs fixed by the row count alone, so a
+    fit is bitwise the same on every device (on an H100 against the CPU,
+    `sum(dim=0)`'s device-chosen order moved one index of 13.7 M in
+    ARCH's per-core fits).  The same matrix in another memory layout or
+    with fewer columns sums bitwise alike, and equals the pairs added one
+    at a time.  The tree reduces in place, into the matrix's first row,
+    and returns a copy of it: a view would hold the whole matrix alive."""
+    m = torch.randn(rows, 16, generator=torch.Generator().manual_seed(rows))
+    work = m.clone()
+    got = Q._tree_colsum(work)
+    assert torch.equal(work[0], got)
+    assert (got.untyped_storage().data_ptr()
+            != work.untyped_storage().data_ptr())
+    np.testing.assert_array_equal(got.numpy(),
+                                  _tree_colsum_numpy(m.numpy()))
+    assert torch.equal(Q._tree_colsum(m.t().contiguous().t()), got)
+    assert torch.equal(Q._tree_colsum(m[:, :3].contiguous()), got[:3])
+
+
 @pytest.mark.parametrize("n,w", [(4, 4), (8, 8), (16, 8), (16, 16)])
 def test_register_words_round_trip_bit_exact(n, w):
     from repro_torch import convert

@@ -12,8 +12,10 @@ its traced run's launches, and the drop masks drawn on the card bitwise
 equal to the CPU's; plastic fused runs (STDP, R-STDP) counting their
 launches and learning the compiled engine's indexes, and the interpretive
 engine learning them a sample at a time; `SnnServer` groups equal to
-their padded batch's rows, its retry and degraded paths, and one QAT
-training step against the same step on the CPU.  Marked `cuda`; every
+their padded batch's rows, its retry and degraded paths, one QAT
+training step against the same step on the CPU, and codebook fits
+(`quant.quantize`, bitwise) and per-core PTQ
+(`deploy.fit_per_core_codebooks`) against the CPU's.  Marked `cuda`; every
 test skips without a card.  Run on the
 card with
 
@@ -921,3 +923,55 @@ def test_snn_train_step_on_the_card_matches_the_cpu(dev):
         assert mg[k] == pytest.approx(mc[k], rel=1e-4), k
     for a, b in zip(pg, pc):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_fit_per_core_codebooks_on_the_card_matches_the_cpu(dev):
+    """Per-core PTQ of one weight set on an anneal mapping (layer 1 over
+    17 cores of 3-4 columns, layer 2 over 3): the card's fits are the
+    CPU's bit for bit — register words, indexes, codebooks, scales and
+    the dequantized weights (the k-means fit is, see below)."""
+    from repro_torch.core import soc as SOC
+    from repro_torch.core.quant import CodebookConfig
+    from repro_torch.deploy import fit_per_core_codebooks
+    from repro_torch.models import snn as SNN
+
+    cfg = SNN.SNNConfig(layer_sizes=(128, 64, 10), timesteps=5, qat=True)
+    params = SNN.init_params(cfg, torch.Generator().manual_seed(1),
+                             device="cpu")
+    mapping = SOC.map_network(list(cfg.layer_sizes), strategy="anneal")
+    for zero_level in (False, True):
+        qcfg = CodebookConfig(16, 8, zero_level=zero_level)
+        cpu = fit_per_core_codebooks(params, mapping, qcfg)
+        card = fit_per_core_codebooks([p.to(dev) for p in params], mapping,
+                                      qcfg)
+        assert [t.codebook_words for t in card.tables] == \
+            [t.codebook_words for t in cpu.tables]
+        for key, q in cpu.slices.items():
+            g = card.slices[key]
+            assert g.idx.device.type == "cuda"
+            assert torch.equal(g.idx.cpu(), q.idx), key
+            assert torch.equal(g.codebook.cpu(), q.codebook), key
+            assert torch.equal(g.scale.cpu(), q.scale), key
+        for a, b in zip(card.weights, cpu.weights):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("shape,group_size", [((2312, 64), 0),
+                                              ((300, 96), 16),
+                                              ((4096, 33), 0)])
+@pytest.mark.parametrize("bit_width", [4, 8, 16])
+def test_quantize_on_the_card_is_bitwise_the_cpu(dev, shape, group_size,
+                                                  bit_width):
+    """A k-means fit on the card equals the CPU's bit for bit: cluster
+    sums by a tree fixed by the size, true divisions only (the card
+    divides by a host scalar through its reciprocal)."""
+    from repro_torch.core.quant import CodebookConfig, quantize
+
+    rng = np.random.default_rng(sum(shape) + bit_width)
+    w = torch.tensor(rng.normal(0, 0.05, shape).astype(np.float32))
+    for zero_level in (False, True):
+        cfg = CodebookConfig(16, bit_width, group_size=group_size,
+                             zero_level=zero_level)
+        cpu, card = quantize(w, cfg), quantize(w.to(dev), cfg)
+        for a, b in zip(card[:3], cpu[:3]):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

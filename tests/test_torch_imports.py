@@ -1,6 +1,7 @@
 """The port stands alone: `import repro_torch` (and every module of it)
 leaves `jax` and the reference package `repro` out of `sys.modules`, and
-no file of the port or `chip_smoke.py` imports either."""
+no file of the port, `chip_smoke.py` or the port's scripts and examples
+(`scripts/torch_*.py`, `examples/torch_*.py`) imports either."""
 import ast
 import subprocess
 import sys
@@ -19,7 +20,9 @@ def _forbidden(module: str) -> bool:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted(ROOT.glob("scripts/torch_*.py"))
+            + sorted(ROOT.glob("examples/torch_*.py")))
 
 
 def test_forbidden_matches_exact_names():
