@@ -176,8 +176,27 @@ Phases, each of which must pass:
    `continual_adaptation`; and one eval chunk's ms, device busy and idle
    share.
 
+12. sharding — right after phase 11, on phase 4's quantized weights and
+   trains, with ARCH mapped by `compile_network(from_layer_sizes(ARCH),
+   ChipSpec(neurons_per_core=256, max_domains=4), seed=3)` onto 2
+   domains: (a) one process without a process group,
+   `engine="sharded"` at S = 1: every counter bitwise the compiled
+   engine's on that mapping, report fields within 1e-6; (b) two spawned
+   gloo ranks, both on the one card (NCCL refuses two ranks on one
+   card): S = 2, spike totals per layer and pJ/SOP within phase 4's 1e-3
+   of (a) (whether it came out bitwise is logged), the spike-word bytes
+   each rank sent equal to its words x 2 B x T x B; STDP on layers 1-2
+   held by phase 8's rule to the compiled engine; the fused engine
+   batch-sharded, 16 rows a rank: T x 3 codebook launches a rank and
+   counters bitwise phase 4's fused run; every rank's results equal;
+   (c) one spawned rank with NCCL at world size 1: the sharded engine
+   bitwise (a) and the batch-sharded fused engine bitwise phase 4, both
+   through the collectives; ms per run and device busy of every rank.
+   A rank that fails, hangs past its deadline or exits non-zero fails
+   the phase.
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 11, 5 and 6); the last line is
+4, 7, 8, 9, 11, 12, 5 and 6); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -2448,20 +2467,367 @@ def deploy_path(arch, seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the sharded engine and batch sharding over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_SPEC = dict(neurons_per_core=256, max_domains=4)  # ARCH on 2 domains
+SHARD_MAP_SEED = 3
+SHARD_RANKS = 2                # (b): gloo ranks, both on the one card
+SHARD_GROUP_TIMEOUT_S = 60     # every process group's collective timeout
+SHARD_JOIN_S = 420             # the spawned ranks' deadline
+SHARD_REPORT_REL = 1e-6        # (a): report fields against compiled
+
+
+def _shard_mapping(arch):
+    """ARCH mapped at 256 neurons a core: 2 domains of 20 assignments."""
+    from repro_torch.compiler import ChipSpec, compile_network
+    from repro_torch.compiler.ir import from_layer_sizes
+
+    cn = compile_network(from_layer_sizes(arch.layer_sizes),
+                         ChipSpec(**SHARD_SPEC), seed=SHARD_MAP_SEED)
+    return cn.to_soc_mapping(), cn.n_domains_used
+
+
+def _sync(dev=None) -> None:
+    """Wait for the card (`dev` None or a CUDA device); nothing on the
+    CPU."""
+    import torch
+
+    if dev is None or dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _shard_sim(inp, engine: str, mapping, dev, **kw):
+    from repro_torch import ChipSimulator
+
+    arch = inp["arch"]
+    return ChipSimulator(inp["qws"], engine=engine, freq_hz=arch["freq_hz"],
+                         threshold=arch["threshold"], leak=arch["leak"],
+                         mapping=mapping, device=dev, **kw)
+
+
+def _shard_jobs(rank: int, world: int, inp: dict, dev) -> dict:
+    """What one rank of (b) or (c) runs: the sharded engine on the
+    two-domain mapping (S = world), then, at world 2, STDP on it, then the
+    fused engine batch-sharded on phase 4's mapping.  Every collective
+    runs inside the engines."""
+    import torch
+
+    from repro_torch import PlasticityConfig
+    from repro_torch.kernels import fused_timestep as FT
+
+    trains = inp["trains"].to(dev)
+    res = {"rank": rank, "world": world}
+    digests = []
+    sim = _shard_sim(inp, "sharded", inp["mapping2"], dev)
+    eng = sim.sharded_engine()
+    ys, counts = eng.run_raw(trains)
+    res.update(n_shards=eng.n_shards, sharded=eng.last_run_sharded,
+               exchange_bytes=eng.last_exchange_bytes,
+               words=[sl.words for sl in eng.sharded_layers],
+               ys={k: v.cpu() for k, v in ys.items()}, counts=counts.cpu())
+    digests.append(_digest([ys[k] for k in sorted(ys)] + [counts]))
+    _, reports = sim.run_batch(trains)
+    res["reports"] = [(r.pj_per_sop, r.energy_pj, r.wall_cycles)
+                      for r in reports]
+    res["ms"] = _timed_ms(lambda: sim.run_batch(trains), dev=dev)
+    if dev.type == "cuda":
+        res["busy"] = _device_breakdown(lambda: sim.run_batch(trains),
+                                        res["ms"])
+    del sim, eng
+    if world > 1:
+        psim = _shard_sim(inp, "sharded", inp["mapping2"], dev,
+                          plasticity=PlasticityConfig(
+                              enabled=True, mode="stdp",
+                              layers=STDP_LAYERS))
+        ys_p, _ = psim.array_engine().run_raw(trains)
+        keys = [k for k in ys_p if k.startswith(("fired", "writes"))]
+        learned = [ys_p.get(f"learned_idx_{li}")
+                   for li in range(len(inp["qws"]))]
+        digests.append(_digest([ys_p[k] for k in sorted(keys)]
+                               + [x for x in learned if x is not None]))
+        res["stdp"] = {"ys": {k: ys_p[k].cpu() for k in keys},
+                       "learned": ([None if x is None else x.cpu()
+                                    for x in learned] if rank == 0
+                                   else None)}
+        del psim, ys_p, learned
+    fsim = _shard_sim(inp, "fused", inp["mapping4"], dev)
+    feng = fsim.fused_engine()
+    FT.reset_launches()
+    ys_f, counts_f = feng.run_raw(trains)
+    _sync(dev)
+    res["fused"] = {"launches": dict(FT.launches),
+                    "sharded": feng.last_run_sharded,
+                    "exchange_bytes": feng.last_exchange_bytes,
+                    "ys": {k: v.cpu() for k, v in ys_f.items()},
+                    "counts": counts_f.cpu()}
+    digests.append(_digest([ys_f[k] for k in sorted(ys_f)] + [counts_f]))
+    res["fused"]["ms"] = _timed_ms(lambda: fsim.run_batch(trains), dev=dev)
+    if dev.type == "cuda":
+        res["fused"]["busy"] = _device_breakdown(
+            lambda: fsim.run_batch(trains), res["fused"]["ms"])
+    res["digests"] = digests
+    return res
+
+
+def _shard_rank(rank: int, world: int, backend: str, tmp: str,
+                device: str) -> None:
+    """One spawned rank: join the group, run `_shard_jobs`, save."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/store-{backend}", rank=rank,
+        world_size=world, timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    try:
+        inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
+        res = _shard_jobs(rank, world, inp, dev)
+        torch.save(res, f"{tmp}/{backend}-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, backend: str, tmp: str, device: str) -> list:
+    """Start `world` ranks, join them by a deadline, stop any still
+    alive; raise unless every rank exited 0.  Returns their results."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, world, backend, tmp, device))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    log(f"{backend} x {world}: ranks exited {codes} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if hung or any(c != 0 for c in codes):
+        raise AssertionError(f"{backend} ranks failed: exit codes {codes}, "
+                             f"hung {hung}")
+    return [torch.load(f"{tmp}/{backend}-rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _equal_ys(a: dict, b: dict) -> bool:
+    import torch
+
+    return set(a) == set(b) and all(torch.equal(a[k].cpu(), b[k].cpu())
+                                    for k in a)
+
+
+def _hold_layer_totals(what, ys, reports, want_ys, want_reports) -> None:
+    """Phase 4's rule: spike totals per layer within SPIKE_REL_TOL and
+    pJ/SOP within PJ_REL_TOL of `want`."""
+    got = ys["fired"].double().sum(dim=(0, 1)).numpy()
+    want = want_ys["fired"].double().sum(dim=(0, 1)).numpy()
+    rel = np.abs(got - want) / np.maximum(want, 1.0)
+    pg = np.array([r[0] for r in reports])
+    pw = np.array([r[0] for r in want_reports])
+    prel = np.abs(pg - pw) / pw
+    log(f"{what}: spikes per layer {got.tolist()} against {want.tolist()} "
+        f"(max rel {rel.max():.3g}); pJ/SOP {pg.mean():.6f} against "
+        f"{pw.mean():.6f} (max rel {prel.max():.3g})")
+    if rel.max() > SPIKE_REL_TOL or prel.max() > PJ_REL_TOL:
+        raise AssertionError(f"{what}: outside phase 4's rule")
+
+
+def shard_path(arch, ctx: dict, smi: str, device: str = DEVICE) -> dict:
+    """Phase 12: the cores-axis sharded engine on ARCH mapped onto two
+    domains, and batch sharding of the fused engine, on phase 4's
+    quantized weights and trains: (a) one process without a group, S = 1;
+    (b) two spawned gloo ranks on the one card, S = 2; (c) one spawned
+    NCCL rank (world size 1)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import PlasticityConfig
+
+    dev = torch.device(device)
+    qws, trains, sim4 = ctx["qws"], ctx["trains"], ctx["sim"]
+    mapping2, n_dom = _shard_mapping(arch)
+    if n_dom != 2:
+        raise AssertionError(f"ARCH at {SHARD_SPEC} spans {n_dom} domains")
+    L = len(qws)
+    inp = {"qws": qws, "trains": trains, "mapping2": mapping2,
+           "mapping4": sim4.mapping,
+           "arch": {"freq_hz": arch.freq_hz, "threshold": arch.threshold,
+                    "leak": arch.leak}}
+
+    # (a) one process, no group: S = 1 against the compiled engine
+    comp = _shard_sim(inp, "compiled", mapping2, dev)
+    shrd = _shard_sim(inp, "sharded", mapping2, dev)
+    eng = shrd.sharded_engine()
+    if eng.n_shards != 1 or eng.n_domains != 2:
+        raise AssertionError(f"(a): {eng.n_shards} shards of "
+                             f"{eng.n_domains} domains")
+    ys_c, counts_c = comp.array_engine().run_raw(trains)
+    ys_a, counts_a = eng.run_raw(trains)
+    if not (_equal_ys(ys_a, ys_c) and torch.equal(counts_a, counts_c)):
+        raise AssertionError("(a): sharded S = 1 counters differ from the "
+                             "compiled engine's")
+    _, reps_c = comp.run_batch(trains)
+    _, reps_a = shrd.run_batch(trains)
+    worst = 0.0
+    for rc, ra in zip(reps_c, reps_a):
+        for f in ("energy_pj", "core_energy_pj", "noc_energy_pj",
+                  "riscv_energy_pj", "wall_cycles"):
+            x, y = getattr(rc, f), getattr(ra, f)
+            worst = max(worst, abs(x - y) / max(abs(x), 1.0))
+    if worst > SHARD_REPORT_REL:
+        raise AssertionError(f"(a): report fields {worst:.3g} apart")
+    log(f"phase 12 (a): sharded S = 1 on {n_dom} domains, counters bitwise "
+        f"the compiled engine's, report fields within {worst:.3g}")
+    perf = {"a_ms": _timed_ms(lambda: shrd.run_batch(trains), dev=dev),
+            "a_compiled_ms": _timed_ms(lambda: comp.run_batch(trains),
+                                       dev=dev)}
+    if dev.type == "cuda":
+        perf["a_busy"] = _device_breakdown(lambda: shrd.run_batch(trains),
+                                           perf["a_ms"])
+    rep_a = [(r.pj_per_sop, r.energy_pj, r.wall_cycles) for r in reps_a]
+    ys_a = {k: v.cpu() for k, v in ys_a.items()}
+    counts_a = counts_a.cpu()
+    # what the spawned ranks are held to: compiled STDP on this mapping,
+    # phase 4's fused run on its own mapping
+    pcomp = _shard_sim(inp, "compiled", mapping2, dev,
+                       plasticity=PlasticityConfig(enabled=True,
+                                                   mode="stdp",
+                                                   layers=STDP_LAYERS))
+    ys_p, _ = pcomp.array_engine().run_raw(trains)
+    keys = [k for k in ys_p if k.startswith(("fired", "writes"))]
+    stdp_want = (_host_ys(ys_p, keys),
+                 [ys_p.get(f"learned_idx_{li}") for li in range(L)])
+    del pcomp, ys_p, comp, shrd, eng
+    ys4, counts4 = sim4.array_engine().run_raw(trains)
+    ys4 = {k: v.cpu() for k, v in ys4.items()}
+    counts4 = counts4.cpu()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        torch.save({**inp, "qws": [type(q)(idx=q.idx.cpu(),
+                                           codebook=q.codebook.cpu(),
+                                           scale=q.scale.cpu(),
+                                           group_axis_size=q.group_axis_size)
+                                   for q in qws],
+                    "trains": trains.cpu()}, f"{tmp}/inputs.pt")
+        # (b) two gloo ranks on the one card; (c) NCCL at world size 1
+        rank_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+        gloo = _spawn_ranks(SHARD_RANKS, "gloo", tmp, rank_dev)
+        nccl = (_spawn_ranks(1, "nccl", tmp, rank_dev)
+                if dev.type == "cuda" else [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if any(r["digests"] != gloo[0]["digests"] for r in gloo):
+        raise AssertionError("(b): the ranks' results differ")
+    b = gloo[0]
+    if b["n_shards"] != SHARD_RANKS or not b["sharded"]:
+        raise AssertionError(f"(b): {b['n_shards']} shards, sharded "
+                             f"{b['sharded']}")
+    bitwise = _equal_ys(b["ys"], ys_a) and torch.equal(b["counts"], counts_a)
+    _hold_layer_totals("phase 12 (b) S = 2", b["ys"], b["reports"], ys_a,
+                       rep_a)
+    log(f"phase 12 (b) S = 2: counters bitwise the S = 1 run's: {bitwise}")
+    # each rank sends its words of every layer-step
+    reckoned = sum(w * 2 for w in b["words"]) * arch.timesteps * BATCH
+    sent = sum(r["exchange_bytes"] for r in gloo)
+    log(f"phase 12 (b): spike-word bytes per run, all ranks {sent} "
+        f"(reckoned words x 2 B x S x T x B: {reckoned * SHARD_RANKS})")
+    if sent != reckoned * SHARD_RANKS:
+        raise AssertionError("(b): exchanged bytes differ from the words")
+    got_p = ({k: v.double().numpy() for k, v in b["stdp"]["ys"].items()},
+             b["stdp"]["learned"])
+    _hold_plastic("phase 12 (b) STDP S = 2", got_p, stdp_want,
+                  frozen=[li for li in range(L) if li not in STDP_LAYERS],
+                  learnable=STDP_LAYERS)
+    want_launch = arch.timesteps * L if dev.type == "cuda" else 0
+    launches = 0
+    for name, runs in (("(b)", gloo), ("(c)", nccl)):
+        for r in runs:
+            f = r["fused"]
+            if f["launches"] != {"fused_timestep_codebook": want_launch,
+                                 "fused_timestep_dense": 0}:
+                raise AssertionError(f"{name} rank {r['rank']}: fused "
+                                     f"launches {f['launches']}")
+            launches += f["launches"]["fused_timestep_codebook"]
+            if not (_equal_ys(f["ys"], ys4)
+                    and torch.equal(f["counts"], counts4)):
+                raise AssertionError(f"{name} rank {r['rank']}: "
+                                     f"batch-sharded fused counters differ "
+                                     f"from phase 4's")
+    if not gloo[0]["fused"]["sharded"]:
+        raise AssertionError("(b): the fused batch was not split")
+    log(f"phase 12 (b): fused, {BATCH // SHARD_RANKS} rows a rank: "
+        f"{want_launch} codebook launches a rank, counters bitwise phase "
+        f"4's; exchanged {gloo[0]['fused']['exchange_bytes']} B a rank")
+    if nccl:
+        c = nccl[0]
+        if not (_equal_ys(c["ys"], ys_a) and torch.equal(c["counts"],
+                                                         counts_a)):
+            raise AssertionError("(c): NCCL S = 1 differs from (a)")
+        # the spike words, then the batch gather of the whole result
+        words_c = sum(w * 2 for w in c["words"]) * arch.timesteps * BATCH
+        rows_c = sum(t.numel() * t.element_size()
+                     for t in [*c["ys"].values(), c["counts"]])
+        if c["exchange_bytes"] != words_c + rows_c or not c["fused"][
+                "exchange_bytes"]:
+            raise AssertionError("(c): the collectives did not run")
+        log(f"phase 12 (c): NCCL world 1, sharded bitwise (a), fused "
+            f"bitwise phase 4, {c['exchange_bytes']} + "
+            f"{c['fused']['exchange_bytes']} B through the collectives")
+    for name, runs in (("b", gloo), ("c", nccl)):
+        for r in runs:
+            perf[f"{name}{r['rank']}"] = {
+                "sharded_ms": r["ms"], "fused_ms": r["fused"]["ms"],
+                "sharded_busy_ms": r.get("busy", {}).get("device_busy_ms"),
+                "fused_busy_ms": r["fused"].get("busy", {}).get(
+                    "device_busy_ms")}
+    perf["bitwise_s2"] = bitwise
+    perf["exchange_bytes_per_run"] = sent
+    log(f"phase 12 timing ({smi}): {json.dumps(perf)}")
+    return {"launches": {"fused_timestep_codebook": launches}, "perf": perf}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernel-API path
 # ---------------------------------------------------------------------------
 
-def _timed_ms(fn, reps: int = 5) -> float:
-    """Host-clock ms of `fn` ending in a synchronize: warmup, median."""
-    import torch
-
+def _timed_ms(fn, reps: int = 5, dev=None) -> float:
+    """Host-clock ms of `fn` ending in a synchronize (`_sync(dev)`):
+    warmup, median."""
     fn()
-    torch.cuda.synchronize()
+    _sync(dev)
     out = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync(dev)
         out.append(time.perf_counter() - t0)
     return statistics.median(out) * 1e3
 
@@ -2995,7 +3361,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sp = serving_snn_path(ARCH, ctx, repaired, mp["perf"], args.seed, smi)
     log(f"SNN serving phase: {time.perf_counter() - t0:.1f} s")
-    del ctx, repaired
+    del repaired
 
     # 10. SNN training at ARCH widths
     t0 = time.perf_counter()
@@ -3006,6 +3372,12 @@ def main() -> int:
     t0 = time.perf_counter()
     dp = deploy_path(ARCH, args.seed, smi)
     log(f"deploy phase: {time.perf_counter() - t0:.1f} s")
+
+    # 12. the sharded engine and batch sharding (phase 4's network)
+    t0 = time.perf_counter()
+    shp = shard_path(ARCH, ctx, smi)
+    log(f"shard phase: {time.perf_counter() - t0:.1f} s")
+    del ctx
 
     # 5. kernel-API path
     api = api_path(ARCH, qws, args.seed)
@@ -3020,10 +3392,11 @@ def main() -> int:
 
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
-    # server), phase 11 (deploy and adaptation), phase 5 (kernel API, all
-    # three loops) and phase 6 (the served LM run)
+    # server), phase 11 (deploy and adaptation), phase 12 (the spawned
+    # ranks' batch-sharded fused runs), phase 5 (kernel API, all three
+    # loops) and phase 6 (the served LM run)
     launches = dict(mp["launches"])
-    for loop in [fp, pp, sp, dp, *api.values()]:
+    for loop in [fp, pp, sp, dp, shp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = lm["launches"]["flash_attention"]

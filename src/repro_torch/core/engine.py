@@ -1,8 +1,8 @@
 """Batched chip engines of the port: a loop over T, an explicit batch axis.
 
-Port of `repro.core.engine` (the sharded engine aside).  Two array
-engines share one lowering (`lower_tables`) and one pricing/report stage
-(`_EngineBase.run_batch` -> `energy.price_batched`).  NoC accounting is
+Port of `repro.core.engine`.  Three array engines share one lowering
+(`lower_tables`) and one pricing/report stage (`_EngineBase.run_batch` ->
+`energy.price_batched`).  NoC accounting is
 source-exact: each step emits integer per-core fired counts
 (`out @ slice_onehot`) and the host replays them against the per-flow
 `noc.FlowTable` vectors in float64, adding the bottleneck router's M/M/1
@@ -19,6 +19,14 @@ source-exact: each step emits integer per-core fired counts
   CPU the kernel's plain version runs the whole batch as one tile whose
   float program is the compiled engine's, so at word-aligned widths the
   two engines agree bit-exactly.
+* `ShardedEngine` — the paper's scale-up: a board of several fullerene
+  domains joined through level-2 routers, one block of domains per
+  process of a `torch.distributed` group.  Each rank keeps only its
+  shard's weight columns (`spikes @ w_local`, `torch.matmul` as in the
+  compiled engine) and LIF state; after every layer-step the shards
+  exchange their output spikes as packed 16-spike words and sum their
+  integer per-core counters, so `run_batch` prices exactly as for the
+  other engines.
 
 `jax.vmap` became the explicit batch axis and `jax.lax.scan` a Python
 loop over T.  Per-step counters stay on the device, stacked over T, and
@@ -43,6 +51,18 @@ are per-sample run state: both engines run it through the same torch
 expression, so they learn bit-identical indexes; frozen layers keep the
 kernel.  Index writes price into the cycle model's plasticity stage and
 the report.  Disabled, the engines issue exactly the inference ops.
+
+Sharding is SPMD over the default process group: every rank calls the
+same `run_batch`.  The reference's single-controller `shard_map` over
+`jax.devices()` becomes one process per device; without an initialised
+group the world is one process and no engine makes a `torch.distributed`
+call.  With a group, the compiled and fused engines split the batch
+evenly over the ranks (when it divides) and all-gather the results; the
+sharded engine lays the ranks out as a (batch rows) x (cores shards)
+mesh.  Every tensor crosses a collective as its `torch.uint8` bytes or,
+for the counters' sums, as int64: gloo refuses 16-bit integers in
+`all_gather` and NCCL has no 16-bit integer type, and the spike words
+are uint16.
 """
 from __future__ import annotations
 
@@ -51,6 +71,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import energy as E
 from repro_torch.core import noc as NOC
@@ -258,6 +279,78 @@ def lower_fused_weights(sim: "ChipSimulator") -> tuple[FusedLayerWeights, ...]:
 
 
 # ---------------------------------------------------------------------------
+# process-group plumbing: batch and cores sharding
+# ---------------------------------------------------------------------------
+
+def _grouped() -> bool:
+    """Whether a default process group is initialised; without one the
+    engines make no collective call."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def _world() -> tuple[int, int]:
+    """(world size, rank) of the default process group; (1, 0) without
+    one."""
+    if not _grouped():
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
+def _subgroup(ranks_per_group: list[list[int]]):
+    """This rank's group among `ranks_per_group`, which partitions the
+    world: None (the default group) when one group holds every rank, else
+    `dist.new_subgroups_by_enumeration`, which every rank must enter in
+    the same order (the engines build theirs at construction)."""
+    if len(ranks_per_group) == 1:
+        return None
+    group, _ = dist.new_subgroups_by_enumeration(ranks_per_group)
+    return group
+
+
+def _all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum of integer-valued f32 counters over `group`, exact: the values
+    cross as int64."""
+    if not _grouped():
+        return t
+    x = t.to(torch.int64)
+    dist.all_reduce(x, group=group)
+    return x.to(t.dtype)
+
+
+def _all_gather_bytes(t: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's `t` of `group`, in rank order.  The tensor crosses as
+    its `torch.uint8` bytes whatever its dtype: gloo rejects int16 and
+    uint16 in `all_gather` ("Invalid scalar type") and NCCL has no 16-bit
+    integer, and the spike words are uint16."""
+    if not _grouped():
+        return [t]
+    b = t.contiguous().view(torch.uint8)
+    out = [torch.empty_like(b) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, b, group=group)
+    return [o.view(t.dtype) for o in out]
+
+
+def _gather_rows(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """All-gather (rows, ...) tensors along dim 0 over `group` (each
+    rank's shapes equal), all of them in one byte buffer: the widest
+    dtype first, so every tensor's bytes start aligned to its size."""
+    order = sorted(range(len(tensors)),
+                   key=lambda i: -tensors[i].element_size())
+    flat = torch.cat([tensors[i].contiguous().view(torch.uint8).reshape(-1)
+                      for i in order])
+    parts = _all_gather_bytes(flat, group)
+    out: list = [None] * len(tensors)
+    at = 0
+    for i in order:
+        t = tensors[i]
+        n = t.numel() * t.element_size()
+        out[i] = torch.cat([p[at:at + n].view(t.dtype).view(t.shape)
+                            for p in parts])
+        at += n
+    return out
+
+
+# ---------------------------------------------------------------------------
 # shared execution / pricing stage
 # ---------------------------------------------------------------------------
 
@@ -270,10 +363,18 @@ class _EngineBase:
     counter shaped (B, T, ...), plus a plastic run's final
     `learned_idx_{li}` (and `elig_{li}`).  `run_batch` prices the
     counters through `energy.price_batched`.
+
+    With `shard` on and a process group initialised, a batch that the
+    world size divides runs B / world rows on each rank, and the results
+    are all-gathered (`_batch_plan`, `last_run_sharded`); the bytes a run
+    moves through collectives are in `last_exchange_bytes`.
     """
 
-    def __init__(self, sim: "ChipSimulator"):
+    def __init__(self, sim: "ChipSimulator", shard: bool = True):
         self.sim = sim
+        self.shard = shard
+        self.last_run_sharded = False
+        self.last_exchange_bytes = 0     # bytes each rank sent in the run
         self.tables = lower_tables(sim)
         # capture config is fixed at construction (the simulator builds
         # each engine once)
@@ -304,10 +405,12 @@ class _EngineBase:
         (the fused engine pads rows to the spike-word boundary)."""
         return idx
 
-    def _initial_learned(self, batch: int, learned) -> list:
+    def _initial_learned(self, batch: int, learned, rows=slice(None)
+                         ) -> list:
         """The per-layer initial-index operand: table idx0 by default,
         overridden per layer by `learned` entries ((n_pre, n_post)
-        broadcast over the batch, or per-sample (B, ...))."""
+        broadcast over the batch, or per-sample (B, ...)); `rows` picks
+        this rank's rows of a sharded batch."""
         if learned is not None and len(learned) != len(self.plast_tables):
             raise ValueError(
                 f"learned must carry one entry per layer "
@@ -331,7 +434,7 @@ class _EngineBase:
                     f"({batch}, n_pre, n_post), got {tuple(base.shape)}")
             # a copy: the run's state never aliases the caller's tensors
             out.append(self._adapt_learned(
-                li, base.clone(memory_format=torch.contiguous_format)))
+                li, base[rows].clone(memory_format=torch.contiguous_format)))
         return out
 
     def apply_reward(self, reward):
@@ -360,6 +463,16 @@ class _EngineBase:
                 for li, p in enumerate(plan.keep_p)]
         return self._drop_cache[steps]
 
+    def _core_cycles(self, li, nnz, core_touched, core_writes, wall):
+        """Add layer li's per-core cycles of one step into `wall` (B,
+        n_active) from its (B, A) per-core touched / writes counts."""
+        sim = self.sim
+        lt, slices, core_idx, _ = self._layer_consts[li]
+        core_cyc = sim.cycle_model.timestep_cycles_array(
+            lt.n_pre, slices, nnz[:, None], core_touched,
+            sim.zero_skip, sim.partial_update, writes=core_writes)
+        wall.index_add_(1, core_idx, core_cyc)
+
     def _layer_counters(self, li, nnz, tc, out, wall, step, col_writes=None):
         """Per-core cycles into `wall` and the step's counters of layer li.
 
@@ -368,17 +481,13 @@ class _EngineBase:
         n_post) f32 index writes per post neuron of an STDP layer-step;
         appends to the `step` lists (a plastic run's step has "writes").
         """
-        sim = self.sim
-        lt, slices, core_idx, onehot = self._layer_consts[li]
+        onehot = self._layer_consts[li][3]
         # integer-exact per-core-slice touched counts: the cycle model
         # ceils them, and exact ints cannot straddle a ceil boundary
         core_touched = tc.to(torch.float32) @ onehot            # (B, A)
         # per-core plasticity-stage occupancy, integer-exact as well
         core_writes = None if col_writes is None else col_writes @ onehot
-        core_cyc = sim.cycle_model.timestep_cycles_array(
-            lt.n_pre, slices, nnz[:, None], core_touched,
-            sim.zero_skip, sim.partial_update, writes=core_writes)
-        wall.index_add_(1, core_idx, core_cyc)
+        self._core_cycles(li, nnz, core_touched, core_writes, wall)
         step["nnz"].append(nnz)
         step["touched"].append(tc.sum(-1).to(torch.float32))
         step["fired"].append(out.sum(-1))
@@ -412,13 +521,34 @@ class _EngineBase:
         if trains.dim() != 3:
             raise ValueError(
                 f"expected (batch, T, n_in), got {tuple(trains.shape)}")
-        if not self.plast.enabled:
-            if learned is not None:
-                raise ValueError("learned indexes passed but plasticity "
-                                 "is off")
-            return self._run(trains, None)
-        return self._run(trains, self._initial_learned(int(trains.shape[0]),
-                                                       learned))
+        if learned is not None and not self.plast.enabled:
+            raise ValueError("learned indexes passed but plasticity is off")
+        batch = int(trains.shape[0])
+        rows, group, self.last_run_sharded = self._batch_plan(batch)
+        self.last_exchange_bytes = 0
+        idx0 = (self._initial_learned(batch, learned, rows)
+                if self.plast.enabled else None)
+        ys, out_counts = self._run(trains[rows], idx0)
+        if group is False:
+            return ys, out_counts
+        keys = sorted(ys)
+        mine = [ys[k] for k in keys] + [out_counts]
+        self.last_exchange_bytes += sum(t.numel() * t.element_size()
+                                        for t in mine)
+        got = _gather_rows(mine, group)
+        return dict(zip(keys, got[:-1])), got[-1]
+
+    def _batch_plan(self, batch: int):
+        """(this rank's rows, the group gathering them or False when
+        nothing is gathered, whether the batch is split over ranks).
+        Compiled and fused: with `shard` on and a group initialised, the
+        world size divides the batch -> B / world rows a rank, gathered
+        over the default group (so at world size 1 too)."""
+        world, rank = _world()
+        if not (self.shard and _grouped() and batch % world == 0):
+            return slice(None), False, False
+        b = batch // world
+        return slice(rank * b, (rank + 1) * b), None, world > 1
 
     def run_batch(self, spike_trains, learned=None
                   ) -> tuple[torch.Tensor, list["ChipReport"]]:
@@ -560,13 +690,17 @@ class PlasticRun:
     layer's None or (B, rows, n_post) initial indexes; `rows[li]` is the
     engine's pre-synaptic width (the fused engine pads to the spike-word
     boundary; padded rows never see a spike and their pre-trace stays 0,
-    so they never write).
+    so they never write).  The sharded engine passes its shard's columns:
+    `cbws` (per layer None or the (L, width) level sets, padded columns
+    [0, inf, ...]) with idx0 of that width.
     """
 
-    def __init__(self, sim: "ChipSimulator", idx0: list, rows: list[int]):
+    def __init__(self, sim: "ChipSimulator", idx0: list, rows: list[int],
+                 cbws: list | None = None):
         self.cfg = sim.plasticity
-        self.cbws = [None if pt is None else pt[1]
-                     for pt in sim.plasticity_tables()]
+        self.cbws = (cbws if cbws is not None else
+                     [None if pt is None else pt[1]
+                      for pt in sim.plasticity_tables()])
         self.idx = list(idx0)
         self.n_pre = [int(w.shape[0]) for w in sim.weights]
         reward = self.cfg.mode == "reward"
@@ -575,7 +709,8 @@ class PlasticRun:
             return (None if idx0[li] is None else torch.zeros(
                 (int(idx0[li].shape[0]),) + shape, device=sim.device))
 
-        n_posts = [int(w.shape[1]) for w in sim.weights]
+        n_posts = [int(w.shape[1]) if c is None else int(c.shape[1])
+                   for w, c in zip(sim.weights, self.cbws)]
         self.x_pre = [zeros(li, rows[li]) for li in range(len(rows))]
         self.x_post = [zeros(li, n) for li, n in enumerate(n_posts)]
         self.elig = [zeros(li, rows[li], n) if reward else None
@@ -675,6 +810,284 @@ class CompiledEngine(_EngineBase):
         return ys, out_counts
 
 
+def n_domains_of(mapping) -> int:
+    """Fullerene domains a mapping spans (1 unless the compiler's scale-up
+    placed cores beyond the first domain)."""
+    max_node = max(a.core_id for a in mapping.assignments)
+    return (max_node // NOC.DOMAIN_STRIDE + 1 if max_node >= NOC.N_NODES
+            else 1)
+
+
+def shard_of_core(core_id: int, n_shards: int, n_domains: int) -> int:
+    """Domains map contiguously onto shards."""
+    dom = core_id // NOC.DOMAIN_STRIDE if core_id >= NOC.N_NODES else 0
+    return dom * n_shards // n_domains
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLayer:
+    """One shard's cores-axis lowering of one layer.
+
+    `w` / `nzw` hold the shard's owned weight columns (gathered by neuron
+    ownership, zero-padded to the common width `width` of every shard),
+    `onehot` the matching rows of the layer's slice-onehot, and `pos`
+    maps every global neuron id to its lane in the all-gathered bit
+    vector (shard * 16*words + local index).  Every core's neuron slice
+    lives wholly inside one shard, so per-core counters are exact partial
+    sums.  A learnable layer adds `cbw`, the owned columns' level sets
+    (padded columns [0, inf, ...], whose index 0 is a projection fixed
+    point with no traffic, so a pad never writes), and `colpos`, which
+    reassembles all-gathered local columns into global order (shard *
+    width + lane).
+    """
+
+    width: int                    # padded neurons per shard
+    words: int                    # uint16 spike words per shard
+    owned: torch.Tensor           # (n_owned,) long, ascending global ids
+    w: torch.Tensor               # (n_pre, width) f32
+    nzw: torch.Tensor             # (n_pre, width) f32
+    onehot: torch.Tensor          # (width, A) f32
+    pos: torch.Tensor             # (n_post,) long gather into S*words*16 bits
+    cbw: torch.Tensor | None      # (L, width) f32, learnable layers only
+    colpos: torch.Tensor | None   # (n_post,) long, learnable layers only
+
+
+def lower_shard(sim: "ChipSimulator", tables: EngineTables, n_shards: int,
+                n_domains: int, shard: int, plast_tables=None
+                ) -> tuple[ShardedLayer, ...]:
+    """Shard `shard`'s column blocks of every layer, on the simulator's
+    device: a rank holds its own shard only.  `plast_tables` (the
+    simulator's plasticity lowering) adds the learnable layers' level
+    sets.  A shard that owns every column keeps the simulator's own
+    tensors."""
+    dev = sim.device
+    out = []
+    for li, w in enumerate(sim.weights):
+        lt = tables.layers[li]
+        owner = np.zeros(lt.n_post, np.int64)
+        for a in sim.mapping.cores_of_layer(li + 1):
+            owner[a.neuron_lo:a.neuron_hi] = shard_of_core(
+                a.core_id, n_shards, n_domains)
+        owned = [np.flatnonzero(owner == s) for s in range(n_shards)]
+        width = max(int(o.size) for o in owned)
+        words = Z.spike_word_count(max(width, 1))
+        pos = np.zeros(lt.n_post, np.int64)
+        colpos = np.zeros(lt.n_post, np.int64)
+        for s, o in enumerate(owned):
+            pos[o] = s * words * Z.SPIKE_WORD_BITS + np.arange(o.size)
+            colpos[o] = s * width + np.arange(o.size)
+        mine = owned[shard]
+        k = int(mine.size)
+        cols = torch.as_tensor(mine, device=dev)
+        pt = None if plast_tables is None else plast_tables[li]
+        cbw = None
+        if k == lt.n_post:                       # every column, in order
+            w_l, nzw_l = w, sim.nonzero_weights[li]
+            onehot = torch.as_tensor(lt.slice_onehot, device=dev)
+            if pt is not None:
+                cbw = pt[1]
+        else:
+            w_l = torch.zeros((lt.n_pre, width), device=dev)
+            w_l[:, :k] = w[:, cols]
+            nzw_l = torch.zeros((lt.n_pre, width), device=dev)
+            nzw_l[:, :k] = sim.nonzero_weights[li][:, cols]
+            onehot = torch.zeros((width, lt.slice_onehot.shape[1]),
+                                 device=dev)
+            onehot[:k] = torch.as_tensor(lt.slice_onehot[mine], device=dev)
+            if pt is not None:
+                cbw = torch.full((pt[1].shape[0], width), torch.inf,
+                                 device=dev)
+                cbw[0] = 0.0
+                cbw[:, :k] = pt[1][:, cols]
+        out.append(ShardedLayer(
+            width=width, words=words, owned=cols, w=w_l, nzw=nzw_l,
+            onehot=onehot, pos=torch.as_tensor(pos, device=dev),
+            cbw=cbw, colpos=(None if pt is None
+                             else torch.as_tensor(colpos, device=dev))))
+    return tuple(out)
+
+
+class ShardedEngine(_EngineBase):
+    """Cores-axis engine: a multi-domain board as one SPMD program over
+    the ranks of the default process group.
+
+    Domains map contiguously onto `n_shards` shards; rank r holds shard
+    r % S of batch row r // S (`n_rows` = world / S rows).  A rank keeps
+    only its shard's weight columns (`spikes @ w_local`, `torch.matmul`
+    as in the compiled engine) and its slice of the LIF state.  After
+    each layer-step the shard packs its output spikes into uint16 words
+    (`zspe.pack_spike_words`) and all-gathers them, as bytes, over its
+    row's cores group: the domain-boundary spike traffic, 16 spikes per
+    word; the bits then go back into global neuron order for the next
+    layer's fan-in, and the drop plan applies after the gather (`fired`
+    counts before it).  Per-core counters (touched, fired, writes) are
+    exact integer partial sums, summed over the cores group, so
+    `_EngineBase.run_batch` prices NoC, contention and energy through the
+    same host f64 pipeline as the other engines.  A learnable layer
+    learns on the shard's own index columns (`PlasticRun` with the
+    shard's level sets); the final indexes and eligibilities are gathered
+    back into global order.
+
+    Composes with batch sharding: with `shard` on and a batch that the
+    rows divide, each row runs B / n_rows samples and the results are
+    all-gathered over the shard's batch group; otherwise every row runs
+    the whole batch.  `n_shards` defaults to the largest divisor of the
+    world size not above min(world, n_domains) — the reference's
+    min(devices, domains) would leave ranks without a place, which one
+    SPMD program cannot hold — and a single-domain mapping, or one
+    process, degenerates to S = 1, where the shard is the whole matrix in
+    the compiled engine's column order.  Groups are created here, so
+    every rank must build its engines in the same order.
+    """
+
+    def __init__(self, sim: "ChipSimulator", shard: bool = True,
+                 n_shards: int | None = None):
+        super().__init__(sim, shard=shard)
+        self.n_domains = n_domains_of(sim.mapping)
+        world, rank = _world()
+        if n_shards is None:
+            n_shards = max(1, min(world, self.n_domains))
+            while world % n_shards:
+                n_shards -= 1
+        if not 1 <= n_shards <= world:
+            raise ValueError(f"n_shards={n_shards} needs 1..{world} devices")
+        if n_shards > self.n_domains:
+            raise ValueError(
+                f"n_shards={n_shards} exceeds the mapping's "
+                f"{self.n_domains} domain(s) — shards split on domain "
+                f"boundaries")
+        if world % n_shards:
+            raise ValueError(
+                f"n_shards={n_shards} must divide the world size {world}: "
+                f"every rank holds one shard of one batch row")
+        S = self.n_shards = n_shards
+        self.n_rows = world // S
+        self.shard_index, self.batch_row = rank % S, rank // S
+        # the exchange groups: a batch row's shards, and a shard's rows
+        # (False: no batch gather, as one row has nothing to gather)
+        self._cores_group = self._batch_group = None
+        if _grouped():
+            self._cores_group = _subgroup(
+                [[r * S + s for s in range(S)] for r in range(self.n_rows)])
+            self._batch_group = (
+                _subgroup([[r * S + s for r in range(self.n_rows)]
+                           for s in range(S)])
+                if S == 1 or self.n_rows > 1 else False)
+        self.sharded_layers = lower_shard(
+            sim, self.tables, S, self.n_domains, self.shard_index,
+            self.plast_tables if self.plast.enabled else None)
+
+    def _batch_plan(self, batch: int):
+        """Rows of the batch when the mesh's rows divide it (gathered over
+        the shard's batch group), else the whole batch on every row."""
+        if not (self.shard and _grouped()
+                and self._batch_group is not False
+                and batch % self.n_rows == 0):
+            return slice(None), False, self.n_shards > 1
+        b = batch // self.n_rows
+        r = self.batch_row
+        return (slice(r * b, (r + 1) * b), self._batch_group,
+                self.n_shards > 1 or self.n_rows > 1)
+
+    def _local_columns(self, li: int, g: torch.Tensor) -> torch.Tensor:
+        """(B, n_pre, n_post) global learned indexes -> this shard's (B,
+        n_pre, width) columns (pads index 0)."""
+        if self.n_shards == 1:
+            return g
+        sl = self.sharded_layers[li]
+        out = g.new_zeros(tuple(g.shape[:-1]) + (sl.width,))
+        out[..., :sl.owned.numel()] = g[..., sl.owned]
+        return out
+
+    def _gather_cores(self, t: torch.Tensor) -> torch.Tensor:
+        """Every shard's `t` of this row, concatenated on the last axis in
+        shard order."""
+        if _grouped():
+            self.last_exchange_bytes += t.numel() * t.element_size()
+        return torch.cat(_all_gather_bytes(t, self._cores_group), dim=-1)
+
+    def _exchange(self, li, nnz, tc, out, col_writes, wall, step):
+        """Layer li's step counters from this shard's (B, width) touched
+        mask, spikes and writes, summed over the cores group; returns the
+        layer's (B, n_post) spikes in global order."""
+        sl = self.sharded_layers[li]
+        parts = [tc.to(torch.float32) @ sl.onehot, out @ sl.onehot]
+        if col_writes is not None:
+            parts.append(col_writes @ sl.onehot)
+        red = _all_sum(torch.stack(parts), self._cores_group)  # (k, B, A)
+        core_touched = red[0]
+        core_writes = red[2] if col_writes is not None else None
+        self._core_cycles(li, nnz, core_touched, core_writes, wall)
+        # domain-boundary exchange: 16 spikes per uint16 word
+        gathered = self._gather_cores(Z.pack_spike_words(out))
+        spikes = Z.unpack_spike_words(gathered)[:, sl.pos]
+        step["nnz"].append(nnz)
+        step["touched"].append(core_touched.sum(-1))
+        step["fired"].append(spikes.sum(-1))
+        if "writes" in step:
+            step["writes"].append(torch.zeros_like(nnz) if core_writes
+                                  is None else core_writes.sum(-1))
+        if self._has_flow[li] or self.trace.enabled:
+            step[f"fired_core_{li}"] = red[1]
+        if self.trace.enabled:
+            step[f"touched_core_{li}"] = core_touched
+        return spikes
+
+    def _run(self, trains, idx0):
+        sim = self.sim
+        B, T, _ = trains.shape
+        shl = self.sharded_layers
+        states = [init_state(sl.width, (B,), sim.device) for sl in shl]
+        learn = (None if idx0 is None else PlasticRun(
+            sim, [None if i is None else self._local_columns(li, i)
+                  for li, i in enumerate(idx0)],
+            [lt.n_pre for lt in self.tables.layers],
+            cbws=[sl.cbw for sl in shl]))
+        n_active = self.tables.n_active_cores
+        out_counts = torch.zeros((B, self.tables.layers[-1].n_post),
+                                 device=sim.device)
+        drop = self._drop_masks(T)
+        trace_skips = self.trace.enabled and self.trace.skip_words
+        steps = []
+        for t in range(T):
+            spikes = trains[:, t].contiguous()
+            wall = torch.zeros((B, n_active), device=sim.device)
+            step = _new_step(learn is not None)
+            skips = []
+            for li, sl in enumerate(shl):
+                nnz = (spikes != 0).sum(-1).to(torch.float32)
+                if trace_skips:
+                    skips.append(Z.empty_spike_words(
+                        Z.pack_spike_words(spikes)).to(torch.float32))
+                col_writes = None
+                if learn is not None and learn.learns(li):
+                    states[li], out, touched, col_writes = learn.step(
+                        li, spikes, states[li], sim.lif)
+                else:
+                    current = spikes @ sl.w                  # (B, width)
+                    states[li], out, touched = lif_step(
+                        states[li], current, sim.lif,
+                        touched=touch_mask(spikes, sl.nzw))
+                spikes = self._exchange(li, nnz, touched, out, col_writes,
+                                        wall, step)
+                # counters above are pre-drop; the next layer integrates
+                # what survived the hops
+                if drop is not None and drop[li] is not None:
+                    spikes = spikes * drop[li][t]
+            if trace_skips:
+                step["skip_words"] = skips
+            step["wall"] = wall.amax(-1)
+            out_counts += spikes
+            steps.append(step)
+        ys = self._collect(steps)
+        if learn is not None:
+            for key, loc in learn.finals().items():
+                g = self._gather_cores(loc)
+                ys[key] = (g if self.n_shards == 1 else
+                           g[..., shl[int(key.rsplit("_", 1)[1])].colpos])
+        return ys, out_counts
+
+
 class FusedEngine(_EngineBase):
     """The main path: one fused-timestep kernel per layer-step.
 
@@ -685,13 +1098,13 @@ class FusedEngine(_EngineBase):
     weights exactly.
     """
 
-    def __init__(self, sim: "ChipSimulator"):
+    def __init__(self, sim: "ChipSimulator", shard: bool = True):
         if sim.lif.reset_mode != "hard":
             raise ValueError(
                 "FusedEngine supports hard reset only (the chip's updater); "
                 f"got reset_mode={sim.lif.reset_mode!r} — use "
                 "engine='compiled'")
-        super().__init__(sim)
+        super().__init__(sim, shard=shard)
         self.fused_weights = lower_fused_weights(sim)
 
     @property

@@ -4,13 +4,12 @@ array engines and full energy/cycle accounting.
 
 Port of `repro.core.soc`.  The mapping, register-table and report code is
 numpy, copied from the reference; weights and engine state are torch
-tensors on the simulator's device.  The port has the two array engines
-(`engine="compiled"` and `engine="fused"`) and the interpretive
-`engine="reference"`, with faults (`repro_torch.faults`), tracing
-(`repro_torch.telemetry`) and on-chip plasticity
-(`repro_torch.core.plasticity`); the sharded engine raises
-`NotImplementedError` naming the ROADMAP.md item that brings it.  The
-serving tier's host model (`register_table_bytes`, `HostDmaModel`),
+tensors on the simulator's device.  The port has the three array engines
+(`engine="compiled"`, `engine="fused"` and `engine="sharded"`, the last
+over the ranks of a `torch.distributed` process group) and the
+interpretive `engine="reference"`, with faults (`repro_torch.faults`),
+tracing (`repro_torch.telemetry`) and on-chip plasticity
+(`repro_torch.core.plasticity`).  The serving tier's host model (`register_table_bytes`, `HostDmaModel`),
 `remap_mapping_cores` and the ENU control program are copies.
 """
 from __future__ import annotations
@@ -385,6 +384,13 @@ class ChipSimulator:
     * ``engine="fused"`` — `engine.FusedEngine`: each layer-step is one
       fused-timestep kernel (kernels/fused_timestep.py) on bitpacked uint16
       spike words with codebook-compressed weights.  This is the main path.
+    * ``engine="sharded"`` — `engine.ShardedEngine`: a multi-domain board
+      split by domains over the ranks of the default `torch.distributed`
+      process group (one process per card, e.g. under ``torchrun
+      --nproc-per-node=N``, or gloo ranks on the CPU), the shards
+      exchanging packed spike words after every layer-step; with no
+      group, one process runs the whole board as one shard.  Every rank
+      builds the same simulator and calls the same `run_batch`.
     * ``engine="reference"`` — the interpretive loop (one sample, one
       timestep, one layer at a time, counters crossing to the host each
       layer-step): the port's own semantic oracle, launching no kernel.
@@ -428,10 +434,6 @@ class ChipSimulator:
         if engine not in ("compiled", "fused", "sharded", "reference"):
             raise ValueError(f"engine must be 'compiled', 'fused', "
                              f"'sharded' or 'reference', got {engine!r}")
-        if engine == "sharded":
-            raise NotImplementedError(
-                "sharded is not in the PyTorch port yet; it arrives with "
-                "ROADMAP.md Queue 1 item 10 (multi-GPU ShardedEngine)")
         self.device = resolve_device(device)
         weights = list(weights)
         n_quant = sum(isinstance(w, Q.QuantizedTensor) for w in weights)
@@ -550,6 +552,7 @@ class ChipSimulator:
         self._last_trace = None    # reference-engine ChipTrace
         self._compiled = None      # CompiledEngine, built lazily
         self._fused = None         # FusedEngine, built lazily
+        self._sharded = None       # ShardedEngine, built lazily
 
     def _as_weight(self, w) -> torch.Tensor:
         if isinstance(w, torch.Tensor):
@@ -572,11 +575,25 @@ class ChipSimulator:
                 self._fused = FusedEngine(self)
         return self._fused
 
+    def sharded_engine(self, n_shards: int | None = None):
+        """The lazily-built cores-axis engine for this mapping.
+
+        ``n_shards`` (first call only) overrides the default split of the
+        mapping's domains over the process group's ranks."""
+        if self._sharded is None:
+            from repro_torch.core.engine import ShardedEngine
+            with torch.profiler.record_function("soc.lower"):
+                self._sharded = ShardedEngine(self, n_shards=n_shards)
+        return self._sharded
+
     def array_engine(self):
-        """The array engine selected at construction; raises for the
-        reference engine, which has no lowering."""
+        """The array engine selected at construction (compiled, fused or
+        sharded); raises for the reference engine, which has no
+        lowering."""
         if self.engine == "fused":
             return self.fused_engine()
+        if self.engine == "sharded":
+            return self.sharded_engine()
         if self.engine == "compiled":
             return self.compiled_engine()
         raise ValueError("the reference engine is interpretive — no "
@@ -584,12 +601,13 @@ class ChipSimulator:
 
     def _built_engine(self):
         """The selected array engine if it was built, else None."""
-        return self._fused if self.engine == "fused" else self._compiled
+        return {"fused": self._fused, "sharded": self._sharded,
+                "compiled": self._compiled}[self.engine]
 
     def last_trace(self):
         """The ChipTrace captured by the most recent run (None when the
         simulator was built without `trace=TraceConfig(enabled=True)` or
-        has not run yet).  Schema-identical across the three engines."""
+        has not run yet).  Schema-identical across the four engines."""
         if self.engine == "reference":
             return self._last_trace
         eng = self._built_engine()

@@ -975,3 +975,80 @@ def test_quantize_on_the_card_is_bitwise_the_cpu(dev, shape, group_size,
         cpu, card = quantize(w, cfg), quantize(w.to(dev), cfg)
         for a, b in zip(card[:3], cpu[:3]):
             assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def _board(dev, engine, quantized=False, sizes=(64, 120, 96, 56, 16)):
+    """A network over two fullerene domains (8 neurons a core), the
+    fixture of tests/test_sharded_engine.py, on `dev`."""
+    from repro_torch import ChipSimulator, CodebookConfig
+    from repro_torch.compiler import ChipSpec, compile_network
+
+    rng = np.random.default_rng(1)
+    ws = [rng.normal(0, 0.5, (a, b)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    cn = compile_network(ws, ChipSpec(neurons_per_core=8, max_domains=4),
+                         seed=3)
+    assert cn.n_domains_used >= 2
+    return ChipSimulator(ws, mapping=cn.to_soc_mapping(), engine=engine,
+                         quant_cfg=CodebookConfig(16, 8) if quantized
+                         else None, device=dev)
+
+
+def _board_trains(dev, batch=8, steps=10, n_in=64):
+    rng = np.random.default_rng(2)
+    return torch.tensor((rng.random((batch, steps, n_in)) < 0.25)
+                        .astype(np.float32), device=dev)
+
+
+def _same_run(got, want):
+    (ys_g, c_g), (ys_w, c_w) = got, want
+    assert set(ys_g) == set(ys_w)
+    for k in ys_w:
+        assert torch.equal(ys_g[k], ys_w[k]), k
+    assert torch.equal(c_g, c_w)
+
+
+def test_sharded_engine_one_shard_on_the_card_is_bitwise_compiled(dev):
+    """S = 1 holds the whole matrix in the compiled engine's column
+    order, so on the card too its counters are the compiled engine's."""
+    trains = _board_trains(dev)
+    comp, shrd = _board(dev, "compiled"), _board(dev, "sharded")
+    eng = shrd.array_engine()
+    assert eng.n_shards == 1 and eng.n_domains >= 2
+    _same_run(eng.run_raw(trains), comp.array_engine().run_raw(trains))
+    assert not eng.last_run_sharded and eng.last_exchange_bytes == 0
+
+
+def test_nccl_world_one_runs_the_exchange_code(dev, tmp_path):
+    """One NCCL process at world size 1: the sharded engine's word
+    exchange and counter sums and the fused engine's batch gather run
+    through the collectives and change nothing."""
+    import datetime
+
+    import torch.distributed as dist
+
+    trains = _board_trains(dev)
+    want_s = _board(dev, "compiled").array_engine().run_raw(trains)
+    want_f = _board(dev, "fused", quantized=True).array_engine().run_raw(
+        trains)
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        shrd = _board(dev, "sharded").array_engine()
+        ys, counts = got = shrd.run_raw(trains)
+        _same_run(got, want_s)
+        # the spike words of every layer-step, then the batch gather
+        words = sum(sl.words for sl in shrd.sharded_layers)
+        rows = sum(t.numel() * t.element_size()
+                   for t in [*ys.values(), counts])
+        assert shrd.last_exchange_bytes == 2 * words * 8 * 10 + rows
+        fused = _board(dev, "fused", quantized=True).array_engine()
+        FT.reset_launches()
+        _same_run(fused.run_raw(trains), want_f)
+        assert FT.launches["fused_timestep_codebook"] == 10 * 4
+        assert fused.last_exchange_bytes > 0
+        assert not fused.last_run_sharded      # one rank splits nothing
+    finally:
+        dist.destroy_process_group()

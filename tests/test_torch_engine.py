@@ -94,12 +94,22 @@ def test_single_sample_run_and_cpu_launches_uncounted():
         sim.run_batch(train)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(engine="sharded"), "Queue 1 item 10"),
-])
-def test_options_of_later_slices_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ChipSimulator(_weights((32, 16)), device="cpu", **kw)
+def test_sharded_engine_builds_and_runs_on_the_cpu():
+    """Without a process group the sharded engine is one shard holding
+    the whole matrix: the compiled engine's counts and reports."""
+    ws = _weights((32, 48, 16))
+    train = (np.random.default_rng(0).random((2, 5, 32)) < 0.3).astype(
+        np.float32)
+    sim = ChipSimulator(ws, engine="sharded", device="cpu")
+    eng = sim.array_engine()
+    assert eng is sim.sharded_engine() and eng.n_shards == 1
+    counts, reports = sim.run_batch(train)
+    want, want_reports = ChipSimulator(
+        ws, engine="compiled", mapping=sim.mapping,
+        device="cpu").run_batch(train)
+    assert torch.equal(counts, want) and not eng.last_run_sharded
+    assert [r.energy_pj for r in reports] == [r.energy_pj
+                                              for r in want_reports]
 
 
 def test_unknown_engine_and_index_weights_rejected():

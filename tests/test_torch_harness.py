@@ -6,6 +6,8 @@ tests of the port's device policy, which need no reference.
   network (same quantized tensors, mapping and register tables), under
   the same faults, trace and plasticity config when asked — built from
   the pre-fault network, since a faulted reference holds post-fault state;
+  `port_spec` / `port_from_spec` split it at the plain data, which a
+  spawned process that imports no JAX can receive;
 * `assert_step_close`: the teacher-forced layer-step comparator — the
   same inputs and state through a reference step and a port step;
 * `tie_free_trains`: a search for input trains on which no touched
@@ -63,25 +65,23 @@ def reference_arrays(ref_sim) -> dict:
                          for rt in ref_sim.register_tables])
 
 
-def port_from_reference(ref_sim, engine: str = "fused", device="cpu", *,
-                        faults=None, trace=None, plasticity=None,
-                        weights=None):
-    """A port ChipSimulator of the same network as `ref_sim`.
+def port_spec(ref_sim, *, faulted: bool = False, weights=None) -> dict:
+    """The reference simulator's network and settings as plain data
+    (numpy, tuples, the port's CodebookConfig): what `port_from_spec`
+    builds the port from, picklable into a process that imports no JAX.
 
-    `faults` / `trace` / `plasticity` are the port's FaultConfig /
-    TraceConfig / PlasticityConfig, equal to the reference's.  A faulted reference's `weights` and
-    `register_tables` are post-fault, and folding the faults in again
-    would apply them twice (a bit-flip applied twice flips back).  So
-    with `faults` the port starts from the pre-fault network and folds
-    the faults in itself: a quantized reference's QuantizedTensors (which
-    faults leave alone), with the register tables the port programs from
-    them, or for a float reference `weights`, the float matrices it was
-    built from.
+    A faulted reference's `weights` and `register_tables` are post-fault,
+    and folding the faults in again would apply them twice (a bit-flip
+    applied twice flips back).  So with `faulted` the spec holds the
+    pre-fault network, for the port to fold the faults in itself: a
+    quantized reference's QuantizedTensors (which faults leave alone),
+    with the register tables the port programs from them, or for a float
+    reference `weights`, the float matrices it was built from.
     """
-    from repro_torch import ChipSimulator, convert
+    from repro_torch import CodebookConfig
 
     arrays = reference_arrays(ref_sim)
-    if faults is not None:
+    if faulted:
         if ref_sim.qweights is None:
             if weights is None:
                 raise ValueError(
@@ -89,18 +89,43 @@ def port_from_reference(ref_sim, engine: str = "fused", device="cpu", *,
                     "pass the pre-fault `weights` it was built from")
             arrays["layers"] = [np.asarray(w, np.float32) for w in weights]
         arrays["register_tables"] = None
-    conv = convert(**arrays, device=device)
+    return dict(arrays=arrays,
+                quant_cfg=(CodebookConfig(**dataclasses.asdict(
+                    ref_sim.quant_cfg)) if ref_sim.qweights is not None
+                           else None),
+                freq_hz=ref_sim.freq_hz, zero_skip=ref_sim.zero_skip,
+                partial_update=ref_sim.partial_update,
+                leak=ref_sim.lif.leak, threshold=ref_sim.lif.threshold)
+
+
+def port_from_spec(spec: dict, engine: str = "fused", device="cpu", *,
+                   faults=None, trace=None, plasticity=None):
+    """A port ChipSimulator of a `port_spec`; `faults` / `trace` /
+    `plasticity` are the port's FaultConfig / TraceConfig /
+    PlasticityConfig."""
+    from repro_torch import ChipSimulator, convert
+
+    conv = convert(**spec["arrays"], device=device)
     return ChipSimulator(conv.weights, mapping=conv.mapping,
                          register_tables=conv.register_tables,
-                         quant_cfg=ref_sim.quant_cfg if ref_sim.qweights
-                         is not None else None,
-                         freq_hz=ref_sim.freq_hz,
-                         zero_skip=ref_sim.zero_skip,
-                         partial_update=ref_sim.partial_update,
-                         leak=ref_sim.lif.leak,
-                         threshold=ref_sim.lif.threshold,
+                         quant_cfg=spec["quant_cfg"],
+                         freq_hz=spec["freq_hz"],
+                         zero_skip=spec["zero_skip"],
+                         partial_update=spec["partial_update"],
+                         leak=spec["leak"], threshold=spec["threshold"],
                          engine=engine, faults=faults, trace=trace,
                          plasticity=plasticity, device=device)
+
+
+def port_from_reference(ref_sim, engine: str = "fused", device="cpu", *,
+                        faults=None, trace=None, plasticity=None,
+                        weights=None):
+    """A port ChipSimulator of the same network as `ref_sim`, under the
+    port's `faults` / `trace` / `plasticity` configs, equal to the
+    reference's (see `port_spec` for a faulted reference's `weights`)."""
+    return port_from_spec(
+        port_spec(ref_sim, faulted=faults is not None, weights=weights),
+        engine, device, faults=faults, trace=trace, plasticity=plasticity)
 
 
 # ---------------------------------------------------------------------------
