@@ -195,8 +195,32 @@ Phases, each of which must pass:
    A rank that fails, hangs past its deadline or exits non-zero fails
    the phase.
 
+13. MoE and C3 codebook-quantized LM serving — right after phase 6: (a)
+   `Server` on granite-moe-1b-a400m ARCH (24 layers, d 1024, 16 / 8
+   heads, 32 experts top-8, groups of 256, bf16, random weights from
+   --seed): phase 6's 8 requests of 512 prompt tokens, 4 slots, 16 new
+   each; exactly 48 flash launches (2 prefill batches x 24 layers), all
+   on the tensor-core kernel, and no codebook launch; tokens/s, prefill
+   and decode ms, peak memory, the idle share over one batch; (b) the
+   same weights C3-quantized (`quant.lm_quant.quantize_blocks`, int8,
+   fitted on the card; seconds and weight bytes before and after) and
+   served with `quant_serving` to the same requests and columns: exactly
+   24 x 5 (wq, wk, wv, wo, router) x 32 forward passes = 3840
+   `codebook_matmul` launches (the expert stacks are gathered dense, as
+   in the reference); last-token logits of one 512-token prefill against
+   a dense bf16 model of every leaf's cb.to(bf16)[idx] within phase 6's
+   0.125, greedy tokens equal where the top-2 gap is not below it; every
+   layer's codebook call of one decode step against the plain product
+   by phase 3's rule; the kernel at the decode shapes (M = 4; K x N =
+   1024 x 1024, 1024 x 512, 1024 x 32) beside `x @ cb[idx]` and the
+   bound; (c) 4-bit C3 on granite-3-2b at full width, depth cut to 8
+   layers: one prefill of 4 x 512 tokens and 15 greedy decode steps,
+   exactly 8 x 7 x 16 = 896 codebook launches and 8 flash launches,
+   every step's logits within 0.125 of the dense dequantized model fed
+   the same tokens.
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 11, 12, 5 and 6); the last line is
+4, 7, 8, 9, 11, 12, 5, 6 and 13); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -3150,6 +3174,120 @@ def _serve_once(cfg, model, prompts, instrument=None):
     return srv.run()
 
 
+def _measured_serve(cfg, model, prompts, what: str, want: dict,
+                    **extra) -> dict:
+    """A warm-up batch, then the served run with every LM launch count
+    from 0 just before it and read just after (they must equal `want`):
+    tokens/s, prefill and decode ms per call (each call is timed between
+    two synchronisations; the server crosses to the host after each call
+    anyway, so the run's wall time is the same as without them), peak
+    memory; then one batch's device breakdown (a prefill and its decode
+    steps) against the same batch unprofiled: the profiler's own host
+    cost grows with the thousands of ops of every decode step."""
+    import torch
+
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.kernels import flash_attention as FA
+
+    _serve_once(cfg, model, prompts[:LM_SLOTS])          # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phase = {"prefill": [], "decode": []}
+    FA.reset_launches()
+    CBM.reset_launches()
+    t0 = time.perf_counter()
+    done = _serve_once(cfg, model, prompts, phase)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**FA.launches, **CBM.launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{want}")
+    toks = [r.out_tokens for r in done]
+    if len(done) != len(prompts) or any(
+            len(t) != LM_NEW or min(t) < 0 or max(t) >= cfg.vocab
+            for t in toks):
+        raise AssertionError(f"{what}: bad served tokens {toks}")
+    n_tok = sum(len(t) for t in toks)
+    perf = {"tokens_per_s": n_tok / wall, "ms_per_run": wall * 1e3,
+            "tokens": n_tok, "launches": launches,
+            "prefill_ms_per_batch": statistics.median(phase["prefill"]),
+            "decode_ms_per_step": statistics.median(phase["decode"]),
+            "prefill_batches": len(phase["prefill"]),
+            "decode_steps": len(phase["decode"]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **extra}
+    log(f"{what}: {len(prompts)} requests x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each, {LM_SLOTS} slots: {json.dumps(perf)}; first "
+        f"tokens {[t[:4] for t in toks[:2]]}")
+    batch = prompts[:LM_SLOTS]
+    t0 = time.perf_counter()
+    _serve_once(cfg, model, batch)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    perf.update(batch_ms=batch_ms, **_device_breakdown(
+        lambda: _serve_once(cfg, model, batch), batch_ms,
+        (("flash_kernel_ms", "flash_attention"),
+         ("codebook_kernel_ms", "codebook_matmul"))))
+    perf["out_tokens"] = toks
+    return perf
+
+
+def _lm_model(name: str, seed: int, **replace):
+    """An LM config of the registry at full width (fields replaced as
+    given), its random weights from the port's init on the card, the
+    seconds that took, and its parameter count held against the analytic
+    one plus the norm weights, which `param_count` leaves out."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch(name), **replace)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(
+        seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    norms = 2 * cfg.d_model * cfg.n_layers
+    if n_params != cfg.param_count() + norms:
+        raise AssertionError(f"{n_params} parameters, ArchConfig says "
+                             f"{cfg.param_count()} + {norms} norm weights")
+    return cfg, model, init_s, n_params
+
+
+def _prompts(seed: int, vocab: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, LM_PROMPT).astype(np.int32)
+            for _ in range(LM_REQUESTS)]
+
+
+def _hold_logits(what: str, got, want) -> float:
+    """Logits (rows, V) of two routes of one function: finite, within
+    LM_LOGIT_TOL, and the greedy token equal wherever `want`'s top-2 gap
+    is at least the tolerance; returns the max difference."""
+    got, want = got.float(), want.float()
+    if not bool(want.isfinite().all() & got.isfinite().all()) or \
+            got.shape != want.shape:
+        raise AssertionError(f"{what}: bad logits {tuple(got.shape)}")
+    diff = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flipped = got.argmax(-1) != want.argmax(-1)
+    log(f"{what}: max |logit diff| {diff:.4g} (tolerance {LM_LOGIT_TOL}, "
+        f"logits up to {float(want.abs().max()):.3g}); greedy tokens differ "
+        f"in {int(flipped.sum())} of {want.shape[0]} rows; top-2 gaps "
+        f"{[round(float(g), 4) for g in gap]}")
+    if diff > LM_LOGIT_TOL:
+        raise AssertionError(f"{what}: logits differ by {diff}")
+    if bool((flipped & (gap >= LM_LOGIT_TOL)).any()):
+        raise AssertionError(f"{what}: a greedy token differs away from a "
+                             f"near-tie")
+    return diff
+
+
 def serving_path(seed: int) -> dict:
     """granite-3-2b at full width, bf16, random weights from the port's
     init: 8 requests of 512 prompt tokens through a 4-slot `Server`, 16
@@ -3158,73 +3296,21 @@ def serving_path(seed: int) -> dict:
     version on the same q / k / v."""
     import torch
 
-    from repro_torch.configs import registry as R
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import attention as ATT
     from repro_torch.models import transformer as T
 
     dev = torch.device(DEVICE)
-    cfg = R.get_arch(LM_ARCH)
-    t0 = time.perf_counter()
-    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(seed))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    norms = 2 * cfg.d_model * cfg.n_layers    # not in the analytic count
-    if n_params != cfg.param_count() + norms:
-        raise AssertionError(f"{n_params} parameters, ArchConfig says "
-                             f"{cfg.param_count()} + {norms} norm weights")
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
-               for _ in range(LM_REQUESTS)]
-    _serve_once(cfg, model, prompts[:LM_SLOTS])          # warm up
-    torch.cuda.synchronize()
+    cfg, model, init_s, n_params = _lm_model(LM_ARCH, seed)
+    prompts = _prompts(seed, cfg.vocab)
 
-    # (b) the served run: the counts from 0 just before, read just after.
-    # Each prefill / decode call is timed between two synchronisations;
-    # the server crosses to the host after each call anyway, so the run's
-    # wall time is the same as without them.
-    torch.cuda.reset_peak_memory_stats()
-    phase = {"prefill": [], "decode": []}
-    FA.reset_launches()
-    t0 = time.perf_counter()
-    done = _serve_once(cfg, model, prompts, phase)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(FA.launches)
+    # (b) the served run: 2 prefill batches x 40 layers on the flash kernel
     want = -(-LM_REQUESTS // LM_SLOTS) * cfg.n_layers
-    if launches != {"flash_attention": want, "flash_attention_wgmma": want}:
-        raise AssertionError(f"served run launches {launches}, expected "
-                             f"{want} flash launches, all on the "
-                             f"tensor-core kernel")
-    toks = [r.out_tokens for r in done]
-    if len(done) != LM_REQUESTS or any(
-            len(t) != LM_NEW or min(t) < 0 or max(t) >= cfg.vocab
-            for t in toks):
-        raise AssertionError(f"bad served tokens {toks}")
-    n_tok = sum(len(t) for t in toks)
-    perf = {"tokens_per_s": n_tok / wall, "ms_per_run": wall * 1e3,
-            "tokens": n_tok, "launches": launches,
-            "prefill_ms_per_batch": statistics.median(phase["prefill"]),
-            "decode_ms_per_step": statistics.median(phase["decode"]),
-            "prefill_batches": len(phase["prefill"]),
-            "decode_steps": len(phase["decode"]),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "init_s": init_s, "n_params": n_params}
-    log(f"served run: {LM_REQUESTS} requests x {LM_PROMPT} prompt tokens, "
-        f"{LM_NEW} new each, {LM_SLOTS} slots: {json.dumps(perf)}; first "
-        f"tokens {[t[:4] for t in toks[:2]]}")
-    # the device breakdown of one batch (a prefill and its decode steps),
-    # against the same batch unprofiled: the profiler's own host cost
-    # grows with the ~5,000 ops of every decode step
-    batch = prompts[:LM_SLOTS]
-    t0 = time.perf_counter()
-    _serve_once(cfg, model, batch)
-    torch.cuda.synchronize()
-    batch_ms = (time.perf_counter() - t0) * 1e3
-    perf.update(batch_ms=batch_ms, **_device_breakdown(
-        lambda: _serve_once(cfg, model, batch), batch_ms,
-        (("flash_kernel_ms", "flash_attention"),)))
+    perf = _measured_serve(
+        cfg, model, prompts, "served run",
+        {"flash_attention": want, "flash_attention_wgmma": want,
+         "codebook_matmul": 0}, init_s=init_s, n_params=n_params)
+    perf.pop("out_tokens")
 
     # (c) the path held together at full width
     tokens = torch.as_tensor(np.stack(prompts[:LM_SLOTS]), device=dev)
@@ -3253,25 +3339,391 @@ def serving_path(seed: int) -> dict:
     torch.cuda.synchronize()
     if FA.launches["flash_attention"] != 0:
         raise AssertionError("prefill over 511 tokens took the flash route")
-    full, got = full.float(), got.float()
-    if not (bool(full.isfinite().all()) and full.shape == (LM_SLOTS,
-                                                           cfg.vocab)):
-        raise AssertionError(f"bad logits {tuple(full.shape)}")
-    diff = float((full - got).abs().max())
-    top2 = full.topk(2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
-    flipped = full.argmax(-1) != got.argmax(-1)
-    log(f"prefill(512) vs prefill(511) + decode: max |logit diff| {diff:.4g} "
-        f"(tolerance {LM_LOGIT_TOL}, logits up to "
-        f"{float(full.abs().max()):.3g}); greedy tokens differ in "
-        f"{int(flipped.sum())} of {LM_SLOTS} rows; top-2 gaps "
-        f"{[round(float(g), 4) for g in gap]}")
-    if diff > LM_LOGIT_TOL:
-        raise AssertionError(f"prefill and decode logits differ by {diff}")
-    if bool((flipped & (gap >= LM_LOGIT_TOL)).any()):
-        raise AssertionError("a greedy token differs away from a near-tie")
+    diff = _hold_logits("prefill(512) vs prefill(511) + decode", got, full)
     perf.update(layer_max_abs_err=max(layer_err), decode_logit_diff=diff)
     return perf
+
+
+# ---------------------------------------------------------------------------
+# phase 13: MoE and C3 codebook-quantized LM serving
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"   # configs/granite_moe_1b_a400m.py ARCH
+C3_DENSE_LAYERS = 8             # (c): granite-3-2b at full width, 8 layers
+C3_DECODE_STEPS = 15            # (c): decode steps after its one prefill
+# (b): the quantized 2-D products of one forward pass of granite-moe
+# (wq, wk, wv, wo, router); (c): granite-3-2b's seven
+MOE_PROJECTIONS = ("wq", "wk", "wv", "wo", "router")
+DENSE_PROJECTIONS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wg", "mlp_wo")
+
+
+def _unpack4(packed):
+    """Two 4-bit indexes a byte (low nibble first) as int64."""
+    import torch
+
+    return torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(
+        *packed.shape[:-1], -1).long()
+
+
+def _dequantized_model(cfg, qmodel, dtype):
+    """The dense model of the same function as the quantized one: every
+    quantized leaf as cb.to(dtype)[idx], so its products are plain
+    `torch.matmul`s of the weights the kernel route multiplies."""
+    from repro_torch.models import transformer as T
+
+    blocks = []
+    for block in qmodel.blocks:
+        lp = {}
+        for name, v in block.leaves().items():
+            if isinstance(v, dict):
+                idx = v["idx"].long() if "idx" in v else _unpack4(v["idx4"])
+                lp[name] = v["cb"].to(dtype)[idx]
+            else:
+                lp[name] = v.detach()
+        blocks.append(lp)
+    return T.Transformer(cfg, qmodel.embed.detach(), qmodel.unembed.detach(),
+                         qmodel.final_norm.detach(), blocks)
+
+
+def _quantize_timed(model, what: str, pack_4bit: bool = False):
+    """`quantize_blocks` on the card, timed, with its weight bytes."""
+    import torch
+
+    from repro_torch.quant import lm_quant as Q
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = Q.quantize_blocks(model, pack_4bit=pack_4bit)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    before, after = Q.quantized_bytes(qmodel)
+    leaves = {n for n, v in qmodel.blocks[0].leaves().items()
+              if isinstance(v, dict)}
+    out = {"quantize_s": sec, "bytes_before": before, "bytes_after": after,
+           "quantized": sorted(leaves)}
+    log(f"{what}: C3 quantized serving: weight bytes {before / 2**20:.1f} -> "
+        f"{after / 2**20:.1f} MiB; {json.dumps(out)}")
+    return qmodel, out
+
+
+def _checked_codebook_calls(fn) -> tuple:
+    """`fn()` with every codebook_matmul call held against the plain
+    product on the same operands by phase 3's rule (f64, one rounding);
+    returns fn's result, the calls' count and their max difference."""
+    import torch
+
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    kernel = CBM.codebook_matmul
+    err = []
+
+    def checked(x, idx, cb):
+        out = kernel(x, idx, cb)
+        want = _exact_product(x, CBM.dequantize(idx, cb))
+        torch.cuda.synchronize()
+        err.append(_assert_close(f"codebook_matmul {tuple(x.shape)} x "
+                                 f"{tuple(idx.shape)} {x.dtype}", out, want))
+        return out
+
+    CBM.codebook_matmul = checked
+    try:
+        result = fn()
+    finally:
+        CBM.codebook_matmul = kernel
+    return result, len(err), max(err) if err else 0.0
+
+
+def _codebook_decode_timing(seed: int, cfg) -> list:
+    """codebook_matmul at granite-moe's decode shapes (M = the server's
+    slots, bf16 x, a bf16-exact codebook): kernel, plain version, the
+    library's `x @ cb[idx]` and the bound."""
+    import torch
+
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    rng = np.random.default_rng(seed + 13)
+    d, hd = cfg.d_model, cfg.hd
+    rows = []
+    for k, n in ((d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                 (d, cfg.n_experts)):
+        x = torch.as_tensor(rng.normal(0, 1, (LM_SLOTS, k)).astype(
+            np.float32), device=DEVICE).to(torch.bfloat16)
+        idx = torch.as_tensor(rng.integers(0, 16, (k, n)).astype(np.int8),
+                              device=DEVICE)
+        cb = torch.as_tensor(np.sort(rng.normal(0, 0.05, 16)).astype(
+            np.float32), device=DEVICE).to(torch.bfloat16).float()
+        ix, cb16 = idx.long(), cb.to(torch.bfloat16)
+        row = _time_api_case(
+            LM_SLOTS, k, n, lambda: CBM.codebook_matmul(x, idx, cb),
+            lambda: CBM.codebook_matmul_plain(x, idx, cb),
+            lambda: x @ cb16[ix],
+            _roof(x.numel() * 2 + idx.numel() + cb.numel() * 4
+                  + LM_SLOTS * n * 4, 2 * LM_SLOTS * k * n))
+        row["max_abs_err"] = _assert_close(
+            f"codebook_matmul decode {k} x {n}",
+            CBM.codebook_matmul(x, idx, cb),
+            _exact_product(x, CBM.dequantize(idx, cb)))
+        rows.append(row)
+        log(f"kernel codebook_matmul at the decode shape (M, K, N) = "
+            f"{(LM_SLOTS, k, n)} bf16: {json.dumps(row)}")
+    return rows
+
+
+# Top-k routing is not continuous: a router logit one bf16 ulp apart
+# between two routes of one moe function can swap an expert (or a tied
+# pair's first), and a swap moves the capacity fill of every later token
+# of its group.  Phase 13 (b) pins the routing: one route's dispatch is
+# recorded per layer and replayed into the other, whose combine weights
+# come from its own router probabilities (combine = dispatch x probs,
+# what the rounds of `top_k_dispatch` compute).
+
+def _dispatching(hook, fn):
+    """`fn()` with `models.moe.top_k_dispatch` replaced by `hook`."""
+    from repro_torch.models import moe as MOE
+
+    dispatch = MOE.top_k_dispatch
+    MOE.top_k_dispatch = hook
+    try:
+        return fn()
+    finally:
+        MOE.top_k_dispatch = dispatch
+
+
+def _recorder(routes: list):
+    from repro_torch.models import moe as MOE
+
+    dispatch = MOE.top_k_dispatch
+
+    def record(probs, k, cap):
+        d, c = dispatch(probs, k, cap)
+        routes.append(d)
+        return d, c
+    return record
+
+
+def _replayer(routes: list):
+    it = iter(routes)
+
+    def replay(probs, k, cap):
+        d = next(it)
+        return d, d * probs[..., None]
+    return replay
+
+
+def _bf16_ulp(x) -> float:
+    """The bf16 spacing at the largest |x|."""
+    m = max(float(x.float().abs().max()), 2.0 ** -126)
+    return 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def _moe_layerwise(what: str, cfg, got_model, want_model, transform,
+                   tokens) -> dict:
+    """Every layer of two routes of one moe prefill on the same input, the
+    got route's output of the layer before, with the routing pinned: each
+    layer's outputs within two bf16 ulps of its largest element (a bf16
+    product of either route is within half an ulp of the exact one, and a
+    layer rounds its attention and feed-forward outputs once each), then
+    the last-token logits of the last layer's two outputs by
+    `_hold_logits`."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        x = T.embed_tokens(got_model, cfg, tokens)
+        worst = []
+        for got_block, want_block in zip(got_model.blocks,
+                                         want_model.blocks):
+            routes = []
+            got = _dispatching(_recorder(routes), lambda: T._attn_mlp_block(
+                x, transform(got_block.leaves()), cfg)[0])
+            want = _dispatching(_replayer(routes), lambda: T._attn_mlp_block(
+                x, want_block, cfg)[0])
+            d = float((got.float() - want.float()).abs().max())
+            ulp = _bf16_ulp(want)
+            worst.append(d / ulp)
+            if d > 2 * ulp:
+                raise AssertionError(f"{what}: layer {len(worst) - 1} "
+                                     f"differs by {d} ({d / ulp} bf16 ulp)")
+            x = got
+        torch.cuda.synchronize()
+        diff = _hold_logits(f"{what}, the last layer's logits",
+                            T._logits(got_model, cfg, got[:, -1]),
+                            T._logits(want_model, cfg, want[:, -1]))
+    log(f"{what}: every layer within 2 bf16 ulp of its largest output "
+        f"(max {max(worst):.3g} ulp; per layer "
+        f"{[round(w, 3) for w in worst]})")
+    return {"layer_max_ulp": max(worst), "layer_logit_diff": diff}
+
+
+def _moe_routes(what: str, run_got, run_want) -> dict:
+    """Two routes of one moe prefill end to end (each a callable returning
+    (logits, state)): `want`'s logits free and with `got`'s routing
+    replayed, and the token-layers routed otherwise; logged, not held
+    (the two routes' roundings compound over the layers).  Replaying
+    `got`'s routes into its own route must give its logits bitwise."""
+    import torch
+
+    def run(fn, hook):
+        logits, _ = _dispatching(hook, fn)
+        torch.cuda.synchronize()
+        return logits
+
+    got_routes, free_routes = [], []
+    got = run(run_got, _recorder(got_routes))
+    if not torch.equal(run(run_got, _replayer(got_routes)), got):
+        raise AssertionError(f"{what}: a replayed route is not bitwise "
+                             f"the route it recorded")
+    free = run(run_want, _recorder(free_routes))
+    pinned = run(run_want, _replayer(got_routes))
+    out = {"routes_moved": sum(
+               int((a != b).flatten(2).any(-1).any(-1).sum())
+               for a, b in zip(got_routes, free_routes)),
+           "token_layers": sum(int(a.shape[0] * a.shape[1])
+                               for a in got_routes),
+           "free_logit_diff": float((got.float() - free.float()).abs()
+                                    .max()),
+           "pinned_logit_diff": float((got.float() - pinned.float()).abs()
+                                      .max())}
+    log(f"{what}, end to end: routing free, max |logit diff| "
+        f"{out['free_logit_diff']:.4g}, the routes differ in "
+        f"{out['routes_moved']} of {out['token_layers']} token-layers; "
+        f"routing pinned, max |logit diff| {out['pinned_logit_diff']:.4g} "
+        f"(logits up to {float(got.float().abs().max()):.3g})")
+    return out
+
+
+def moe_c3_path(seed: int, smi: str) -> dict:
+    """Phase 13: (a) granite-moe-1b-a400m served at full width; (b) the
+    same weights C3-quantized (int8) on the card and served, the kernel
+    route held against the dense dequantized model and every layer's
+    codebook call of a decode step against the plain product; (c) 4-bit
+    C3 on granite-3-2b at full width, 8 layers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import lm_quant as Q
+
+    out = {"seconds": {}}
+    part = time.perf_counter()
+    cfg, model, init_s, n_params = _lm_model(MOE_ARCH, seed)
+    prompts = _prompts(seed + 13, cfg.vocab)
+    batches = -(-LM_REQUESTS // LM_SLOTS)
+    flash = batches * cfg.n_layers
+    # (a) bf16 weights: 2 prefill batches x 24 layers on the flash kernel
+    out["a"] = _measured_serve(
+        cfg, model, prompts, "phase 13 (a) moe served run",
+        {"flash_attention": flash, "flash_attention_wgmma": flash,
+         "codebook_matmul": 0}, init_s=init_s, n_params=n_params)
+    out["a"].pop("out_tokens")
+    out["seconds"]["a"] = time.perf_counter() - part
+
+    # (b) the same weights, int8 C3, fitted on the card
+    part = time.perf_counter()
+    qmodel, out["b_quant"] = _quantize_timed(model, "phase 13 (b)")
+    if set(out["b_quant"]["quantized"]) != set(MOE_PROJECTIONS) | {
+            "moe_wi", "moe_wg", "moe_wo"}:
+        raise AssertionError(f"phase 13 (b): quantized leaves "
+                             f"{out['b_quant']['quantized']}")
+    del model
+    qcfg = dataclasses.replace(cfg, quant_serving=True)
+    passes = batches * LM_NEW            # a prefill + 15 steps per batch
+    out["b"] = _measured_serve(
+        qcfg, qmodel, prompts, "phase 13 (b) C3 int8 served run",
+        {"flash_attention": flash, "flash_attention_wgmma": flash,
+         "codebook_matmul": cfg.n_layers * len(MOE_PROJECTIONS) * passes})
+    out["b"].pop("out_tokens")
+    pt = Q.make_param_transform(cfg.dtype)
+    dense = _dequantized_model(cfg, qmodel, cfg.dtype)
+    tokens = torch.as_tensor(np.stack(prompts[:LM_SLOTS]), device=DEVICE)
+
+    what = "phase 13 (b) kernel route vs dense dequantized"
+    out["b"].update(_moe_layerwise(what, cfg, qmodel, dense, pt, tokens))
+    out["b"].update(_moe_routes(
+        what, lambda: T.forward_prefill(qmodel, cfg, {"tokens": tokens},
+                                        LM_CACHE, param_transform=pt),
+        lambda: T.forward_prefill(dense, cfg, {"tokens": tokens},
+                                  LM_CACHE)))
+    got, st = T.forward_prefill(qmodel, cfg, {"tokens": tokens}, LM_CACHE,
+                                param_transform=pt)
+    step = got.argmax(-1, keepdim=True).to(torch.int32)
+    (_, _), calls, err = _checked_codebook_calls(
+        lambda: T.forward_decode(qmodel, cfg, st, step, param_transform=pt))
+    if calls != cfg.n_layers * len(MOE_PROJECTIONS):
+        raise AssertionError(f"phase 13 (b): {calls} codebook calls in one "
+                             f"decode step")
+    out["b"]["decode_call_max_abs_err"] = err
+    log(f"phase 13 (b): every layer's codebook_matmul call of one decode "
+        f"step ({calls}) agrees with the plain product (max |diff| "
+        f"{err:.3g}, tolerance {V_ATOL} + {V_RTOL} |want|)")
+    del qmodel, dense, st
+    out["codebook_decode"] = _codebook_decode_timing(seed, cfg)
+    out["seconds"]["b"] = time.perf_counter() - part
+
+    # (c) 4-bit C3 on a dense model: granite-3-2b, depth cut to 8 layers
+    part = time.perf_counter()
+    dcfg, dmodel, _, _ = _lm_model(LM_ARCH, seed + 1,
+                                   n_layers=C3_DENSE_LAYERS)
+    q4, out["c_quant"] = _quantize_timed(dmodel, "phase 13 (c)",
+                                         pack_4bit=True)
+    del dmodel
+    if set(out["c_quant"]["quantized"]) != set(DENSE_PROJECTIONS):
+        raise AssertionError(f"phase 13 (c): quantized leaves "
+                             f"{out['c_quant']['quantized']}")
+    pt4 = Q.make_param_transform(dcfg.dtype)
+    dense4 = _dequantized_model(dcfg, q4, dcfg.dtype)
+    toks = torch.as_tensor(np.stack(_prompts(seed + 14, dcfg.vocab)[
+        :LM_SLOTS]), device=DEVICE)
+    FA.reset_launches()
+    CBM.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, st = T.forward_prefill(q4, dcfg, {"tokens": toks}, LM_CACHE,
+                                param_transform=pt4)
+    logits = [got]
+    for _ in range(C3_DECODE_STEPS):
+        got, st = T.forward_decode(q4, dcfg, st, logits[-1].argmax(
+            -1, keepdim=True).to(torch.int32), param_transform=pt4)
+        logits.append(got)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = {**FA.launches, **CBM.launches}
+    want4 = {"flash_attention": dcfg.n_layers,
+             "flash_attention_wgmma": dcfg.n_layers,
+             "codebook_matmul": dcfg.n_layers * len(DENSE_PROJECTIONS)
+             * (1 + C3_DECODE_STEPS)}
+    if launches != want4:
+        raise AssertionError(f"phase 13 (c): launches {launches}, expected "
+                             f"{want4}")
+    feed = [lg.argmax(-1, keepdim=True).to(torch.int32) for lg in logits]
+
+    def dense_steps():
+        ref, st = T.forward_prefill(dense4, dcfg, {"tokens": toks}, LM_CACHE)
+        refs = [ref]
+        for tok in feed[:-1]:
+            ref, st = T.forward_decode(dense4, dcfg, st, tok)
+            refs.append(ref)
+        torch.cuda.synchronize()
+        return refs
+
+    diffs = [_hold_logits(
+        f"phase 13 (c) 4-bit kernel route vs dense dequantized, "
+        f"{'prefill(512)' if i == 0 else f'decode step {i}'}", got, ref)
+        for i, (got, ref) in enumerate(zip(logits, dense_steps()))]
+    out["c"] = {"launches": launches, "ms": run_ms, "logit_diffs": diffs}
+    out["seconds"]["c"] = time.perf_counter() - part
+    log(f"phase 13 (c) 4-bit granite-3-2b, {dcfg.n_layers} layers, one "
+        f"prefill of {LM_SLOTS} x {LM_PROMPT} + {C3_DECODE_STEPS} decode "
+        f"steps ({smi}): {json.dumps(out['c'])}")
+    out["launches"] = {
+        k: out["a"]["launches"][k] + out["b"]["launches"][k] + launches[k]
+        for k in ("flash_attention", "codebook_matmul")}
+    log(f"phase 13 seconds: {json.dumps(out['seconds'])}")
+    return out
 
 
 # instructions a built library must hold: the flash kernel's bf16 wgmma
@@ -3390,16 +3842,24 @@ def main() -> int:
     log(f"LM serving phase: {time.perf_counter() - t0:.1f} s (kernel "
         f"checks {t1 - t0:.1f} s)")
 
+    # 13. MoE and C3 codebook-quantized LM serving
+    t0 = time.perf_counter()
+    mq = moe_c3_path(args.seed, smi)
+    log(f"MoE and C3 serving phase: {time.perf_counter() - t0:.1f} s")
+
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
     # server), phase 11 (deploy and adaptation), phase 12 (the spawned
     # ranks' batch-sharded fused runs), phase 5 (kernel API, all three
-    # loops) and phase 6 (the served LM run)
+    # loops), phase 6 (the served LM run) and phase 13 (the served moe
+    # runs, bf16 and C3 int8, and the 4-bit dense run)
     launches = dict(mp["launches"])
     for loop in [fp, pp, sp, dp, shp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
-    launches["flash_attention"] = lm["launches"]["flash_attention"]
+    launches["flash_attention"] = (lm["launches"]["flash_attention"]
+                                   + mq["launches"]["flash_attention"])
+    launches["codebook_matmul"] += mq["launches"]["codebook_matmul"]
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {
         "fused_timestep_codebook": ("fused_timestep.cu",

@@ -1,8 +1,8 @@
-"""Architecture registry of the port: the reference's names, dense family.
+"""Architecture registry of the port: the reference's names.
 
-`get_arch` serves the four dense configs (copies of `repro.configs`); the
-other families' names are listed in `ARCH_NAMES` but raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+`get_arch` serves the four dense and the two moe configs (copies of
+`repro.configs`); the other families' names are listed in `ARCH_NAMES`
+but raise `NotImplementedError` naming the ROADMAP item that ports them.
 `input_specs` (jax.ShapeDtypeStruct stand-ins for the dry run) has no
 counterpart: the port runs, it does not lower.
 """
@@ -17,12 +17,12 @@ _MODULES = {
     "mistral-large-123b": "mistral_large_123b",
     "yi-9b": "yi_9b",
     "granite-3-2b": "granite_3_2b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 # name -> the ROADMAP item (Queue 1) that brings its family to the port
 _NOT_PORTED = {
-    "moonshot-v1-16b-a3b": "#16 (moe family, models/moe.py)",
-    "granite-moe-1b-a400m": "#16 (moe family, models/moe.py)",
     "zamba2-2.7b": "#17 (ssm and hybrid families, models/mamba2.py)",
     "mamba2-130m": "#17 (ssm and hybrid families, models/mamba2.py)",
     "whisper-tiny": "#18 (audio family: encoder, cross-attention)",
@@ -38,7 +38,7 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name}: its family is not ported yet (ROADMAP Queue 1 "
-            f"{_NOT_PORTED[name]}); the port serves the dense configs "
+            f"{_NOT_PORTED[name]}); the port serves "
             f"{sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")

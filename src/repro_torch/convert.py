@@ -90,17 +90,29 @@ def _lm_tensor(a, dev) -> torch.Tensor:
 def convert_lm(params: _Map, cfg, device=None):
     """The port's `Transformer` from the reference's nested parameter dict
     as numpy arrays: `embed`, `unembed`, `final_norm` and `blocks` of
-    stacked (L, ...) per-layer arrays.  Types are kept, bf16 included;
+    stacked (L, ...) per-layer arrays.  A block leaf may be the
+    reference's C3-quantized leaf (`repro.quant.lm_quant.quantize_blocks`),
+    a dict of stacked `idx` (int8) or `idx4` (packed uint8) and `cb`
+    (L, N); each layer gets its slice.  Types are kept, bf16 included;
     tensors go to `device` (default: the card)."""
     from repro_torch.models.transformer import Transformer
 
     dev = resolve_device(device)
     blocks = params["blocks"]
-    counts = {name: len(arr) for name, arr in blocks.items()}
+
+    def layers_of(leaf) -> int:
+        return len(leaf["cb"]) if isinstance(leaf, _Map) else len(leaf)
+
+    def layer(leaf, i):
+        if isinstance(leaf, _Map):
+            return {k: _lm_tensor(a[i], dev) for k, a in leaf.items()}
+        return _lm_tensor(leaf[i], dev)
+
+    counts = {name: layers_of(leaf) for name, leaf in blocks.items()}
     if set(counts.values()) != {cfg.n_layers}:
         raise ValueError(f"stacked blocks {counts} do not hold "
                          f"{cfg.n_layers} layers")
-    layers = [{name: _lm_tensor(arr[i], dev) for name, arr in blocks.items()}
+    layers = [{name: layer(leaf, i) for name, leaf in blocks.items()}
               for i in range(cfg.n_layers)]
     return Transformer(cfg, _lm_tensor(params["embed"], dev),
                        _lm_tensor(params["unembed"], dev),

@@ -4,10 +4,14 @@
         --prompt-len 512 --cache-len 640
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-1b-a400m --quant --prompt-len 512 --cache-len 640
 
 Port of `repro.launch.serve` with the same options, plus `--device`
 (the card unless "cpu" is asked for) and `--seed` (random weights from
-the port's init; prompts from numpy).
+the port's init; prompts from numpy).  `--quant` fits the C3 codebooks
+of the blocks on the device (`quant.lm_quant.quantize_blocks`), prints
+the reference's weight-bytes line and serves with `quant_serving`.
 """
 from __future__ import annotations
 
@@ -42,16 +46,20 @@ def main(argv=None) -> list:
     from repro_torch.models import transformer as T
     from repro_torch.serve.server import Request, Server
 
-    if args.quant:
-        raise NotImplementedError("--quant (C3 codebook-quantized serving) "
-                                  "comes with quant/lm_quant.py, ROADMAP "
-                                  "Queue 1 #15")
     dev = resolve_device(args.device)
     cfg = R.get_arch(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
     params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(
         args.seed))
+    if args.quant:
+        from repro_torch.quant import lm_quant as Q
+        params = Q.quantize_blocks(params)
+        before, after = Q.quantized_bytes(params)
+        print(f"C3 quantized serving: weight bytes {before/2**20:.1f} -> "
+              f"{after/2**20:.1f} MiB")
+        # the server runs the blocks through the param_transform hook
+        cfg = dataclasses.replace(cfg, quant_serving=True)
     srv = Server(cfg, params, device=dev, batch_slots=args.slots,
                  cache_len=args.cache_len)
 
@@ -63,6 +71,7 @@ def main(argv=None) -> list:
             max_new_tokens=args.max_new))
     if dev.type == "cuda":
         build.library("flash_attention")     # compile before the clock
+        build.library("codebook_matmul")
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     done = srv.run()

@@ -20,7 +20,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import ArchConfig, apply_rope, init_dense
+from repro_torch.models.common import (ArchConfig, apply_rope, init_dense,
+                                       linear)
 
 NEG_INF = -1e30
 
@@ -70,9 +71,9 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
          q_name="wq", k_name="wk", v_name="wv"):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p[q_name]).reshape(b, s, h, hd)
-    k = (x @ p[k_name]).reshape(b, s, kv, hd)
-    v = (x @ p[v_name]).reshape(b, s, kv, hd)
+    q = linear(x, p[q_name]).reshape(b, s, h, hd)
+    k = linear(x, p[k_name]).reshape(b, s, kv, hd)
+    v = linear(x, p[v_name]).reshape(b, s, kv, hd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -153,7 +154,7 @@ def attention_train(x, p, cfg: ArchConfig, positions=None):
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(x, p, cfg, positions)
-    return _self_attention(q, k, v, cfg) @ p["wo"]
+    return linear(_self_attention(q, k, v, cfg), p["wo"])
 
 
 def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
@@ -177,7 +178,7 @@ def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
         cache = KVCache(kc, torch.zeros_like(kc))
     cache.k[:, :, :s] = k.transpose(1, 2)
     cache.v[:, :, :s] = v.transpose(1, 2)
-    return out @ p["wo"], cache
+    return linear(out, p["wo"]), cache
 
 
 KV_INT8_SCALE = 0.05    # fixed-point step for int8 KV caches (perf option)
@@ -231,4 +232,4 @@ def attention_decode(x, p, cfg: ArchConfig, cache: KVCache,
     kd = _dequant_kv(cache.k, x.dtype).transpose(1, 2)
     vd = _dequant_kv(cache.v, x.dtype).transpose(1, 2)
     out = _sdpa(q, kd, vd, mask, cfg)
-    return out @ p["wo"], cache
+    return linear(out, p["wo"]), cache

@@ -1,17 +1,26 @@
-"""Shared LM substrate: architecture configs, norms, RoPE, init.
+"""Shared LM substrate: architecture configs, norms, RoPE, init, and the
+projection hook `linear`.
 
-Port of `repro.models.common` for the dense serving path.  The reference's
+Port of `repro.models.common` for the serving path.  The reference's
 logical-axis specs feed its mesh sharding rules, which have no counterpart
 on one card, so `init_dense` / `init_ones` return plain tensors.
 `cross_entropy_loss` comes with LM training.
+
+Every 2-D weight product of the LM goes through `linear(x, w)`: a tensor
+`w` is a plain `x @ w`; a `CodebookWeight` (C3 serving,
+`quant/lm_quant.py`) is the `codebook_matmul` kernel, x @ cb[idx] with
+the dequantization inside the kernel, where the reference computes
+`x @ cb[idx].astype(dtype)`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------------------
@@ -189,5 +198,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+class CodebookWeight(NamedTuple):
+    """A (K, N) weight as int8 indexes into a codebook: the operand
+    `linear` multiplies on the `codebook_matmul` kernel.  `cb` is f32 and
+    already rounded to the serving type, so the kernel multiplies exactly
+    the weights the reference's `cb[idx].astype(dtype)` holds."""
+
+    idx: torch.Tensor      # (K, N) int8, contiguous
+    cb: torch.Tensor       # (L,) f32, L <= 16
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """x (..., K) @ w (K, N) -> (..., N) in x's type.  A `CodebookWeight`
+    runs `ops.codebook_matmul` on x as a contiguous (M, K) matrix (on a
+    CUDA tensor the kernel, or a raise; its plain version on the CPU);
+    the f32 product is rounded to x's type, as the reference's product of
+    two tensors of that type is."""
+    if isinstance(w, CodebookWeight):
+        k, n = w.idx.shape
+        out = ops.codebook_matmul(x.reshape(-1, k).contiguous(), w.idx, w.cb)
+        return out.to(x.dtype).reshape(*x.shape[:-1], n)
+    return x @ w
+
+
 def swiglu(x, wi, wg, wo):
-    return ((x @ wi) * F.silu(x @ wg)) @ wo
+    return linear(linear(x, wi) * F.silu(linear(x, wg)), wo)

@@ -4,7 +4,10 @@ decode against a static KV cache.
 Port of `repro.serve.server`.  The reference's `mesh` (sharding of the
 jitted steps) has no counterpart on one card: it becomes `device`, where
 the prompts go.  Prefill and decode are the eager `forward_prefill` /
-`forward_decode` of `models.transformer`.
+`forward_decode` of `models.transformer`; with `cfg.quant_serving` both
+take `quant.lm_quant.make_param_transform(cfg.dtype)`, as the
+reference's prefill and decode steps do, so the model's C3-quantized
+2-D weights run on the `codebook_matmul` kernel.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ArchConfig
+from repro_torch.quant.lm_quant import make_param_transform
 
 
 @dataclasses.dataclass
@@ -34,10 +38,6 @@ class Server:
 
     def __init__(self, cfg: ArchConfig, params: T.Transformer, device=None,
                  batch_slots: int = 4, cache_len: int = 256):
-        if cfg.quant_serving:
-            raise NotImplementedError("quantized serving comes with "
-                                      "quant/lm_quant.py, ROADMAP Queue 1 "
-                                      "#15")
         self.device = resolve_device(device)
         on = params.embed.device
         if on.type != self.device.type:
@@ -47,9 +47,12 @@ class Server:
         self.params = params
         self.slots = batch_slots
         self.cache_len = cache_len
+        pt = make_param_transform(cfg.dtype) if cfg.quant_serving else None
         self.prefill = functools.partial(T.forward_prefill, cfg=cfg,
-                                         cache_len=cache_len)
-        self.decode = functools.partial(T.forward_decode, cfg=cfg)
+                                         cache_len=cache_len,
+                                         param_transform=pt)
+        self.decode = functools.partial(T.forward_decode, cfg=cfg,
+                                        param_transform=pt)
         self.queue: list[Request] = []
 
     def submit(self, req: Request):

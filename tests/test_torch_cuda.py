@@ -15,7 +15,10 @@ engine learning them a sample at a time; `SnnServer` groups equal to
 their padded batch's rows, its retry and degraded paths, one QAT
 training step against the same step on the CPU, and codebook fits
 (`quant.quantize`, bitwise) and per-core PTQ
-(`deploy.fit_per_core_codebooks`) against the CPU's.  Marked `cuda`; every
+(`deploy.fit_per_core_codebooks`) against the CPU's; C3-quantized LM
+products (`models.common.linear` on a codebook operand) at the decode
+shapes, `moe_ffn` and a 4-bit quantized model against the CPU.  Marked
+`cuda`; every
 test skips without a card.  Run on the
 card with
 
@@ -1052,3 +1055,113 @@ def test_nccl_world_one_runs_the_exchange_code(dev, tmp_path):
         assert not fused.last_run_sharded      # one rank splits nothing
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# C3 codebook-quantized LM serving and the moe family on the card
+
+# granite-moe-1b-a400m's decode products (M = 4 rows, the server's slots):
+# wq / wo (1024 x 1024), wk / wv (1024 x 512), the router (1024 x 32)
+DECODE_SHAPES = [(4, 1024, 1024), (4, 1024, 512), (4, 1024, 32)]
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_linear_on_a_codebook_weight_launches_the_kernel(dev, m, k, n,
+                                                         dtype):
+    """`linear` on a CodebookWeight: one codebook_matmul launch, against
+    the plain product in f64 (the kernel sums in f64, rounds once to f32,
+    then to x's type)."""
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.models.common import CodebookWeight, linear
+
+    rng = np.random.default_rng(m + k + n)
+    x = torch.tensor(rng.normal(0, 1, (1, m, k)).astype(np.float32),
+                     device=dev).to(dtype)
+    idx = torch.tensor(rng.integers(0, 16, (k, n)).astype(np.int8),
+                       device=dev)
+    cb = torch.tensor(np.sort(rng.normal(0, 0.05, 16)).astype(np.float32),
+                      device=dev).to(torch.bfloat16).float()
+    CBM.reset_launches()
+    out = linear(x, CodebookWeight(idx, cb))
+    torch.cuda.synchronize()
+    assert CBM.launches["codebook_matmul"] == 1
+    assert out.dtype == dtype and out.shape == (1, m, n)
+    want = (x.double().reshape(m, k) @ cb.double()[idx.long()]).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.reshape(m, n), want, atol=V_ATOL,
+                                   rtol=V_RTOL)
+    else:
+        torch.testing.assert_close(out.reshape(m, n), want.to(dtype))
+
+
+def _tiny_cfg(family, **kw):
+    from repro_torch.models.common import ArchConfig
+
+    base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                vocab=97, dtype=torch.float32)
+    base.update(kw)
+    return ArchConfig(f"{family}-t", family, **base)
+
+
+def test_moe_ffn_on_the_card_matches_the_cpu(dev):
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    cfg = _tiny_cfg("moe", n_kv_heads=4, d_ff=32, n_experts=4, top_k=2,
+                    moe_group_size=32)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    x = torch.tensor(np.random.default_rng(5).normal(0, 1, (4, 64, 64))
+                     .astype(np.float32))
+    lp = model.blocks[0].leaves()
+    want, want_aux = MOE.moe_ffn(x, lp, cfg)
+    got, aux = MOE.moe_ffn(x.to(dev), {k: v.detach().to(dev)
+                                       for k, v in lp.items()}, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want.detach(), atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux.detach(), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("family,kw,per_layer", [
+    ("dense", dict(d_model=256, n_kv_heads=2, d_ff=256), 7),
+    ("moe", dict(d_model=256, n_kv_heads=2, d_ff=16, n_experts=128,
+                 top_k=2, moe_group_size=32), 5)], ids=["dense", "moe"])
+def test_quantized_4bit_route_on_the_card_matches_the_cpu(dev, family, kw,
+                                                           per_layer):
+    """4-bit C3 weights fitted on the CPU, the model copied to the card: a
+    256-token prefill and two decode steps give the CPU's logits within
+    1e-4, with one codebook_matmul launch per 2-D projection and layer."""
+    from repro_torch.core.quant import CodebookConfig
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import lm_quant as Q
+
+    cfg = _tiny_cfg(family, **kw)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    qcpu = Q.quantize_blocks(model, CodebookConfig(16, 8, kmeans_iters=4),
+                             pack_4bit=True)
+    qdev = T.Transformer(cfg, *(t.detach().to(dev) for t in (
+        qcpu.embed, qcpu.unembed, qcpu.final_norm)), [
+        {k: ({n: b.to(dev) for n, b in v.items()} if isinstance(v, dict)
+             else v.detach().to(dev)) for k, v in blk.leaves().items()}
+        for blk in qcpu.blocks])
+    pt = Q.make_param_transform(torch.float32)
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 258)).astype(np.int32))
+    logits = []
+    for m, t in ((qcpu, toks), (qdev, toks.to(dev))):
+        CBM.reset_launches()
+        out, st = T.forward_prefill(m, cfg, {"tokens": t[:, :256]}, 264,
+                                    param_transform=pt)
+        outs = [out]
+        for i in (256, 257):
+            out, st = T.forward_decode(m, cfg, st, t[:, i:i + 1],
+                                       param_transform=pt)
+            outs.append(out)
+        logits.append(torch.stack(outs).cpu())
+    torch.cuda.synchronize()
+    assert CBM.launches["codebook_matmul"] == 3 * per_layer * cfg.n_layers
+    torch.testing.assert_close(logits[1], logits[0], atol=1e-4, rtol=1e-4)

@@ -1,7 +1,8 @@
 """The port's LM serving path against the JAX package, on the CPU.
 
 granite-3-2b's SMOKE config at f32 (2 layers, d 64, 4 heads, 2 kv heads,
-hd 16), with the reference's `init_model(PRNGKey(0))` carried across by
+hd 16; the moe family and C3 serving have test_torch_moe.py and
+test_torch_lm_quant.py), with the reference's `init_model(PRNGKey(0))` carried across by
 `convert_lm`: prefill on the flash route (S = 256, the kernel's plain
 version here) and the plain route (S = 16), four decode steps, the
 batched `Server`, the `launch.serve` entry point, and the pieces below
@@ -84,8 +85,10 @@ def _close(got, want, tol):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["granite-3-2b", "granite-3-8b", "yi-9b",
-                                  "mistral-large-123b"])
-def test_dense_configs_equal_reference(name):
+                                  "mistral-large-123b",
+                                  "granite-moe-1b-a400m",
+                                  "moonshot-v1-16b-a3b"])
+def test_served_configs_equal_reference(name):
     for smoke in (False, True):
         r, t = RR.get_arch(name, smoke), TR.get_arch(name, smoke)
         rf = {f.name: getattr(r, f.name) for f in dataclasses.fields(r)}
@@ -98,8 +101,7 @@ def test_dense_configs_equal_reference(name):
     assert TR.get_shape("decode_32k") == TC.SHAPES["decode_32k"]
 
 
-@pytest.mark.parametrize("name,item", [("granite-moe-1b-a400m", "#16"),
-                                       ("mamba2-130m", "#17"),
+@pytest.mark.parametrize("name,item", [("mamba2-130m", "#17"),
                                        ("zamba2-2.7b", "#17"),
                                        ("whisper-tiny", "#18"),
                                        ("phi-3-vision-4.2b", "#19")])
@@ -114,11 +116,18 @@ def test_other_families_raise_naming_their_item(name, item):
         TT.init_model(tcfg, torch.Generator().manual_seed(0))
 
 
-def test_quant_serving_raises_naming_lm_quant():
+@pytest.mark.parametrize("quant", [True, "4bit"])
+def test_quant_serving_config_inits_the_same_model(quant):
+    """`quant_serving` selects the serving hook, not the weights: the
+    model it inits is the unquantized one of the same seed."""
     _, tcfg = _cfgs()
-    q = dataclasses.replace(tcfg, quant_serving=True)
-    with pytest.raises(NotImplementedError, match="lm_quant"):
-        TT.init_model(q, torch.Generator().manual_seed(0))
+    q = TT.init_model(dataclasses.replace(tcfg, quant_serving=quant),
+                      torch.Generator().manual_seed(0))
+    want = TT.init_model(tcfg, torch.Generator().manual_seed(0))
+    got = dict(q.named_parameters())
+    assert got.keys() == dict(want.named_parameters()).keys()
+    for name, t in want.named_parameters():
+        assert torch.equal(got[name], t), name
 
 
 def test_init_model_names_shapes_and_scales(lm):
@@ -404,13 +413,26 @@ def test_server_left_pads_mixed_lengths(lm):
     assert got[0].out_tokens[0] == int(torch.argmax(lg[0]))
 
 
-def test_server_rejects_wrong_device_and_quant(lm):
+def test_server_rejects_wrong_device_and_serves_quant(lm):
+    """The SMOKE model has no leaf the reference would quantize (each is
+    below 2^16 weights over its 2 layers), so `quantize_blocks` returns
+    it unchanged and the quant_serving server gives the same tokens."""
+    from repro_torch.quant import lm_quant as TQ
+
     _, tcfg, _, model = lm
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TS.Server(tcfg, model)                     # the card by default
-    with pytest.raises(NotImplementedError, match="#15"):
-        TS.Server(dataclasses.replace(tcfg, quant_serving=True), model,
-                  device="cpu")
+    qmodel = TQ.quantize_blocks(model)
+    assert not any(isinstance(v, dict) for b in qmodel.blocks
+                   for v in b.leaves().values())
+    prompt = np.arange(1, 13, dtype=np.int32)
+    out = []
+    for cfg, m in ((tcfg, model),
+                   (dataclasses.replace(tcfg, quant_serving=True), qmodel)):
+        srv = TS.Server(cfg, m, device="cpu", batch_slots=2, cache_len=16)
+        srv.submit(TS.Request(0, prompt, max_new_tokens=3))
+        out.append(srv.run()[0].out_tokens)
+    assert out[0] == out[1] and len(out[0]) == 3
 
 
 def test_launch_serve_smoke_on_cpu(capsys):
@@ -422,6 +444,8 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert len(done) == 3 and all(len(r.out_tokens) == 3 for r in done)
     out = capsys.readouterr().out
     assert "served 3 requests / 9 tokens" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="lm_quant"):
-        serve.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
-                    "--quant"])
+    done = serve.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+                       "--requests", "2", "--max-new", "2", "--quant"])
+    out = capsys.readouterr().out
+    assert "C3 quantized serving: weight bytes" in out
+    assert len(done) == 2 and all(len(r.out_tokens) == 2 for r in done)
