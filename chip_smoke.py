@@ -219,8 +219,35 @@ Phases, each of which must pass:
    every step's logits within 0.125 of the dense dequantized model fed
    the same tokens.
 
+14. the ssm, hybrid and audio families — right after phase 13, each at
+   full width and depth with random weights from --seed and phase 6's
+   traffic (8 requests of 512 prompt tokens, 4 slots, 16 new each, cache
+   640: 32 forward passes), bf16: (a) `Server` on mamba2-130m ARCH (24
+   layers, d 768, 24 SSD heads of 64, state 128, chunk 256): no flash
+   and no codebook launch; tokens/s, prefill and decode ms, peak memory,
+   the idle share over one batch; last-token logits of a 512-token
+   prefill against a 511-token prefill (the SSD scan's end padding) plus
+   one decode step within phase 6's 0.125; one layer's `mamba2_forward`
+   in f32 on the card against the CPU within 1e-4 + 1e-4 |want|;
+   `ssd_chunked` at that layer's shapes against the step recurrence of
+   `mamba2_decode` within the reference's 1e-3; (b) the same weights C3
+   int8, fitted on the card (seconds, weight bytes): exactly 24 x 2
+   (in_proj, out_proj) x 32 = 1536 codebook launches (`conv_w` is read
+   dense); prefill logits against a dense bf16 model of every leaf's
+   cb.to(bf16)[idx] within 0.125; every layer's codebook call of one
+   decode step against the plain product by phase 3's rule; (c)
+   zamba2-2.7b ARCH (54 layers, d 2560, 80 SSD heads, state 64, a
+   shared attention block of 32 heads of hd 80 before every 6 layers,
+   window 4096): no flash (the window) and no codebook launch, (a)'s
+   columns and 512 against 511 + 1; (d) whisper-tiny ARCH (4 + 4
+   layers, d 384, 6 heads of hd 64, 1500 zero frames): exactly 8 flash
+   launches (2 prefill batches x 4 decoder layers), all on the
+   tensor-core kernel, no codebook launch, every decoder layer's flash
+   call of one prefill against the plain version by phase 6's rule, and
+   512 against 511 + 1 (the 511 prefill on the plain route).
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 11, 12, 5, 6 and 13); the last line is
+4, 7, 8, 9, 11, 12, 5, 6, 13 and 14); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -365,10 +392,11 @@ FUSED_INTS = {1: "elapsed'", 3: "touched", 4: "nnz", 5: "empty words"}
 LIF_INTS = {1: "elapsed'", 3: "updated"}
 
 
-def _assert_close(what: str, got, want) -> float:
-    """Floats within V_ATOL + V_RTOL * |want|; returns the max difference."""
+def _assert_close(what: str, got, want, tol: float = V_ATOL) -> float:
+    """Floats within tol + tol * |want| (by default V_ATOL + V_RTOL *
+    |want|, which are equal); returns the max difference."""
     d = (got.float() - want.float()).abs()
-    if bool((d > V_ATOL + V_RTOL * want.float().abs()).any()):
+    if bool((d > tol + tol * want.float().abs()).any()):
         raise AssertionError(f"{what}: off by up to {float(d.max())}")
     return float(d.max()) if d.numel() else 0.0
 
@@ -1040,13 +1068,16 @@ def _device_breakdown(fn, wall_ms: float,
     `sums` names (key, substring) pairs: the device ms of the kernels whose
     name holds the substring.  Only device events count: a CPU op (an
     `aten::` op, an autograd node) also carries the device time of the
-    kernels it launched, so summing it too would count them twice."""
+    kernels it launched, so summing it too would count them twice.  The
+    profiler records the device activity alone: recording the CPU ops
+    too gives the same device sums (within 0.3 % on a served zamba2-2.7b
+    or mamba2-130m batch) and costs 2 to 3 times the profiler's seconds
+    over the thousands of eager ops of LM decode steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_kernel = {}
@@ -3251,11 +3282,28 @@ def _lm_model(name: str, seed: int, **replace):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    norms = 2 * cfg.d_model * cfg.n_layers
-    if n_params != cfg.param_count() + norms:
+    if n_params != cfg.param_count() + _uncounted(cfg):
         raise AssertionError(f"{n_params} parameters, ArchConfig says "
-                             f"{cfg.param_count()} + {norms} norm weights")
+                             f"{cfg.param_count()} + {_uncounted(cfg)}")
     return cfg, model, init_s, n_params
+
+
+def _uncounted(cfg) -> int:
+    """What `ArchConfig.param_count` leaves out of the model's parameters
+    (the reference's analytic count): the norm weights of every family;
+    in an SSM layer also `conv_b` and the third of its (nh,) vectors; the
+    hybrid's shared block has an `ln_attn` but no MLP, which param_count
+    counts; the audio encoder's norms and `enc_final_norm`."""
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        d_in = cfg.ssm_expand * d
+        extra = L * (d + d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_head_dim)
+        if cfg.family == "hybrid":
+            extra += d - 3 * d * cfg.d_ff
+        return extra
+    if cfg.family == "audio":
+        return 3 * d * L + 2 * d * cfg.enc_layers + d
+    return 2 * d * L
 
 
 def _prompts(seed: int, vocab: int) -> list:
@@ -3296,10 +3344,6 @@ def serving_path(seed: int) -> dict:
     version on the same q / k / v."""
     import torch
 
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models import attention as ATT
-    from repro_torch.models import transformer as T
-
     dev = torch.device(DEVICE)
     cfg, model, init_s, n_params = _lm_model(LM_ARCH, seed)
     prompts = _prompts(seed, cfg.vocab)
@@ -3314,6 +3358,24 @@ def serving_path(seed: int) -> dict:
 
     # (c) the path held together at full width
     tokens = torch.as_tensor(np.stack(prompts[:LM_SLOTS]), device=dev)
+    perf.update(_prefill_continues("phase 6", cfg, model, {"tokens": tokens},
+                                   cfg.n_layers))
+    return perf
+
+
+def _prefill_continues(what: str, cfg, model, batch: dict,
+                       flash_layers: int) -> dict:
+    """A prefill over `batch`'s 512-token prompts, every flash call held
+    against the plain version on its q / k / v (`flash_layers` calls),
+    against a prefill over 511 (no flash launch: 511 is not a multiple of
+    128) plus one decode step of the last token, by `_hold_logits`."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import transformer as T
+
+    tokens = batch["tokens"]
     flash = ATT.flash_attention
     layer_err = []
 
@@ -3325,23 +3387,27 @@ def serving_path(seed: int) -> dict:
 
     ATT.flash_attention = checked
     try:
-        full, _ = T.forward_prefill(model, cfg, {"tokens": tokens}, LM_CACHE)
+        full, _ = T.forward_prefill(model, cfg, batch, LM_CACHE)
     finally:
         ATT.flash_attention = flash
-    if len(layer_err) != cfg.n_layers:
-        raise AssertionError(f"{len(layer_err)} flash calls in one prefill")
-    log(f"every layer's flash call agrees with the plain version on its "
-        f"q / k / v (max |diff| {max(layer_err):.3g})")
+    if len(layer_err) != flash_layers:
+        raise AssertionError(f"{what}: {len(layer_err)} flash calls in one "
+                             f"prefill, expected {flash_layers}")
+    if layer_err:
+        log(f"{what}: every layer's flash call agrees with the plain "
+            f"version on its q / k / v (max |diff| {max(layer_err):.3g})")
     FA.reset_launches()
-    _, st = T.forward_prefill(model, cfg,
-                              {"tokens": tokens[:, :LM_PROMPT - 1]}, LM_CACHE)
-    got, st = T.forward_decode(model, cfg, st, tokens[:, LM_PROMPT - 1:])
+    _, st = T.forward_prefill(model, cfg, dict(batch, tokens=tokens[:, :-1]),
+                              LM_CACHE)
+    got, st = T.forward_decode(model, cfg, st, tokens[:, -1:])
     torch.cuda.synchronize()
     if FA.launches["flash_attention"] != 0:
-        raise AssertionError("prefill over 511 tokens took the flash route")
-    diff = _hold_logits("prefill(512) vs prefill(511) + decode", got, full)
-    perf.update(layer_max_abs_err=max(layer_err), decode_logit_diff=diff)
-    return perf
+        raise AssertionError(f"{what}: prefill over {tokens.shape[1] - 1} "
+                             f"tokens took the flash route")
+    diff = _hold_logits(f"{what}: prefill({tokens.shape[1]}) vs prefill("
+                        f"{tokens.shape[1] - 1}) + decode", got, full)
+    return {"layer_max_abs_err": max(layer_err, default=0.0),
+            "decode_logit_diff": diff}
 
 
 # ---------------------------------------------------------------------------
@@ -3382,7 +3448,8 @@ def _dequantized_model(cfg, qmodel, dtype):
                 lp[name] = v.detach()
         blocks.append(lp)
     return T.Transformer(cfg, qmodel.embed.detach(), qmodel.unembed.detach(),
-                         qmodel.final_norm.detach(), blocks)
+                         qmodel.final_norm.detach(), blocks,
+                         **qmodel.extras())
 
 
 def _quantize_timed(model, what: str, pack_4bit: bool = False):
@@ -3726,6 +3793,199 @@ def moe_c3_path(seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the ssm, hybrid and audio families
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-130m"        # configs/mamba2_130m.py ARCH
+HYBRID_ARCH = "zamba2-2.7b"     # configs/zamba2_2_7b.py ARCH
+AUDIO_ARCH = "whisper-tiny"     # configs/whisper_tiny.py ARCH
+SSM_PROJECTIONS = ("in_proj", "out_proj")   # (b): the codebook products
+SSM_QUANTIZED = ("in_proj", "out_proj", "conv_w")
+SSM_LAYER_TOL = 1e-4            # one f32 layer, card vs CPU: abs + rel
+SSD_TOL = 1e-3                  # the reference's own (tests/test_models.py)
+
+
+def _ssm_layer_check(cfg, model, seed: int) -> float:
+    """Layer 0's `mamba2_forward` in f32 on the card against the same call
+    on the CPU: its weights widened to f32, one (4, 512, d) input, the
+    output and the returned conv window and state."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import mamba2 as M2
+
+    fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+    lp = {k: v.detach().float() for k, v in model.blocks[0].leaves().items()}
+    x = torch.as_tensor(np.random.default_rng(seed).normal(
+        0, 1, (LM_SLOTS, LM_PROMPT, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        got = M2.mamba2_forward(x.to(DEVICE), lp, fcfg, return_cache=True)
+        want = M2.mamba2_forward(x, {k: v.cpu() for k, v in lp.items()},
+                                 fcfg, return_cache=True)
+    torch.cuda.synchronize()
+    err = max(_assert_close(f"phase 14 (a) f32 layer {part}, card vs CPU",
+                            g.cpu(), w, SSM_LAYER_TOL)
+              for part, g, w in (("output", got[0], want[0]),
+                                 ("conv window", got[1].conv, want[1].conv),
+                                 ("state", got[1].state, want[1].state)))
+    log(f"phase 14 (a): one mamba2 layer in f32 on the card agrees with the "
+        f"CPU (max |diff| {err:.3g}, tolerance {SSM_LAYER_TOL} abs + rel)")
+    return err
+
+
+def _ssd_vs_recurrence(cfg, seed: int) -> float:
+    """`ssd_chunked` at the layer's shapes (B 4, S 512, its heads, state
+    and chunk) on the card against the step recurrence `mamba2_decode`
+    computes, one token at a time, from random x, dt = softplus(N(0, 1)),
+    A = -exp(0.3 N(0, 1)), B and C (the reference's own test's inputs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import mamba2 as M2
+
+    _, h, n, p = M2.dims(cfg)
+    b, s = LM_SLOTS, LM_PROMPT
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(0, scale, shape).astype(
+            np.float32), device=DEVICE)
+
+    x, dt, A, B, C = (t(b, s, h, p), F.softplus(t(b, s, h)),
+                      -torch.exp(t(h, scale=0.3)), t(b, s, n), t(b, s, n))
+    y, final = M2.ssd_chunked(x, dt, A, B, C, cfg.ssm_chunk)
+    state = torch.zeros((b, h, n, p), device=DEVICE)
+    ys = []
+    for i in range(s):
+        upd = (dt[:, i, :, None] * B[:, i, None, :])[..., None] \
+            * x[:, i, :, None]
+        state = state * torch.exp(dt[:, i] * A)[..., None, None] + upd
+        ys.append((C[:, i, None, None, :] @ state)[:, :, 0])
+    torch.cuda.synchronize()
+    err = max(_assert_close("phase 14 (a) ssd_chunked vs the recurrence",
+                            y, torch.stack(ys, dim=1), SSD_TOL),
+              _assert_close("phase 14 (a) ssd_chunked final state vs the "
+                            "recurrence", final, state, SSD_TOL))
+    log(f"phase 14 (a): ssd_chunked at (B, S, H, P, N, chunk) = "
+        f"{(b, s, h, p, n, cfg.ssm_chunk)} agrees with the step recurrence "
+        f"(max |diff| {err:.3g}, tolerance {SSD_TOL} abs + rel)")
+    return err
+
+
+def families_path(seed: int, smi: str) -> dict:
+    """Phase 14: (a) mamba2-130m served at full width, bf16; (b) the same
+    weights C3 int8, fitted on the card and served; (c) zamba2-2.7b and
+    (d) whisper-tiny served at full width, bf16.  Each served run has
+    phase 6's traffic, then the 512 against 511 + 1 check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import lm_quant as Q
+
+    out = {"seconds": {}}
+    batches = -(-LM_REQUESTS // LM_SLOTS)
+    none = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "codebook_matmul": 0}
+
+    def served(what, cfg, model, prompts, want, **extra):
+        perf = _measured_serve(cfg, model, prompts, what, want, **extra)
+        perf.pop("out_tokens")
+        return perf
+
+    def first_batch(prompts, cfg):
+        batch = {"tokens": torch.as_tensor(np.stack(prompts[:LM_SLOTS]),
+                                           device=DEVICE)}
+        if cfg.family == "audio":          # the server's stub frames
+            batch["frames"] = torch.zeros(
+                (LM_SLOTS, cfg.enc_frames, cfg.d_model), device=DEVICE)
+        return batch
+
+    # (a) mamba2-130m, bf16: no attention, so no flash launch
+    part = time.perf_counter()
+    cfg, model, init_s, n_params = _lm_model(SSM_ARCH, seed)
+    prompts = _prompts(seed + 14, cfg.vocab)
+    out["a"] = served("phase 14 (a) mamba2 served run", cfg, model, prompts,
+                      none, init_s=init_s, n_params=n_params)
+    batch = first_batch(prompts, cfg)
+    out["a"].update(_prefill_continues("phase 14 (a)", cfg, model, batch, 0))
+    out["a"]["layer_f32_max_abs_err"] = _ssm_layer_check(cfg, model, seed)
+    out["a"]["ssd_max_abs_err"] = _ssd_vs_recurrence(cfg, seed)
+    out["seconds"]["a"] = time.perf_counter() - part
+
+    # (b) the same weights, int8 C3, fitted on the card; conv_w is read
+    # dense, so in_proj and out_proj are the codebook products
+    part = time.perf_counter()
+    qmodel, out["b_quant"] = _quantize_timed(model, "phase 14 (b)")
+    if set(out["b_quant"]["quantized"]) != set(SSM_QUANTIZED):
+        raise AssertionError(f"phase 14 (b): quantized leaves "
+                             f"{out['b_quant']['quantized']}")
+    del model
+    qcfg = dataclasses.replace(cfg, quant_serving=True)
+    calls = cfg.n_layers * len(SSM_PROJECTIONS)
+    out["b"] = served("phase 14 (b) mamba2 C3 int8 served run", qcfg, qmodel,
+                      prompts, dict(none, codebook_matmul=calls * batches
+                                    * LM_NEW))
+    pt = Q.make_param_transform(cfg.dtype)
+    dense = _dequantized_model(cfg, qmodel, cfg.dtype)
+    got, st = T.forward_prefill(qmodel, cfg, batch, LM_CACHE,
+                                param_transform=pt)
+    want, _ = T.forward_prefill(dense, cfg, batch, LM_CACHE)
+    torch.cuda.synchronize()
+    out["b"]["logit_diff"] = _hold_logits(
+        f"phase 14 (b) kernel route vs dense dequantized, prefill("
+        f"{LM_PROMPT})", got, want)
+    step = got.argmax(-1, keepdim=True).to(torch.int32)
+    _, n_calls, err = _checked_codebook_calls(
+        lambda: T.forward_decode(qmodel, cfg, st, step, param_transform=pt))
+    if n_calls != calls:
+        raise AssertionError(f"phase 14 (b): {n_calls} codebook calls in one "
+                             f"decode step, expected {calls}")
+    out["b"]["decode_call_max_abs_err"] = err
+    log(f"phase 14 (b): every layer's codebook_matmul call of one decode "
+        f"step ({n_calls}) agrees with the plain product (max |diff| "
+        f"{err:.3g}, tolerance {V_ATOL} + {V_RTOL} |want|)")
+    del qmodel, dense, st
+    out["seconds"]["b"] = time.perf_counter() - part
+
+    # (c) zamba2-2.7b, bf16: its shared attention has a 4096-token window,
+    # which keeps it off the flash route (as in the reference)
+    part = time.perf_counter()
+    cfg, model, init_s, n_params = _lm_model(HYBRID_ARCH, seed + 1)
+    prompts = _prompts(seed + 15, cfg.vocab)
+    out["c"] = served("phase 14 (c) zamba2 served run", cfg, model, prompts,
+                      none, init_s=init_s, n_params=n_params)
+    out["c"].update(_prefill_continues("phase 14 (c)", cfg, model,
+                                       first_batch(prompts, cfg), 0))
+    del model
+    out["seconds"]["c"] = time.perf_counter() - part
+
+    # (d) whisper-tiny, bf16: the decoder's self-attention prefill on the
+    # tensor-core flash kernel (hd 64), the encoder and the
+    # cross-attention on plain SDPA
+    part = time.perf_counter()
+    cfg, model, init_s, n_params = _lm_model(AUDIO_ARCH, seed + 2)
+    prompts = _prompts(seed + 16, cfg.vocab)
+    flash = batches * cfg.n_layers
+    out["d"] = served("phase 14 (d) whisper served run", cfg, model, prompts,
+                      dict(none, flash_attention=flash,
+                           flash_attention_wgmma=flash),
+                      init_s=init_s, n_params=n_params)
+    out["d"].update(_prefill_continues("phase 14 (d)", cfg, model,
+                                       first_batch(prompts, cfg),
+                                       cfg.n_layers))
+    del model
+    out["seconds"]["d"] = time.perf_counter() - part
+
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in "abcd")
+                       for k in ("flash_attention", "codebook_matmul")}
+    log(f"phase 14 ({smi}) seconds: {json.dumps(out['seconds'])}")
+    return out
+
+
 # instructions a built library must hold: the flash kernel's bf16 wgmma
 # (HGMMA) and TMA loads (UTMALDG), the fused timestep's f64 tensor-core
 # adds (DMMA)
@@ -3847,19 +4107,28 @@ def main() -> int:
     mq = moe_c3_path(args.seed, smi)
     log(f"MoE and C3 serving phase: {time.perf_counter() - t0:.1f} s")
 
+    # 14. the ssm, hybrid and audio families
+    t0 = time.perf_counter()
+    fam = families_path(args.seed, smi)
+    log(f"ssm, hybrid and audio serving phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
     # server), phase 11 (deploy and adaptation), phase 12 (the spawned
     # ranks' batch-sharded fused runs), phase 5 (kernel API, all three
-    # loops), phase 6 (the served LM run) and phase 13 (the served moe
-    # runs, bf16 and C3 int8, and the 4-bit dense run)
+    # loops), phase 6 (the served LM run), phase 13 (the served moe
+    # runs, bf16 and C3 int8, and the 4-bit dense run) and phase 14 (the
+    # served mamba2 C3 run and whisper's served run)
     launches = dict(mp["launches"])
     for loop in [fp, pp, sp, dp, shp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = (lm["launches"]["flash_attention"]
-                                   + mq["launches"]["flash_attention"])
-    launches["codebook_matmul"] += mq["launches"]["codebook_matmul"]
+                                   + mq["launches"]["flash_attention"]
+                                   + fam["launches"]["flash_attention"])
+    launches["codebook_matmul"] += (mq["launches"]["codebook_matmul"]
+                                    + fam["launches"]["codebook_matmul"])
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {
         "fused_timestep_codebook": ("fused_timestep.cu",

@@ -1,8 +1,9 @@
 """Architecture registry of the port: the reference's names.
 
-`get_arch` serves the four dense and the two moe configs (copies of
-`repro.configs`); the other families' names are listed in `ARCH_NAMES`
-but raise `NotImplementedError` naming the ROADMAP item that ports them.
+`get_arch` serves the four dense, the two moe, the ssm, the hybrid and
+the audio configs (copies of `repro.configs`); the vlm family's name is
+listed in `ARCH_NAMES` but raises `NotImplementedError` naming the
+ROADMAP item that ports it.
 `input_specs` (jax.ShapeDtypeStruct stand-ins for the dry run) has no
 counterpart: the port runs, it does not lower.
 """
@@ -19,13 +20,13 @@ _MODULES = {
     "granite-3-2b": "granite_3_2b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "mamba2-130m": "mamba2_130m",
+    "whisper-tiny": "whisper_tiny",
 }
 
 # name -> the ROADMAP item (Queue 1) that brings its family to the port
 _NOT_PORTED = {
-    "zamba2-2.7b": "#17 (ssm and hybrid families, models/mamba2.py)",
-    "mamba2-130m": "#17 (ssm and hybrid families, models/mamba2.py)",
-    "whisper-tiny": "#18 (audio family: encoder, cross-attention)",
     "phi-3-vision-4.2b": "#19 (vlm family: patch embeddings)",
 }
 

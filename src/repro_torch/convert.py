@@ -90,15 +90,17 @@ def _lm_tensor(a, dev) -> torch.Tensor:
 def convert_lm(params: _Map, cfg, device=None):
     """The port's `Transformer` from the reference's nested parameter dict
     as numpy arrays: `embed`, `unembed`, `final_norm` and `blocks` of
-    stacked (L, ...) per-layer arrays.  A block leaf may be the
-    reference's C3-quantized leaf (`repro.quant.lm_quant.quantize_blocks`),
-    a dict of stacked `idx` (int8) or `idx4` (packed uint8) and `cb`
-    (L, N); each layer gets its slice.  Types are kept, bf16 included;
-    tensors go to `device` (default: the card)."""
+    stacked (L, ...) per-layer arrays, plus the family extras: the
+    hybrid's `shared_attn` (one unstacked block) and the audio family's
+    `encoder` (stacked (enc_layers, ...)) and `enc_final_norm`.  A block
+    leaf may be the reference's C3-quantized leaf
+    (`repro.quant.lm_quant.quantize_blocks`), a dict of stacked `idx`
+    (int8) or `idx4` (packed uint8) and `cb` (L, N); each layer gets its
+    slice.  Types are kept, bf16 included; tensors go to `device`
+    (default: the card)."""
     from repro_torch.models.transformer import Transformer
 
     dev = resolve_device(device)
-    blocks = params["blocks"]
 
     def layers_of(leaf) -> int:
         return len(leaf["cb"]) if isinstance(leaf, _Map) else len(leaf)
@@ -108,15 +110,27 @@ def convert_lm(params: _Map, cfg, device=None):
             return {k: _lm_tensor(a[i], dev) for k, a in leaf.items()}
         return _lm_tensor(leaf[i], dev)
 
-    counts = {name: layers_of(leaf) for name, leaf in blocks.items()}
-    if set(counts.values()) != {cfg.n_layers}:
-        raise ValueError(f"stacked blocks {counts} do not hold "
-                         f"{cfg.n_layers} layers")
-    layers = [{name: layer(leaf, i) for name, leaf in blocks.items()}
-              for i in range(cfg.n_layers)]
+    def unstack(stacked: _Map, n: int, what: str) -> list:
+        counts = {name: layers_of(leaf) for name, leaf in stacked.items()}
+        if set(counts.values()) != {n}:
+            raise ValueError(f"stacked {what} {counts} do not hold {n} "
+                             f"layers")
+        return [{name: layer(leaf, i) for name, leaf in stacked.items()}
+                for i in range(n)]
+
+    extras = {}
+    if "shared_attn" in params:
+        extras["shared_attn"] = {k: _lm_tensor(a, dev)
+                                 for k, a in params["shared_attn"].items()}
+    if "encoder" in params:
+        extras["encoder"] = unstack(params["encoder"], cfg.enc_layers,
+                                    "encoder")
+        extras["enc_final_norm"] = _lm_tensor(params["enc_final_norm"], dev)
     return Transformer(cfg, _lm_tensor(params["embed"], dev),
                        _lm_tensor(params["unembed"], dev),
-                       _lm_tensor(params["final_norm"], dev), layers)
+                       _lm_tensor(params["final_norm"], dev),
+                       unstack(params["blocks"], cfg.n_layers, "blocks"),
+                       **extras)
 
 
 def convert_params(tree, device=None):

@@ -6,7 +6,13 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-1b-a400m --quant --prompt-len 512 --cache-len 640
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mamba2-130m | zamba2-2.7b | whisper-tiny [--quant] \\
+        --prompt-len 512 --cache-len 640
 
+The dense (granite, yi, mistral), moe (granite-moe, moonshot), ssm
+(mamba2-130m), hybrid (zamba2-2.7b) and audio (whisper-tiny: the server
+feeds the encoder zero frames, the reference's stub frontend) archs.
 Port of `repro.launch.serve` with the same options, plus `--device`
 (the card unless "cpu" is asked for) and `--seed` (random weights from
 the port's init; prompts from numpy).  `--quant` fits the C3 codebooks

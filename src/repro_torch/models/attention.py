@@ -1,7 +1,8 @@
 """GQA attention with RoPE, sliding window, prefill + decode KV-cache paths.
 
-Port of `repro.models.attention` (self-attention; `attention_encoder` and
-`attention_cross` come with the audio family).
+Port of `repro.models.attention`: causal self-attention for prefill and
+decode, and the audio family's bidirectional `attention_encoder` and
+`attention_cross` (plain SDPA, never the flash route).
 
 Flash route: train / prefill self-attention goes through
 `kernels.flash_attention` whenever the shape qualifies (`_flash_ok`: a
@@ -48,18 +49,24 @@ def _sdpa_flash(q, k, v):
     return out.transpose(1, 2).reshape(b, s, h * hd).to(v.dtype)
 
 
-def init_attention(gen: torch.Generator, cfg: ArchConfig, n_layers: int
-                   ) -> dict:
+def init_attention(gen: torch.Generator, cfg: ArchConfig, n_layers: int,
+                   cross: bool = False) -> dict:
     """One layer's self-attention weights, (in, out) layout; `n_layers`
-    sets the `wo` scale."""
+    sets the `wo` scale.  `cross` adds the cross-attention's `xw*`."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {
+    p = {
         "wq": init_dense(gen, (d, h * hd), cfg.dtype),
         "wk": init_dense(gen, (d, kv * hd), cfg.dtype),
         "wv": init_dense(gen, (d, kv * hd), cfg.dtype),
         "wo": init_dense(gen, (h * hd, d), cfg.dtype,
                          scale=(h * hd) ** -0.5 / (2 * max(n_layers, 1)) ** 0.5),
     }
+    if cross:
+        p.update(xwq=init_dense(gen, (d, h * hd), cfg.dtype),
+                 xwk=init_dense(gen, (d, kv * hd), cfg.dtype),
+                 xwv=init_dense(gen, (d, kv * hd), cfg.dtype),
+                 xwo=init_dense(gen, (h * hd, d), cfg.dtype))
+    return p
 
 
 class KVCache(NamedTuple):
@@ -85,7 +92,9 @@ def _sdpa(q, k, v, mask, cfg: ArchConfig):
 
     Scores in f32 (the storage type's products are exact in f32), softmax
     in f32, probs cast back to the storage type for the PV product, which
-    accumulates in f32 (the reference's preferred_element_type).
+    accumulates in f32 (the reference's preferred_element_type).  `mask`
+    (B, S, T) bool, or None for full attention (the reference's all-true
+    mask).
     """
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -96,8 +105,9 @@ def _sdpa(q, k, v, mask, cfg: ArchConfig):
     kt = k.permute(0, 2, 3, 1).float()                  # (b, kv, hd, t)
     vt = v.permute(0, 2, 1, 3).float()                  # (b, kv, t, hd)
     scores = (qg @ kt).reshape(b, kv, g, s, t) / (hd ** 0.5)
-    scores = torch.where(mask[:, None, None], scores,
-                         torch.full_like(scores, NEG_INF))
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores,
+                             torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = probs.to(v.dtype).float().reshape(b, kv, g * s, t) @ vt
     return (out.reshape(b, kv, g, s, hd).permute(0, 3, 1, 2, 4)
@@ -155,6 +165,25 @@ def attention_train(x, p, cfg: ArchConfig, positions=None):
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(x, p, cfg, positions)
     return linear(_self_attention(q, k, v, cfg), p["wo"])
+
+
+def attention_encoder(x, p, cfg: ArchConfig):
+    """Bidirectional attention (whisper encoder)."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(x, p, cfg, positions)
+    return linear(_sdpa(q, k, v, None, cfg), p["wo"])
+
+
+def attention_cross(x, enc_out, p, cfg: ArchConfig):
+    """Cross-attention: queries from decoder x, keys/values from encoder."""
+    b, s, _ = x.shape
+    t = enc_out.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = linear(x, p["xwq"]).reshape(b, s, h, hd)
+    k = linear(enc_out, p["xwk"]).reshape(b, t, kv, hd)
+    v = linear(enc_out, p["xwv"]).reshape(b, t, kv, hd)
+    return linear(_sdpa(q, k, v, None, cfg), p["xwo"])
 
 
 def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,

@@ -1,19 +1,24 @@
-"""LM: init, prefill and one-token decode, for the dense and moe families.
+"""LM: init, prefill and one-token decode, for the dense, moe, ssm,
+hybrid and audio families.
 
 Port of `repro.models.transformer` for those families.  The reference's
 nested parameter dict with stacked (L, ...) blocks becomes a `Transformer`
 module holding `embed` (V, d), `unembed` (d, V), `final_norm` (d,) and an
-`nn.ModuleList` of one `Block` per layer.  Weights keep the reference's
-(in, out) layout (`x @ wq`), so carrying them across
+`nn.ModuleList` of one `Block` per layer, plus the family extras: the
+hybrid's one `shared_attn` block (zamba2, applied before every
+`attn_every` SSM layers) and the audio family's `encoder` blocks and
+`enc_final_norm` (whisper).  Weights keep the reference's (in, out)
+layout (`x @ wq`), so carrying them across
 (`repro_torch.convert.convert_lm`) is a plain copy.
 
 A block's leaf may be C3-quantized (`quant/lm_quant.py`): then prefill
 and decode take the reference's `param_transform`, applied to each
 layer's leaves before the layer runs, which turns the indexes into the
-operands `models.common.linear` multiplies.
+operands `models.common.linear` multiplies.  As in the reference, it
+maps `blocks` only, never `shared_attn` or the encoder.
 
-The ssm, hybrid, audio and vlm families raise `NotImplementedError`
-naming the ROADMAP item that brings them; training (`forward_train`)
+The vlm family raises `NotImplementedError` naming the ROADMAP item that
+brings it; training (`forward_train`, the hybrid's `_hybrid_forward`)
 comes with ROADMAP Queue 1 #20.
 """
 from __future__ import annotations
@@ -24,7 +29,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (KVCache, attention_decode,
+from repro_torch.models import mamba2 as M2
+from repro_torch.models.attention import (KVCache, attention_cross,
+                                          attention_decode, attention_encoder,
                                           attention_prefill, attention_train,
                                           init_attention)
 from repro_torch.models.common import (ArchConfig, init_dense, init_ones,
@@ -33,34 +40,68 @@ from repro_torch.models.moe import init_moe, moe_ffn
 
 # family -> the ROADMAP item (Queue 1) that ports it
 _FAMILY_ITEMS = {
-    "ssm": "#17 (models/mamba2.py)",
-    "hybrid": "#17 (models/mamba2.py)",
-    "audio": "#18 (encoder, cross-attention)",
     "vlm": "#19 (patch embeddings)",
 }
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
 
 
 def _check_cfg(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _FAMILIES:
         item = _FAMILY_ITEMS.get(cfg.family)
         if item is None:
             raise ValueError(cfg.family)
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP Queue 1 {item})")
+    if cfg.family == "hybrid" and cfg.n_layers % _attn_every(cfg):
+        raise ValueError(f"{cfg.n_layers} layers are not groups of "
+                         f"attn_every = {_attn_every(cfg)}")
+
+
+def _attn_every(cfg: ArchConfig) -> int:
+    return cfg.attn_every or 6
+
+
+def _attn_shapes(cfg: ArchConfig, prefix: str = "") -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {f"{prefix}wq": (d, h * hd), f"{prefix}wk": (d, kv * hd),
+            f"{prefix}wv": (d, kv * hd), f"{prefix}wo": (h * hd, d)}
+
+
+def _mlp_shapes(cfg: ArchConfig) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"mlp_wi": (d, ff), "mlp_wg": (d, ff), "mlp_wo": (ff, d)}
 
 
 def _layer_shapes(cfg: ArchConfig) -> dict:
-    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        cfg.d_ff)
-    shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
-              "wo": (h * hd, d), "ln1": (d,), "ln2": (d,)}
+    """A block's leaves and their per-layer shapes."""
+    d = cfg.d_model
+    if cfg.family in ("ssm", "hybrid"):
+        d_in, nh, n, _ = M2.dims(cfg)
+        ch = M2.conv_channels(cfg)
+        return {"in_proj": (d, 2 * d_in + 2 * n + nh), "out_proj": (d_in, d),
+                "conv_w": (ch, cfg.ssm_conv), "conv_b": (ch,), "A_log": (nh,),
+                "D": (nh,), "dt_bias": (nh,), "gnorm": (d_in,), "ln1": (d,)}
+    shapes = {**_attn_shapes(cfg), "ln1": (d,), "ln2": (d,)}
     if cfg.family == "moe":
-        e = cfg.n_experts
+        e, ff = cfg.n_experts, cfg.d_ff
         shapes.update(router=(d, e), moe_wi=(e, d, ff), moe_wg=(e, d, ff),
                       moe_wo=(e, ff, d))
     else:
-        shapes.update(mlp_wi=(d, ff), mlp_wg=(d, ff), mlp_wo=(ff, d))
+        shapes.update(_mlp_shapes(cfg))
+    if cfg.family == "audio":
+        shapes.update(_attn_shapes(cfg, "x"), ln_x=(d,))
     return shapes
+
+
+def _shared_shapes(cfg: ArchConfig) -> dict:
+    """The hybrid's shared attention block (one, unstacked)."""
+    return {**_attn_shapes(cfg), "ln_attn": (cfg.d_model,)}
+
+
+def _encoder_shapes(cfg: ArchConfig) -> dict:
+    """One audio encoder block."""
+    d = cfg.d_model
+    return {**_attn_shapes(cfg), "ln1": (d,), "ln2": (d,), **_mlp_shapes(cfg)}
 
 
 def _weight_shape(leaf) -> tuple:
@@ -103,37 +144,78 @@ class Block(nn.Module):
         return out
 
 
+def _check_leaves(where: str, leaves: Mapping, shapes: dict, cfg) -> None:
+    if set(leaves) != set(shapes):
+        raise ValueError(f"{where} has {sorted(leaves)}, expected "
+                         f"{sorted(shapes)}")
+    for k, t in leaves.items():
+        if _weight_shape(t) != shapes[k]:
+            raise ValueError(f"{where}.{k}: shape {_weight_shape(t)}, "
+                             f"expected {shapes[k]} for {cfg.name}")
+
+
 class Transformer(nn.Module):
-    """The LM's parameters, by the reference's names."""
+    """The LM's parameters, by the reference's names.  `shared_attn` (the
+    hybrid family's) and `encoder` / `enc_final_norm` (the audio
+    family's) are given exactly for their family."""
 
     def __init__(self, cfg: ArchConfig, embed: torch.Tensor,
                  unembed: torch.Tensor, final_norm: torch.Tensor,
-                 blocks: list[dict]):
+                 blocks: list[dict], shared_attn: dict | None = None,
+                 encoder: list[dict] | None = None,
+                 enc_final_norm: torch.Tensor | None = None):
         super().__init__()
         _check_cfg(cfg)
-        want = {"embed": (cfg.vocab, cfg.d_model),
-                "unembed": (cfg.d_model, cfg.vocab),
-                "final_norm": (cfg.d_model,)}
-        got = {"embed": embed, "unembed": unembed, "final_norm": final_norm}
+        d = cfg.d_model
+        _check_leaves("model", {"embed": embed, "unembed": unembed,
+                                "final_norm": final_norm},
+                      {"embed": (cfg.vocab, d), "unembed": (d, cfg.vocab),
+                       "final_norm": (d,)}, cfg)
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} "
                              f"layers")
         layer = _layer_shapes(cfg)
         for i, lp in enumerate(blocks):
-            if set(lp) != set(layer):
-                raise ValueError(f"block {i} has {sorted(lp)}, expected "
-                                 f"{sorted(layer)}")
-            got.update({f"blocks.{i}.{k}": t for k, t in lp.items()})
-            want.update({f"blocks.{i}.{k}": s for k, s in layer.items()})
-        for name, t in got.items():
-            if _weight_shape(t) != want[name]:
-                raise ValueError(f"{name}: shape {_weight_shape(t)}, "
-                                 f"expected {want[name]} for {cfg.name}")
+            _check_leaves(f"blocks.{i}", lp, layer, cfg)
+        hybrid, audio = cfg.family == "hybrid", cfg.family == "audio"
+        if (shared_attn is not None) != hybrid:
+            raise ValueError(f"shared_attn is for the hybrid family, not "
+                             f"{cfg.family!r}")
+        if (encoder is not None) != audio or (
+                enc_final_norm is not None) != audio:
+            raise ValueError(f"encoder and enc_final_norm are for the audio "
+                             f"family, not {cfg.family!r}")
+        if hybrid:
+            _check_leaves("shared_attn", shared_attn, _shared_shapes(cfg),
+                          cfg)
+        if audio:
+            if len(encoder) != cfg.enc_layers:
+                raise ValueError(f"{len(encoder)} encoder blocks for "
+                                 f"{cfg.enc_layers} layers")
+            for i, lp in enumerate(encoder):
+                _check_leaves(f"encoder.{i}", lp, _encoder_shapes(cfg), cfg)
+            _check_leaves("model", {"enc_final_norm": enc_final_norm},
+                          {"enc_final_norm": (d,)}, cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(embed)
         self.unembed = nn.Parameter(unembed)
         self.final_norm = nn.Parameter(final_norm)
         self.blocks = nn.ModuleList(Block(lp) for lp in blocks)
+        self.shared_attn = Block(shared_attn) if hybrid else None
+        self.encoder = (nn.ModuleList(Block(lp) for lp in encoder)
+                        if audio else None)
+        self.enc_final_norm = (nn.Parameter(enc_final_norm) if audio
+                               else None)
+
+    def extras(self) -> dict:
+        """The family extras as `Transformer` keyword arguments (leaves
+        as `Block.leaves`), for a model that keeps them as they are."""
+        if self.shared_attn is not None:
+            return {"shared_attn": self.shared_attn.leaves()}
+        if self.encoder is not None:
+            return {"encoder": [b.leaves() for b in self.encoder],
+                    "enc_final_norm": self.enc_final_norm}
+        return {}
 
 
 # ---------------------------------------------------------------------------
@@ -155,19 +237,38 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> Transformer:
     the seeded `gen` on its device (the reference's numbers are not
     reproduced: the generators differ)."""
     _check_cfg(cfg)
-    L = cfg.n_layers
-    embed = init_dense(gen, (cfg.vocab, cfg.d_model), cfg.dtype, scale=1.0)
-    unembed = init_dense(gen, (cfg.d_model, cfg.vocab), cfg.dtype)
-    final_norm = init_ones(gen, (cfg.d_model,), cfg.dtype)
+    L, d = cfg.n_layers, cfg.d_model
+    embed = init_dense(gen, (cfg.vocab, d), cfg.dtype, scale=1.0)
+    unembed = init_dense(gen, (d, cfg.vocab), cfg.dtype)
+    final_norm = init_ones(gen, (d,), cfg.dtype)
+    extras = {}
     blocks = []
     for _ in range(L):
-        lp = init_attention(gen, cfg, L)
-        lp["ln1"] = init_ones(gen, (cfg.d_model,), cfg.dtype)
-        lp["ln2"] = init_ones(gen, (cfg.d_model,), cfg.dtype)
-        lp.update(init_moe(gen, cfg, L) if cfg.family == "moe"
-                  else _init_mlp(gen, cfg, L))
+        if cfg.family in ("ssm", "hybrid"):
+            lp = M2.init_mamba2(gen, cfg, L)
+            lp["ln1"] = init_ones(gen, (d,), cfg.dtype)
+        else:
+            lp = init_attention(gen, cfg, L, cross=cfg.family == "audio")
+            lp["ln1"] = init_ones(gen, (d,), cfg.dtype)
+            lp["ln2"] = init_ones(gen, (d,), cfg.dtype)
+            if cfg.family == "audio":
+                lp["ln_x"] = init_ones(gen, (d,), cfg.dtype)
+            lp.update(init_moe(gen, cfg, L) if cfg.family == "moe"
+                      else _init_mlp(gen, cfg, L))
         blocks.append(lp)
-    return Transformer(cfg, embed, unembed, final_norm, blocks)
+    if cfg.family == "hybrid":
+        # one *shared* attention block (zamba2), applied every attn_every
+        extras["shared_attn"] = dict(init_attention(gen, cfg, 0),
+                                     ln_attn=init_ones(gen, (d,), cfg.dtype))
+    elif cfg.family == "audio":
+        EL = cfg.enc_layers
+        extras["encoder"] = [
+            dict(init_attention(gen, cfg, EL),
+                 ln1=init_ones(gen, (d,), cfg.dtype),
+                 ln2=init_ones(gen, (d,), cfg.dtype), **_init_mlp(gen, cfg, EL))
+            for _ in range(EL)]
+        extras["enc_final_norm"] = init_ones(gen, (d,), cfg.dtype)
+    return Transformer(cfg, embed, unembed, final_norm, blocks, **extras)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +291,22 @@ def _attn_mlp_block(x, lp, cfg: ArchConfig):
     return x + f, aux
 
 
+def _ssm_block(x, lp, cfg: ArchConfig):
+    return x + M2.mamba2_forward(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
+                                 cfg)
+
+
+def _encoder_forward(params: Transformer, cfg: ArchConfig, frames):
+    """whisper encoder over stub frame embeddings (B, F, d)."""
+    x = frames.to(cfg.dtype)
+    for lp in params.encoder:
+        x = x + attention_encoder(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
+                                  cfg)
+        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp_wi"],
+                       lp["mlp_wg"], lp["mlp_wo"])
+    return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
+
+
 def _layer_params(block: Block, param_transform: Callable | None):
     """A layer's leaves as the layer reads them: the block itself, or
     `param_transform` of its leaves (the reference applies it inside the
@@ -209,8 +326,7 @@ def embed_tokens(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor
 
 class DecodeState(NamedTuple):
     """Per-family stacked caches + current position (the reference's
-    fields; the dense and moe families use `kv` and `pos`, the others
-    are ())."""
+    fields; a field the family does not use is ())."""
 
     kv: Any            # KVCache stacked (L, B, kv, S, hd) or () if unused
     ssm: Any           # SSMCache stacked (L, ...) or ()
@@ -219,11 +335,31 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor  # 0-d int32
 
 
-def _kv_stack(cfg: ArchConfig, batch: int, cache_len: int, dtype, device
-              ) -> KVCache:
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.hd)
+def _kv_stack(cfg: ArchConfig, n: int, batch: int, cache_len: int, dtype,
+              device) -> KVCache:
+    shape = (n, batch, cfg.n_kv_heads, cache_len, cfg.hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _caches(cfg: ArchConfig, batch: int, cache_len: int, kv_dtype, device
+            ) -> dict:
+    """The family's empty stacked caches: `kv` (one per layer), `ssm`
+    (conv windows in cfg.dtype, states f32) and the hybrid's `shared_kv`
+    (one per group of `attn_every` layers)."""
+    L = cfg.n_layers
+    out = {"kv": (), "ssm": (), "shared_kv": ()}
+    if cfg.family in ("dense", "moe", "audio"):
+        out["kv"] = _kv_stack(cfg, L, batch, cache_len, kv_dtype, device)
+    if cfg.family in ("ssm", "hybrid"):
+        one = M2.init_cache(cfg, batch, cfg.dtype, device)
+        out["ssm"] = M2.SSMCache(*(
+            torch.zeros((L, *t.shape), dtype=t.dtype, device=device)
+            for t in one))
+    if cfg.family == "hybrid":
+        out["shared_kv"] = _kv_stack(cfg, L // _attn_every(cfg), batch,
+                                     cache_len, kv_dtype, device)
+    return out
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
@@ -232,8 +368,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     _check_cfg(cfg)
     device = resolve_device(device)
     dt = cfg.kv_cache_dtype or cfg.dtype     # int8 KV cache perf option
-    return DecodeState(kv=_kv_stack(cfg, batch, cache_len, dt, device),
-                       ssm=(), shared_kv=(), enc_out=(),
+    enc = ()
+    if cfg.family == "audio":
+        enc = torch.zeros((batch, cfg.enc_frames, cfg.d_model),
+                          dtype=cfg.dtype, device=device)
+    return DecodeState(**_caches(cfg, batch, cache_len, dt, device),
+                       enc_out=enc,
                        pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -243,29 +383,60 @@ def _logits(params: Transformer, cfg: ArchConfig, x: torch.Tensor
     return x @ params.unembed.to(cfg.dtype)
 
 
+def _group(cfg: ArchConfig, layer: int) -> int | None:
+    """The hybrid's shared-attention group that `layer` opens, else
+    None: the shared block runs before every `attn_every` SSM layers."""
+    if cfg.family != "hybrid" or layer % _attn_every(cfg):
+        return None
+    return layer // _attn_every(cfg)
+
+
+def _stack_slice(stack, i: int):
+    """Layer (or group) i's view of a stacked KVCache / SSMCache."""
+    return type(stack)(*(t[i] for t in stack))
+
+
 @torch.no_grad()
 def forward_decode(params: Transformer, cfg: ArchConfig, state: DecodeState,
                    tokens: torch.Tensor,
                    param_transform: Callable | None = None):
     """One-token decode.  tokens (B, 1) -> (logits (B, V), new state).
 
-    The KV stack of `state` is updated in place (layer l's slot `pos` is
-    written through a view of the stack), so the returned state holds the
-    same cache tensors with `pos + 1`; the reference returns new arrays.
+    The caches of `state` are updated in place (layer l's KV slot `pos`,
+    SSM window and state, and the hybrid's shared KV slot are written
+    through views of the stacks), so the returned state holds the same
+    cache tensors with `pos + 1`; the reference returns new arrays.
     `param_transform` is the C3 codebook hook
     (`quant.lm_quant.make_param_transform`), applied to each layer's
     leaves before the layer runs.
     """
     _check_cfg(cfg)
+    eps = cfg.norm_eps
     x = embed_tokens(params, cfg, tokens)
     pos = state.pos
     for layer, block in enumerate(params.blocks):
+        group = _group(cfg, layer)
+        if group is not None:
+            sp = params.shared_attn
+            h, _ = attention_decode(rms_norm(x, sp["ln_attn"], eps), sp, cfg,
+                                    _stack_slice(state.shared_kv, group), pos)
+            x = x + h
         lp = _layer_params(block, param_transform)
-        cache = KVCache(state.kv.k[layer], state.kv.v[layer])
-        h, _ = attention_decode(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
-                                cfg, cache, pos)
+        if cfg.family in ("ssm", "hybrid"):
+            cache = _stack_slice(state.ssm, layer)
+            h, new = M2.mamba2_decode(rms_norm(x, lp["ln1"], eps), lp, cfg,
+                                      cache)
+            cache.conv.copy_(new.conv)
+            cache.state.copy_(new.state)
+            x = x + h
+            continue
+        h, _ = attention_decode(rms_norm(x, lp["ln1"], eps), lp, cfg,
+                                _stack_slice(state.kv, layer), pos)
         x = x + h
-        f, _ = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg)
+        if cfg.family == "audio":
+            x = x + attention_cross(rms_norm(x, lp["ln_x"], eps),
+                                    state.enc_out, lp, cfg)
+        f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg)
         x = x + f
     return _logits(params, cfg, x)[:, 0], state._replace(pos=pos + 1)
 
@@ -275,25 +446,45 @@ def forward_prefill(params: Transformer, cfg: ArchConfig, batch: dict,
                     cache_len: int, param_transform: Callable | None = None):
     """Prefill a prompt (B, S); returns (last-token logits, DecodeState).
 
-    Full forward + cache population: each layer writes its k / v into its
-    slice of one (L, B, kv, cache_len, hd) stack of x's type, as the
-    reference's prefill caches are.  `param_transform` as in
-    `forward_decode`.
+    Full forward + cache population: each layer writes its k / v (or its
+    SSM conv window and state) into its slice of one stack of x's type
+    (states f32), as the reference's prefill caches are; the audio family
+    first runs the encoder over `batch["frames"]` (B, enc_frames, d).
+    `param_transform` as in `forward_decode`.
     """
     _check_cfg(cfg)
+    eps = cfg.norm_eps
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, cfg, tokens)
-    kv = _kv_stack(cfg, b, cache_len, x.dtype, x.device)
+    caches = _caches(cfg, b, cache_len, x.dtype, x.device)
+    enc = ()
+    if cfg.family == "audio":
+        enc = _encoder_forward(params, cfg, batch["frames"])
     for layer, block in enumerate(params.blocks):
+        group = _group(cfg, layer)
+        if group is not None:
+            sp = params.shared_attn
+            h, _ = attention_prefill(rms_norm(x, sp["ln_attn"], eps), sp, cfg,
+                                     cache_len,
+                                     _stack_slice(caches["shared_kv"], group))
+            x = x + h
         lp = _layer_params(block, param_transform)
-        h, _ = attention_prefill(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
-                                 cfg, cache_len,
-                                 KVCache(kv.k[layer], kv.v[layer]))
+        if cfg.family in ("ssm", "hybrid"):
+            h, _ = M2.mamba2_forward(rms_norm(x, lp["ln1"], eps), lp, cfg,
+                                     _stack_slice(caches["ssm"], layer),
+                                     return_cache=True)
+            x = x + h
+            continue
+        h, _ = attention_prefill(rms_norm(x, lp["ln1"], eps), lp, cfg,
+                                 cache_len, _stack_slice(caches["kv"], layer))
         x = x + h
-        f, _ = _ffn(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg)
+        if cfg.family == "audio":
+            x = x + attention_cross(rms_norm(x, lp["ln_x"], eps), enc, lp,
+                                    cfg)
+        f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg)
         x = x + f
-    state = DecodeState(kv=kv, ssm=(), shared_kv=(), enc_out=(),
+    state = DecodeState(**caches, enc_out=enc,
                         pos=torch.tensor(s, dtype=torch.int32,
                                          device=x.device))
     return _logits(params, cfg, x[:, -1]), state

@@ -58,7 +58,10 @@ def quantize_blocks(model, cfg: CodebookConfig | None = None,
                     pack_4bit: bool = False):
     """A `Transformer` whose quantizable block leaves are
     `{"idx": int8 | "idx4": packed uint8, "cb": (N,) f32}`, the others
-    passed through (embeddings and norms are the same tensors).
+    passed through (embeddings and norms are the same tensors).  The
+    family extras (the hybrid's `shared_attn`, the audio encoder) are
+    carried over unquantized: the reference's launcher quantizes
+    `params["blocks"]` only.
 
     Each layer's leaf is fitted alone as one flat row (the reference's
     `jax.vmap(q_one)` over the stacked leaf), where the weights lie.
@@ -88,7 +91,7 @@ def quantize_blocks(model, cfg: CodebookConfig | None = None,
             out[name] = entry
         blocks.append(out)
     return Transformer(model.cfg, model.embed, model.unembed,
-                       model.final_norm, blocks)
+                       model.final_norm, blocks, **model.extras())
 
 
 def make_param_transform(dtype=torch.bfloat16) -> Callable[[dict], dict]:

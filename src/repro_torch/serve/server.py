@@ -64,6 +64,10 @@ class Server:
         for i, r in enumerate(reqs):
             toks[i, -len(r.prompt):] = r.prompt     # left-pad, no mask
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        if self.cfg.family == "audio":        # the stub frontend's frames
+            batch["frames"] = torch.zeros(
+                (len(reqs), self.cfg.enc_frames, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
         return self.prefill(self.params, batch=batch)
 
     def run(self, sample: Callable | None = None, max_steps: int = 512

@@ -17,9 +17,9 @@ training step against the same step on the CPU, and codebook fits
 (`quant.quantize`, bitwise) and per-core PTQ
 (`deploy.fit_per_core_codebooks`) against the CPU's; C3-quantized LM
 products (`models.common.linear` on a codebook operand) at the decode
-shapes, `moe_ffn` and a 4-bit quantized model against the CPU.  Marked
-`cuda`; every
-test skips without a card.  Run on the
+shapes, `moe_ffn` and a 4-bit quantized model against the CPU; one
+mamba2 layer against the CPU and whisper's decoder prefill on the flash
+kernel.  Marked `cuda`; every test skips without a card.  Run on the
 card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1165,3 +1165,85 @@ def test_quantized_4bit_route_on_the_card_matches_the_cpu(dev, family, kw,
     torch.cuda.synchronize()
     assert CBM.launches["codebook_matmul"] == 3 * per_layer * cfg.n_layers
     torch.testing.assert_close(logits[1], logits[0], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the ssm and audio families on the card
+
+
+def test_mamba2_layer_on_the_card_matches_the_cpu(dev):
+    """One mamba2 layer in f32 (A_log, D, dt_bias drawn at random): a
+    40-token forward (padded to three chunks of 16) with its cache, then
+    three decode steps, on the card against the CPU within 1e-4."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import transformer as T
+
+    cfg = _tiny_cfg("ssm", n_heads=0, n_kv_heads=0, d_ff=0, ssm_state=16,
+                    ssm_head_dim=32, ssm_chunk=16)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    lp = {k: v.detach() for k, v in model.blocks[0].leaves().items()}
+    nh = M2.dims(cfg)[1]
+    for name, scale in (("A_log", 0.5), ("D", 1.0), ("dt_bias", 0.5)):
+        lp[name] = torch.tensor(rng.normal(0, scale, nh).astype(np.float32))
+    on_dev = {k: v.to(dev) for k, v in lp.items()}
+    x = torch.tensor(rng.normal(0, 1, (2, 40, 64)).astype(np.float32))
+    want, wc = M2.mamba2_forward(x, lp, cfg, return_cache=True)
+    got, gc = M2.mamba2_forward(x.to(dev), on_dev, cfg, return_cache=True)
+    for step in range(4):
+        torch.cuda.synchronize()
+        for g, w in ((got, want), (gc.conv, wc.conv), (gc.state, wc.state)):
+            torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+        if step == 3:
+            break
+        xs = torch.tensor(rng.normal(0, 1, (2, 1, 64)).astype(np.float32))
+        want, wc = M2.mamba2_decode(xs, lp, cfg, wc)
+        got, gc = M2.mamba2_decode(xs.to(dev), on_dev, cfg, gc)
+
+
+def test_whisper_prefill_takes_the_flash_kernel(dev):
+    """whisper-tiny's widths (d 384, 6 heads of hd 64, bf16), depth cut
+    to 2 decoder and 1 encoder layers over 64 zero frames: a 256-token
+    prefill launches the tensor-core flash kernel once per decoder layer
+    (the encoder and cross-attention never), each call within 2e-2 of the
+    plain version on its q / k / v, the logits and one decode step's
+    within 0.125 of the same model on the CPU."""
+    import copy
+
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch("whisper-tiny"), n_layers=2,
+                              enc_layers=1, enc_frames=64, vocab=1000)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    on_dev = copy.deepcopy(model).to(dev)
+    toks = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 257)).astype(np.int32))
+    frames = torch.zeros((2, cfg.enc_frames, cfg.d_model))
+    flash = ATT.flash_attention
+    errs = []
+
+    def checked(q, k, v, *, causal=True):
+        out = flash(q, k, v, causal=causal)
+        errs.append(float((out.float() - FA.flash_attention_plain(
+            q, k, v, causal).float()).abs().max()))
+        return out
+
+    logits = []
+    for m, d in ((model, "cpu"), (on_dev, dev)):
+        batch = {"tokens": toks[:, :256].to(d), "frames": frames.to(d)}
+        FA.reset_launches()
+        ATT.flash_attention = checked
+        try:
+            out, st = T.forward_prefill(m, cfg, batch, 264)
+        finally:
+            ATT.flash_attention = flash
+        step, _ = T.forward_decode(m, cfg, st, toks[:, 256:].to(d))
+        torch.cuda.synchronize()
+        logits.append(torch.stack([out, step]).float().cpu())
+    assert FA.launches == {"flash_attention": 2, "flash_attention_wgmma": 2}
+    assert len(errs) == 4 and max(errs[2:]) <= 2e-2
+    assert bool(logits[1].isfinite().all())
+    torch.testing.assert_close(logits[1], logits[0], atol=0.125, rtol=0)
