@@ -254,6 +254,7 @@ no CUDA card is present or any phase fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -3178,7 +3179,7 @@ def flash_kernel_phase(seed: int) -> dict:
     return timed[cfg_shape]
 
 
-def _serve_once(cfg, model, prompts, instrument=None):
+def _serve_once(cfg, model, prompts, instrument=None, cache_len=LM_CACHE):
     """One `Server.run` over fresh requests; `instrument` maps "prefill" /
     "decode" to lists that receive each call's host-clock ms (each call
     synchronised on both sides)."""
@@ -3187,7 +3188,7 @@ def _serve_once(cfg, model, prompts, instrument=None):
     from repro_torch.serve.server import Request, Server
 
     srv = Server(cfg, model, device=DEVICE, batch_slots=LM_SLOTS,
-                 cache_len=LM_CACHE)
+                 cache_len=cache_len)
     if instrument is not None:
         def timed(fn, key):
             def call(*args, **kw):
@@ -3206,7 +3207,7 @@ def _serve_once(cfg, model, prompts, instrument=None):
 
 
 def _measured_serve(cfg, model, prompts, what: str, want: dict,
-                    **extra) -> dict:
+                    cache_len: int = LM_CACHE, **extra) -> dict:
     """A warm-up batch, then the served run with every LM launch count
     from 0 just before it and read just after (they must equal `want`):
     tokens/s, prefill and decode ms per call (each call is timed between
@@ -3220,14 +3221,15 @@ def _measured_serve(cfg, model, prompts, what: str, want: dict,
     from repro_torch.kernels import codebook_matmul as CBM
     from repro_torch.kernels import flash_attention as FA
 
-    _serve_once(cfg, model, prompts[:LM_SLOTS])          # warm up
+    serve = functools.partial(_serve_once, cfg, model, cache_len=cache_len)
+    serve(prompts[:LM_SLOTS])                            # warm up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     phase = {"prefill": [], "decode": []}
     FA.reset_launches()
     CBM.reset_launches()
     t0 = time.perf_counter()
-    done = _serve_once(cfg, model, prompts, phase)
+    done = serve(prompts, phase)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**FA.launches, **CBM.launches}
@@ -3247,16 +3249,16 @@ def _measured_serve(cfg, model, prompts, what: str, want: dict,
             "prefill_batches": len(phase["prefill"]),
             "decode_steps": len(phase["decode"]),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **extra}
-    log(f"{what}: {len(prompts)} requests x {LM_PROMPT} prompt tokens, "
-        f"{LM_NEW} new each, {LM_SLOTS} slots: {json.dumps(perf)}; first "
-        f"tokens {[t[:4] for t in toks[:2]]}")
+    log(f"{what}: {len(prompts)} requests x {len(prompts[0])} prompt "
+        f"tokens, {LM_NEW} new each, {LM_SLOTS} slots: {json.dumps(perf)}; "
+        f"first tokens {[t[:4] for t in toks[:2]]}")
     batch = prompts[:LM_SLOTS]
     t0 = time.perf_counter()
-    _serve_once(cfg, model, batch)
+    serve(batch)
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
     perf.update(batch_ms=batch_ms, **_device_breakdown(
-        lambda: _serve_once(cfg, model, batch), batch_ms,
+        lambda: serve(batch), batch_ms,
         (("flash_kernel_ms", "flash_attention"),
          ("codebook_kernel_ms", "codebook_matmul"))))
     perf["out_tokens"] = toks
@@ -3306,9 +3308,9 @@ def _uncounted(cfg) -> int:
     return 2 * d * L
 
 
-def _prompts(seed: int, vocab: int) -> list:
+def _prompts(seed: int, vocab: int, length: int = LM_PROMPT) -> list:
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, vocab, LM_PROMPT).astype(np.int32)
+    return [rng.integers(0, vocab, length).astype(np.int32)
             for _ in range(LM_REQUESTS)]
 
 
@@ -3364,11 +3366,13 @@ def serving_path(seed: int) -> dict:
 
 
 def _prefill_continues(what: str, cfg, model, batch: dict,
-                       flash_layers: int) -> dict:
-    """A prefill over `batch`'s 512-token prompts, every flash call held
+                       flash_layers: int, cache_len: int = LM_CACHE) -> dict:
+    """A prefill over `batch`'s prompts (S positions, 512 in phases 6 and
+    14; 576 patches + 64 tokens in phase 15), every flash call held
     against the plain version on its q / k / v (`flash_layers` calls),
-    against a prefill over 511 (no flash launch: 511 is not a multiple of
-    128) plus one decode step of the last token, by `_hold_logits`."""
+    against a prefill over S - 1 (no flash launch: S - 1 is not a
+    multiple of 128) plus one decode step of the last token, by
+    `_hold_logits`."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
@@ -3387,7 +3391,7 @@ def _prefill_continues(what: str, cfg, model, batch: dict,
 
     ATT.flash_attention = checked
     try:
-        full, _ = T.forward_prefill(model, cfg, batch, LM_CACHE)
+        full, _ = T.forward_prefill(model, cfg, batch, cache_len)
     finally:
         ATT.flash_attention = flash
     if len(layer_err) != flash_layers:
@@ -3398,7 +3402,7 @@ def _prefill_continues(what: str, cfg, model, batch: dict,
             f"version on its q / k / v (max |diff| {max(layer_err):.3g})")
     FA.reset_launches()
     _, st = T.forward_prefill(model, cfg, dict(batch, tokens=tokens[:, :-1]),
-                              LM_CACHE)
+                              cache_len)
     got, st = T.forward_decode(model, cfg, st, tokens[:, -1:])
     torch.cuda.synchronize()
     if FA.launches["flash_attention"] != 0:
@@ -3986,6 +3990,375 @@ def families_path(seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the vlm family and LM training
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "phi-3-vision-4.2b"  # configs/phi_3_vision_4_2b.py ARCH
+VLM_PROMPT = 64                 # 576 patches + 64 = 640 positions: flash
+VLM_LONG_PROMPT = 512           # 576 + 512 = 1088 positions: plain SDPA
+VLM_CACHE = 768                 # 576 + 64 + 16 new tokens
+VLM_LONG_CACHE = 1152
+VLM_C3_LAYERS = 8               # (c): the first 8 of 32 layers
+FLASH_NEW_HEAD_DIMS = (80, 96)  # the SIMT instantiations this phase adds
+TRAIN_ARCH = "granite-3-2b"     # configs/granite_3_2b.py ARCH
+TRAIN_BATCH_LM, TRAIN_SEQ, TRAIN_STEPS_LM = 2, 512, 4
+TINY_STEPS, TINY_SAVE, TINY_CRASH = 8, 3, 4   # (e): crash in step 4
+TINY_RESUME_REL = 1e-5          # (e): final loss, resumed vs uninterrupted
+# (d): one layer's q / k / v gradients through the flash autograd.Function
+# (the kernel forward, autograd of the plain version backward) against
+# autograd of the plain version alone, on the same bf16 q, k, v and
+# cotangent: the same backward on the same operands, so they can differ
+# only where a library product picks another f32 summation order between
+# two calls; that moves a bf16 result by at most one rounding, one ulp
+# at the leaf's largest magnitude (2^-7 of it).
+FLASH_GRAD_REL = 2.0 ** -7
+
+
+def _flash_new_dims_phase(seed: int) -> dict:
+    """(a) the SIMT instantiations at hd 80 and 96 against the plain
+    version by phase 6 (a)'s rule, then timed at phi-3-vision's prefill
+    shape (B 4, H = KV = 32, S = T = 640, hd 96, bf16, causal) beside
+    `scaled_dot_product_attention`."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 15)
+    cases = []
+    for hd in FLASH_NEW_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in (128, 640):
+                for group in (1, 4):
+                    for causal in (True, False):
+                        cases.append(((2, 8, 8 // group, s, s, hd), dtype,
+                                      causal))
+            cases.append(((2, 8, 2, 128, 512, hd), dtype, True))   # T > S
+            cases.append(((2, 8, 2, 384, 256, hd), dtype, True))   # S > T
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    FA.reset_launches()
+    for shape, dtype, causal in cases:
+        q, k, v = _flash_case(rng, *shape, dtype, dev)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err[dtype] = max(err[dtype], _flash_diff(got, want))
+    if FA.launches != {"flash_attention": len(cases),
+                       "flash_attention_wgmma": 0}:
+        raise AssertionError(f"phase 15 (a): launches {FA.launches} for "
+                             f"{len(cases)} SIMT cases")
+    log(f"phase 15 (a): flash_attention at hd {FLASH_NEW_HEAD_DIMS}: "
+        f"{len(cases)} cases agree on the SIMT kernel, max |diff| f32 "
+        f"{err[torch.float32]:.3g} (tolerance {FLASH_F32_TOL} abs + rel), "
+        f"bf16 {err[torch.bfloat16]:.3g} (tolerance {FLASH_BF16_TOL} abs)")
+    shape = (LM_SLOTS, 32, 32, 576 + VLM_PROMPT, 576 + VLM_PROMPT, 96)
+    q, k, v = _flash_case(rng, *shape, torch.bfloat16, dev)
+    bound, by = _flash_bound(q, k, True)
+    timed = {"max_abs_err": max(err.values()),
+             "ms": _time_graph_ms(lambda: FA.flash_attention(q, k, v)),
+             "plain_ms": _time_eager_ms(
+                 lambda: FA.flash_attention_plain(q, k, v)),
+             "library_ms": _time_graph_ms(
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True)),
+             "bound_ms": bound, "bound_by": by}
+    log(f"phase 15 (a): flash_attention at (B, H, KV, S, T, hd) = {shape} "
+        f"bf16 causal: {json.dumps(timed)}")
+    return timed
+
+
+def _vlm_batch(prompts, cfg):
+    """The server's prefill batch: the prompts and zero f32 patches."""
+    import torch
+
+    return {"tokens": torch.as_tensor(np.stack(prompts), device=DEVICE),
+            "patch_embeds": torch.zeros((len(prompts), cfg.n_patches,
+                                         cfg.d_model), device=DEVICE)}
+
+
+def _vlm_long_prefill(cfg, model, seed: int) -> dict:
+    """(b): a prefill of 512-token prompts (1088 positions) takes the
+    plain SDPA and launches no flash kernel."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    batch = _vlm_batch(_prompts(seed, cfg.vocab, VLM_LONG_PROMPT)[:LM_SLOTS],
+                       cfg)
+    FA.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, st = T.forward_prefill(model, cfg, batch, VLM_LONG_CACHE)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if FA.launches["flash_attention"] != 0:
+        raise AssertionError(f"phase 15 (b): a {int(st.pos)}-position "
+                             f"prefill launched {FA.launches}")
+    if tuple(logits.shape) != (LM_SLOTS, cfg.vocab) or not bool(
+            logits.float().isfinite().all()):
+        raise AssertionError("phase 15 (b): bad long-prefill logits")
+    log(f"phase 15 (b): prefill over {cfg.n_patches} patches + "
+        f"{VLM_LONG_PROMPT} tokens ({int(st.pos)} positions) on the plain "
+        f"SDPA, no flash launch: {ms:.1f} ms")
+    return {"long_prefill_ms": ms, "long_prefill_positions": int(st.pos)}
+
+
+def _capture_qkv(cfg, model, tokens):
+    """Layer 0's q, k, v as its flash call receives them: (B, H, S, hd)
+    and (B, KV, S, hd), contiguous."""
+    import torch
+
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+
+    with torch.no_grad():
+        x = rms_norm(T.embed_tokens(model, cfg, tokens),
+                     model.blocks[0]["ln1"], cfg.norm_eps)
+        positions = torch.arange(tokens.shape[1], device=DEVICE)[None, :]
+        q, k, v = ATT._qkv(x, model.blocks[0], cfg, positions)
+    return [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+
+
+def _flash_grad_check(cfg, model, tokens, seed: int) -> dict:
+    """(d): one layer's q / k / v gradients through `_FlashCore` against
+    autograd of `flash_attention_plain`, on the card, within
+    FLASH_GRAD_REL of each gradient's largest magnitude."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as ATT
+
+    qkv = _capture_qkv(cfg, model, tokens)
+    g = torch.as_tensor(np.random.default_rng(seed).normal(
+        0, 1, qkv[0].shape).astype(np.float32), device=DEVICE).to(
+            qkv[0].dtype)
+    a = [t.clone().requires_grad_() for t in qkv]
+    b = [t.clone().requires_grad_() for t in qkv]
+    got = torch.autograd.grad(ATT._FlashCore.apply(*a), a, g)
+    want = torch.autograd.grad(FA.flash_attention_plain(*b), b, g)
+    torch.cuda.synchronize()
+    out = {"bitwise": all(torch.equal(x, y) for x, y in zip(got, want))}
+    for name, x, y in zip("qkv", got, want):
+        d = float((x.float() - y.float()).abs().max())
+        scale = float(y.float().abs().max())
+        if not math.isfinite(scale) or d > FLASH_GRAD_REL * scale:
+            raise AssertionError(f"phase 15 (d): d{name} off by {d} (largest "
+                                 f"{scale})")
+        out[f"d{name}_max_abs_err"] = d
+        out[f"d{name}_max"] = scale
+    log(f"phase 15 (d): layer 0's q / k / v gradients through the flash "
+        f"autograd.Function agree with autograd of the plain version "
+        f"(tolerance {FLASH_GRAD_REL} of each largest): {json.dumps(out)}")
+    return out
+
+
+def _lm_training(seed: int) -> dict:
+    """(d) granite-3-2b at full width and depth, bf16: TRAIN_STEPS_LM
+    steps of `make_train_step` on TokenStream(--seed) batches of B 2 x
+    S 512; exactly 40 flash launches a step (forward only)."""
+    import torch
+
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    torch.cuda.empty_cache()
+    cfg, model, init_s, n_params = _lm_model(TRAIN_ARCH, seed + 3)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_STEPS_LM))
+    data = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH_LM, seed)
+    batches = [data.batch_at(i, DEVICE) for i in range(TRAIN_STEPS_LM + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    ms, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS_LM):
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, batches[i])
+        losses.append(float(metrics["loss"]))      # synchronises
+        norms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    want = TRAIN_STEPS_LM * cfg.n_layers
+    if FA.launches != {"flash_attention": want,
+                       "flash_attention_wgmma": want}:
+        raise AssertionError(f"phase 15 (d): launches {FA.launches}, "
+                             f"expected {want} (the forward passes only)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"phase 15 (d): loss {losses}, grad_norm "
+                             f"{norms}")
+    warm = statistics.median(ms[1:])
+    perf = {"n_params": n_params, "init_s": init_s, "ms_per_step": ms,
+            "ms_per_step_warm": warm,
+            "tokens_per_s": TRAIN_BATCH_LM * TRAIN_SEQ / warm * 1e3,
+            "loss": losses, "grad_norm": norms, "launches": dict(FA.launches),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"phase 15 (d) {TRAIN_ARCH} training, B {TRAIN_BATCH_LM} x S "
+        f"{TRAIN_SEQ}, bf16: {json.dumps(perf)}")
+    perf.update(_device_breakdown(
+        lambda: step(model, opt, batches[-1]), warm,
+        (("flash_kernel_ms", "flash_attention"),)))
+    perf.update(_flash_grad_check(cfg, model, batches[0]["tokens"], seed))
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return perf
+
+
+def _tiny_trainer_resume(seed: int) -> dict:
+    """(e) `Trainer.run` on the card at examples/torch_lm_train.py's
+    lm-tiny in f32: TINY_STEPS steps uninterrupted, against a run that
+    crashes in step TINY_CRASH and a fresh Trainer that resumes from the
+    last complete checkpoint; final losses within TINY_RESUME_REL."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.models.common import ArchConfig
+    from repro_torch.train.trainer import Trainer, TrainJobConfig
+
+    cfg = ArchConfig("lm-tiny", "dense", n_layers=4, d_model=128, n_heads=4,
+                     n_kv_heads=2, d_ff=256, vocab=512, dtype=torch.float32)
+
+    class Crash(Exception):
+        pass
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def job(name):
+            return TrainJobConfig(batch=8, seq_len=64, num_steps=TINY_STEPS,
+                                  save_every=TINY_SAVE, seed=seed, lr=1e-3,
+                                  ckpt_dir=f"{tmp}/{name}")
+
+        def log_to(hist, crash=None):
+            def on_metrics(step, m, dt):
+                hist.append((step, float(m["loss"])))
+                if step == crash:
+                    raise Crash
+            return on_metrics
+
+        t0 = time.perf_counter()
+        full = []
+        Trainer(cfg, job("full"), device=DEVICE).run(log_to(full))
+        run_s = time.perf_counter() - t0
+        crashed = []
+        tr = Trainer(cfg, job("crash"), device=DEVICE)
+        try:
+            tr.run(log_to(crashed, TINY_CRASH))
+            raise AssertionError("phase 15 (e): the run did not crash")
+        except Crash:
+            pass
+        tr.ckpt.wait()
+        last = tr.ckpt.latest_step()
+        resumed = []
+        Trainer(cfg, job("crash"), device=DEVICE).run(log_to(resumed))
+    want_last = TINY_CRASH // TINY_SAVE * TINY_SAVE
+    if last != want_last or [s for s, _ in resumed] != list(
+            range(want_last, TINY_STEPS)):
+        raise AssertionError(f"phase 15 (e): resumed from {last}, steps "
+                             f"{[s for s, _ in resumed]}")
+    a, b = resumed[-1][1], full[-1][1]
+    rel = abs(a - b) / abs(b)
+    if not math.isfinite(a) or rel > TINY_RESUME_REL:
+        raise AssertionError(f"phase 15 (e): final loss {a} resumed, {b} "
+                             f"uninterrupted")
+    out = {"final_loss": b, "resumed_final_loss": a, "rel_diff": rel,
+           "resumed_from": last, "first_loss": full[0][1],
+           "run_s": run_s}
+    log(f"phase 15 (e): Trainer.run lm-tiny f32, {TINY_STEPS} steps, a "
+        f"crash in step {TINY_CRASH}, resumed from step {last}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def vlm_train_path(seed: int, smi: str) -> dict:
+    """Phase 15: (a) the flash kernel at hd 80 and 96; (b) phi-3-vision-
+    4.2b served at full width and depth, bf16; (c) its first 8 layers C3
+    int8; (d) granite-3-2b LM training at full width and depth; (e)
+    `Trainer.run` with a crash and a resume."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import lm_quant as Q
+
+    out = {"seconds": {}}
+    batches = -(-LM_REQUESTS // LM_SLOTS)
+
+    part = time.perf_counter()
+    out["a"] = _flash_new_dims_phase(seed)
+    out["seconds"]["a"] = time.perf_counter() - part
+
+    # (b) phi-3-vision-4.2b bf16: 576 zero patches + 64 prompt tokens =
+    # 640 positions, the SIMT flash kernel at hd 96 in every layer
+    part = time.perf_counter()
+    cfg, model, init_s, n_params = _lm_model(VLM_ARCH, seed + 4)
+    prompts = _prompts(seed + 20, cfg.vocab, VLM_PROMPT)
+    flash = batches * cfg.n_layers
+    out["b"] = _measured_serve(
+        cfg, model, prompts, "phase 15 (b) phi-3-vision served run",
+        {"flash_attention": flash, "flash_attention_wgmma": 0,
+         "codebook_matmul": 0}, cache_len=VLM_CACHE, init_s=init_s,
+        n_params=n_params)
+    out["b"].pop("out_tokens")
+    out["b"].update(_prefill_continues(
+        "phase 15 (b)", cfg, model, _vlm_batch(prompts[:LM_SLOTS], cfg),
+        cfg.n_layers, cache_len=VLM_CACHE))
+    out["b"].update(_vlm_long_prefill(cfg, model, seed + 21))
+    del model
+    out["seconds"]["b"] = time.perf_counter() - part
+
+    # (c) its first 8 layers, C3 int8 fitted on the card: the seven
+    # projections of a layer on the codebook kernel
+    part = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg8, model8, _, _ = _lm_model(VLM_ARCH, seed + 5,
+                                   n_layers=VLM_C3_LAYERS)
+    qmodel, out["c_quant"] = _quantize_timed(model8, "phase 15 (c)")
+    if set(out["c_quant"]["quantized"]) != set(DENSE_PROJECTIONS):
+        raise AssertionError(f"phase 15 (c): quantized leaves "
+                             f"{out['c_quant']['quantized']}")
+    del model8
+    qcfg = dataclasses.replace(cfg8, quant_serving=True)
+    calls = cfg8.n_layers * len(DENSE_PROJECTIONS)
+    out["c"] = _measured_serve(
+        qcfg, qmodel, prompts, "phase 15 (c) phi-3-vision C3 int8 served run",
+        {"flash_attention": batches * cfg8.n_layers,
+         "flash_attention_wgmma": 0,
+         "codebook_matmul": calls * batches * LM_NEW}, cache_len=VLM_CACHE)
+    out["c"].pop("out_tokens")
+    batch = _vlm_batch(prompts[:LM_SLOTS], cfg8)
+    dense = _dequantized_model(cfg8, qmodel, cfg8.dtype)
+    got, _ = T.forward_prefill(qmodel, cfg8, batch, VLM_CACHE,
+                               param_transform=Q.make_param_transform(
+                                   cfg8.dtype))
+    want, _ = T.forward_prefill(dense, cfg8, batch, VLM_CACHE)
+    torch.cuda.synchronize()
+    out["c"]["logit_diff"] = _hold_logits(
+        f"phase 15 (c) kernel route vs dense dequantized, prefill("
+        f"{cfg8.n_patches} + {VLM_PROMPT})", got, want)
+    del qmodel, dense
+    out["seconds"]["c"] = time.perf_counter() - part
+
+    part = time.perf_counter()
+    out["d"] = _lm_training(seed)
+    out["seconds"]["d"] = time.perf_counter() - part
+
+    part = time.perf_counter()
+    out["e"] = _tiny_trainer_resume(seed)
+    out["seconds"]["e"] = time.perf_counter() - part
+
+    out["launches"] = {
+        "flash_attention": sum(out[p]["launches"]["flash_attention"]
+                               for p in "bcd"),
+        "codebook_matmul": out["c"]["launches"]["codebook_matmul"]}
+    log(f"phase 15 ({smi}) seconds: {json.dumps(out['seconds'])}")
+    return out
+
 # instructions a built library must hold: the flash kernel's bf16 wgmma
 # (HGMMA) and TMA loads (UTMALDG), the fused timestep's f64 tensor-core
 # adds (DMMA)
@@ -4113,22 +4486,31 @@ def main() -> int:
     log(f"ssm, hybrid and audio serving phase: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # 15. the vlm family and LM training
+    t0 = time.perf_counter()
+    vt = vlm_train_path(args.seed, smi)
+    log(f"vlm and LM training phase: {time.perf_counter() - t0:.1f} s")
+
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
     # server), phase 11 (deploy and adaptation), phase 12 (the spawned
     # ranks' batch-sharded fused runs), phase 5 (kernel API, all three
     # loops), phase 6 (the served LM run), phase 13 (the served moe
-    # runs, bf16 and C3 int8, and the 4-bit dense run) and phase 14 (the
-    # served mamba2 C3 run and whisper's served run)
+    # runs, bf16 and C3 int8, and the 4-bit dense run), phase 14 (the
+    # served mamba2 C3 run and whisper's served run) and phase 15 (the
+    # served phi-3-vision runs, bf16 and C3 int8, and granite-3-2b's
+    # training steps)
     launches = dict(mp["launches"])
     for loop in [fp, pp, sp, dp, shp, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = (lm["launches"]["flash_attention"]
                                    + mq["launches"]["flash_attention"]
-                                   + fam["launches"]["flash_attention"])
+                                   + fam["launches"]["flash_attention"]
+                                   + vt["launches"]["flash_attention"])
     launches["codebook_matmul"] += (mq["launches"]["codebook_matmul"]
-                                    + fam["launches"]["codebook_matmul"])
+                                    + fam["launches"]["codebook_matmul"]
+                                    + vt["launches"]["codebook_matmul"])
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {
         "fused_timestep_codebook": ("fused_timestep.cu",

@@ -12,7 +12,11 @@ Layout (the same bytes either package writes and reads):
     publishes the step; a crashed writer leaves only ``.tmp``, which is
     never resumed and is swept by the next save;
   * async: a writer thread drains a bounded queue of host snapshots;
-    `wait()` drains it and raises the first write error;
+    `wait()` drains it and raises the first write error; a blocking save
+    first drains the queue, so writes never overlap (the reference's
+    blocking save can run beside the writer thread, and two writes of
+    one step — the loop's periodic save and its final one — then sweep
+    each other's ``.tmp``);
   * `max_to_keep` newest complete steps are kept.
 
 Leaves are torch tensors (any device) or numpy arrays; `restore` places
@@ -94,9 +98,12 @@ class CheckpointManager:
 
     def save(self, step: int, tree, blocking: bool = False):
         """Snapshot to host memory now; write in the background (or now,
-        when `blocking` or the manager has no writer thread)."""
+        when `blocking` or the manager has no writer thread, after the
+        writes queued before it)."""
         host = {k: _host(v) for k, v in _flatten_with_paths(tree).items()}
         if self._thread is None or blocking:
+            if self._thread is not None:
+                self._q.join()
             self._write(step, host)
         else:
             self._q.put((step, host))      # blocks if writer is behind

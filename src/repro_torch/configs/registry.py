@@ -1,9 +1,7 @@
 """Architecture registry of the port: the reference's names.
 
-`get_arch` serves the four dense, the two moe, the ssm, the hybrid and
-the audio configs (copies of `repro.configs`); the vlm family's name is
-listed in `ARCH_NAMES` but raises `NotImplementedError` naming the
-ROADMAP item that ports it.
+`get_arch` serves the four dense, the two moe, the ssm, the hybrid, the
+audio and the vlm configs (copies of `repro.configs`).
 `input_specs` (jax.ShapeDtypeStruct stand-ins for the dry run) has no
 counterpart: the port runs, it does not lower.
 """
@@ -23,11 +21,7 @@ _MODULES = {
     "zamba2-2.7b": "zamba2_2_7b",
     "mamba2-130m": "mamba2_130m",
     "whisper-tiny": "whisper_tiny",
-}
-
-# name -> the ROADMAP item (Queue 1) that brings its family to the port
-_NOT_PORTED = {
-    "phi-3-vision-4.2b": "#19 (vlm family: patch embeddings)",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 ARCH_NAMES = ["moonshot-v1-16b-a3b", "granite-moe-1b-a400m", "zamba2-2.7b",
@@ -36,11 +30,6 @@ ARCH_NAMES = ["moonshot-v1-16b-a3b", "granite-moe-1b-a400m", "zamba2-2.7b",
 
 
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: its family is not ported yet (ROADMAP Queue 1 "
-            f"{_NOT_PORTED[name]}); the port serves "
-            f"{sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -6,7 +6,10 @@ mapping and register tables as arrays (the JAX reference, a checkpoint)
 hands the port the very same network, and both compute the same thing.
 `convert_lm` does the same for the LM's nested parameter dict, and
 `convert_params` / `convert_adamw` for an SNN's training state (the
-parameter tree and the AdamW step and moments).
+parameter tree and the AdamW step and moments).  `lm_tree` /
+`load_lm_tree` map between the port's per-layer `Transformer` parameter
+names and the reference's nested dict with stacked (L, ...) blocks, the
+layout of an LM training checkpoint in either package.
 """
 from __future__ import annotations
 
@@ -131,6 +134,54 @@ def convert_lm(params: _Map, cfg, device=None):
                        _lm_tensor(params["final_norm"], dev),
                        unstack(params["blocks"], cfg.n_layers, "blocks"),
                        **extras)
+
+
+def _lm_slot(name: str) -> tuple[tuple, int | None]:
+    """A `Transformer` parameter name's place in the reference's tree:
+    (path, layer) for a stacked block leaf (`blocks.3.wq` ->
+    (("blocks", "wq"), 3); `encoder.1.ln1` likewise), (path, None)
+    otherwise (`embed`, `shared_attn.wq`)."""
+    parts = name.split(".")
+    if parts[0] in ("blocks", "encoder"):
+        return (parts[0], parts[2]), int(parts[1])
+    return tuple(parts), None
+
+
+def lm_tree(named: _Map) -> dict:
+    """The reference's nested LM parameter dict from tensors keyed by the
+    port's `Transformer` parameter names (its `named_parameters()`, or
+    AdamW moments kept under the same keys): `blocks` and `encoder`
+    leaves stacked along a new layer axis, the others as they are.
+    Tensors are detached; stacked leaves are new tensors."""
+    slots: dict = {}
+    for name, t in named.items():
+        path, layer = _lm_slot(name)
+        slots.setdefault(path, {})[layer] = t.detach()
+    tree: dict = {}
+    for path, layers in slots.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (layers[None] if None in layers else torch.stack(
+            [layers[i] for i in range(len(layers))]))
+    return tree
+
+
+def load_lm_tree(named: _Map, tree: _Map) -> None:
+    """Copy the reference-layout `tree` (as `lm_tree` gives it; tensors
+    or numpy arrays) into the tensors of `named` in place, each layer its
+    slice of the stacked leaves."""
+    with torch.no_grad():
+        for name, t in named.items():
+            path, layer = _lm_slot(name)
+            leaf = tree
+            for key in path:
+                leaf = leaf[key]
+            if layer is not None:
+                leaf = leaf[layer]
+            if not isinstance(leaf, torch.Tensor):
+                leaf = _lm_tensor(np.asarray(leaf), t.device)
+            t.copy_(leaf)
 
 
 def convert_params(tree, device=None):

@@ -1,6 +1,8 @@
 """Synthetic data pipelines (offline container — no external datasets),
-in torch.  Port of `repro.data.synthetic`'s event-camera generators.
+in torch.  Port of `repro.data.synthetic`.
 
+  * TokenStream — zipfian LM token stream with deterministic, seekable
+    batches (resume-safe: batch i is a pure function of (seed, i)).
   * EventStream — NMNIST/DVS-like event-camera spike trains: moving
     2D gaussian blobs rasterized to ON/OFF event channels, with class-
     dependent motion — linearly separable enough for a small SNN to learn,
@@ -8,10 +10,13 @@ in torch.  Port of `repro.data.synthetic`'s event-camera generators.
     paper's operating point.
   * cifar_like_rate_coded — a rate-coded static-image workload.
 
-Both draw from numpy's RNG exactly as the reference does, so the trains
-are bit-equal to the JAX package's; only the returned arrays become
-tensors (labels int64, the index type torch gathers by).  The LM token
-stream draws from `jax.random` and comes with the LM trainer.
+The event generators draw from numpy's RNG exactly as the reference
+does, so the trains are bit-equal to the JAX package's; only the
+returned arrays become tensors (labels int64, the index type torch
+gathers by).  The token stream draws the reference's `jax.random` bits
+with the port's threefry (`faults/_threefry.py`); its f32 `exp` may round
+one ulp apart from XLA's, which moves a token only where the product
+lands on an integer.
 """
 from __future__ import annotations
 
@@ -21,6 +26,37 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.faults import _threefry as TF
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int, device=None) -> dict:
+        """Deterministic batch for `step` (seekable for resume): tokens
+        and labels (B, seq_len) int32 on `device` (default: the card)."""
+        dev = resolve_device(device)
+        key = TF.fold_in(TF.prng_key(self.seed, dev), step)
+        n = self.batch * (self.seq_len + 1)
+        # jax.random.uniform: [0, 1) from the bits, clamped below at minval
+        u = torch.clamp(TF.uniform(TF.random_bits(key, n)), min=0.0)
+        # zipf-ish: sample uniform in log-rank space
+        log_v = torch.log(torch.tensor(float(self.vocab),
+                                       dtype=torch.float32, device=dev))
+        ranks = torch.exp(u * log_v).to(torch.int32) - 1
+        toks = torch.clamp(ranks, 0, self.vocab - 1).reshape(
+            self.batch, self.seq_len + 1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass(frozen=True)

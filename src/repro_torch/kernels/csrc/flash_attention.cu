@@ -1,6 +1,7 @@
 // Flash attention forward (tiled online-softmax SDPA) for NVIDIA Hopper
 // (sm_90a): a tensor-core kernel for bf16 at head dims 64 and 128, and a
-// SIMT kernel for f32 (every head dim) and bf16 at head dims 16 and 32.
+// SIMT kernel for f32 (every head dim) and bf16 at head dims 16, 32, 80 and
+// 96.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention.py (entry point `flash_attention`, the
@@ -53,10 +54,12 @@
 // 4), then the output rows ty + 16 i and head dims tx + 16 j; the score
 // tile goes through shared memory, where four threads per row take its
 // max and sum with shuffles.  Row strides of hd + 1 (q, k) and 65 (scores)
-// keep the column walks free of bank conflicts.  f32 stays on this kernel:
-// the reference computes full-f32 dots, and a tensor-core f32 path (TF32)
-// would compute another function.  It runs on the f32 FMA units (67
-// TFLOP/s), two shared-memory loads per FMA pair.
+// keep the column walks free of bank conflicts.  Shared memory is
+// 4 (64 (2 hd + 2) + 64 hd + 64 x 65 + 192) bytes: 89.5 KiB at hd 96, 77.5
+// KiB at hd 80, above the 48 KiB default, so each launch opts in.  f32
+// stays on this kernel: the reference computes full-f32 dots, and a
+// tensor-core f32 path (TF32) would compute another function.  It runs on
+// the f32 FMA units (67 TFLOP/s), two shared-memory loads per FMA pair.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -278,6 +281,12 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
                                  stream);
     case 32:
       return launch_typed<T, 32>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
+                                 stream);
+    case 80:   // zamba2's shared attention
+      return launch_typed<T, 80>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
+                                 stream);
+    case 96:   // phi-3-vision
+      return launch_typed<T, 96>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
                                  stream);
     default:
       break;
@@ -577,8 +586,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (B, H, S, hd), k / v (B, KV, T, hd), o (B, H, S, hd), all contiguous
-// and of one type (f32, or bf16 when is_bf16 at hd 16 or 32).  The caller
-// checks S % 64 == 0, T % 64 == 0, H % KV == 0 and B * H <= 65535.
+// and of one type (f32, or bf16 when is_bf16 at hd 16, 32, 80 or 96).  The
+// caller checks S % 64 == 0, T % 64 == 0, H % KV == 0 and B * H <= 65535.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int KV, int S, int Tlen,
                            int hd, int causal, int is_bf16, float scale,

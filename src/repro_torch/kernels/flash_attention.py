@@ -17,7 +17,10 @@ blocks, H a multiple of KV), raised as `ValueError` where the reference
 asserts.  Two instantiations of the kernel, chosen by `_route` from the
 type and head dim: bf16 at head dims 64 and 128 (every dense config of
 the port) runs the tensor-core kernel (`wgmma` fed by TMA); f32 at head
-dims 16, 32, 64 and 128, and bf16 at 16 and 32, run the SIMT kernel.
+dims 16, 32, 64, 80, 96 and 128, and bf16 at 16, 32, 80 (zamba2) and 96
+(phi-3-vision), run the SIMT kernel.  `supports` states the shapes the
+kernel launches for; on a CUDA tensor of any other shape the wrapper
+raises, so a caller that may meet one (`models.attention`) asks first.
 `launches["flash_attention"]` counts every launch,
 `launches["flash_attention_wgmma"]` those of the tensor-core kernel.
 """
@@ -33,7 +36,7 @@ from repro_torch.kernels.build import check_operands, launch
 launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 BLOCK = 128                   # the reference's bq = bk: S, T multiples of it
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 WGMMA_HEAD_DIMS = (64, 128)   # 64-column swizzled panels of bf16
 MAX_GRID_Y = 65535            # B * H rides in the SIMT grid's y dimension
 TMA_ALIGN = 16                # bytes: a tensor map's base address
@@ -54,6 +57,14 @@ def _route(dtype: torch.dtype, hd: int) -> str:
     "simt" (f32 FMAs; the reference's f32 dots rule out TF32)."""
     return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
             else "simt")
+
+
+def supports(dtype: torch.dtype, hd: int, b: int, h: int) -> bool:
+    """Whether the kernel launches for q of this type, head dim, batch
+    and head count (the sequence conditions are the caller's to meet:
+    multiples of 128)."""
+    return (dtype in (torch.float32, torch.bfloat16) and hd in HEAD_DIMS
+            and b * h <= MAX_GRID_Y)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True) -> torch.Tensor:

@@ -9,10 +9,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch mamba2-130m | zamba2-2.7b | whisper-tiny [--quant] \\
         --prompt-len 512 --cache-len 640
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi-3-vision-4.2b [--quant] --prompt-len 64 --cache-len 768
 
 The dense (granite, yi, mistral), moe (granite-moe, moonshot), ssm
-(mamba2-130m), hybrid (zamba2-2.7b) and audio (whisper-tiny: the server
-feeds the encoder zero frames, the reference's stub frontend) archs.
+(mamba2-130m), hybrid (zamba2-2.7b), audio (whisper-tiny: the server
+feeds the encoder zero frames, the reference's stub frontend) and vlm
+(phi-3-vision-4.2b: zero patch embeddings, which take 576 cache
+positions before the prompt) archs.
 Port of `repro.launch.serve` with the same options, plus `--device`
 (the card unless "cpu" is asked for) and `--seed` (random weights from
 the port's init; prompts from numpy).  `--quant` fits the C3 codebooks

@@ -7,12 +7,15 @@ decode, and the audio family's bidirectional `attention_encoder` and
 Flash route: train / prefill self-attention goes through
 `kernels.flash_attention` whenever the shape qualifies (`_flash_ok`: a
 sequence that is a multiple of 128 and longer than 128, no sliding
-window): the hand-written kernel for CUDA tensors, its plain version for
-CPU tensors.  The reference takes that route only under
+window) and the kernel launches for it (`flash_attention.supports`: the
+type, head dim and B·H); every other shape runs `_sdpa`, the reference's
+default.  The choice is made before the call and is the same on the CPU
+and the card: the hand-written kernel for CUDA tensors, its plain version
+for CPU tensors.  The reference takes that route only under
 ``REPRO_FLASH_ATTENTION=1``, an opt-in for a TPU kernel that otherwise
 runs in interpret mode; the port reads no such switch.  The route is
-forward only: a grad-requiring input raises until LM training brings the
-backward (ROADMAP Queue 1 #20).
+differentiable (`_FlashCore`): the backward is the exact gradient of the
+reference SDPA, as the reference's custom VJP computes it.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain,
+                                                 supports)
 from repro_torch.models.common import (ArchConfig, apply_rope, init_dense,
                                        linear)
 
@@ -31,21 +36,47 @@ def _flash_ok(cfg: ArchConfig, s: int) -> bool:
     return s % 128 == 0 and s > 128 and cfg.sliding_window <= 0
 
 
+def _flash_route(q, cfg: ArchConfig) -> bool:
+    """The flash route for q (B, S, H, hd): a qualifying sequence and a
+    shape the kernel launches for."""
+    b, s, h, hd = q.shape
+    return _flash_ok(cfg, s) and supports(q.dtype, hd, b, h)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The reference's `_flash_core` with its custom VJP.  Forward:
+    `flash_attention` on (B, H, S, hd) q and (B, KV, S, hd) k / v (the
+    kernel for CUDA tensors, its plain version for CPU tensors).
+    Backward: the exact gradient of the reference SDPA with each kv head
+    repeated over its group (the reference's `_flash_core_bwd`), by
+    autograd of `flash_attention_plain` recomputed from the saved q, k, v:
+    O(S·T) memory on the backward only, and no kernel launch."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh):
+        ctx.save_for_backward(qh, kh, vh)
+        return flash_attention(qh, kh, vh, causal=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        qh, kh, vh = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+            out = flash_attention_plain(*leaves, causal=True)
+            return torch.autograd.grad(out, leaves, g.to(qh.dtype))
+
+
 def _sdpa_flash(q, k, v):
     """Causal SDPA through the flash kernel.
 
     q (B,S,H,hd), k/v (B,S,kv,hd) -> (B,S,H*hd).  Numerics: online
     softmax in f32 — matches `_sdpa` to float tolerance, not bit-exactly.
+    Differentiable through `_FlashCore`.
     """
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash route is forward only; its backward (the reference's "
-            "_flash_core_bwd as an autograd.Function) comes with LM training, "
-            "ROADMAP Queue 1 #20")
     b, s, h, hd = q.shape
-    out = flash_attention(q.transpose(1, 2).contiguous(),
-                          k.transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous(), causal=True)
+    out = _FlashCore.apply(q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous())
     return out.transpose(1, 2).reshape(b, s, h * hd).to(v.dtype)
 
 
@@ -150,7 +181,7 @@ def causal_mask(s: int, window: int = 0, offset: int = 0, device=None
 
 def _self_attention(q, k, v, cfg: ArchConfig):
     b, s = q.shape[:2]
-    if _flash_ok(cfg, s):
+    if _flash_route(q, cfg):
         return _sdpa_flash(q, k, v)
     if cfg.attn_chunk and s % cfg.attn_chunk == 0 and s > cfg.attn_chunk:
         return _sdpa_chunked(q, k, v, cfg, cfg.attn_chunk)

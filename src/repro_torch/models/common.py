@@ -1,10 +1,9 @@
 """Shared LM substrate: architecture configs, norms, RoPE, init, and the
 projection hook `linear`.
 
-Port of `repro.models.common` for the serving path.  The reference's
-logical-axis specs feed its mesh sharding rules, which have no counterpart
-on one card, so `init_dense` / `init_ones` return plain tensors.
-`cross_entropy_loss` comes with LM training.
+Port of `repro.models.common`.  The reference's logical-axis specs feed
+its mesh sharding rules, which have no counterpart on one card, so
+`init_dense` / `init_ones` return plain tensors.
 
 Every 2-D weight product of the LM goes through `linear(x, w)`: a tensor
 `w` is a plain `x @ w`; a `CodebookWeight` (C3 serving,
@@ -223,3 +222,18 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
 
 def swiglu(x, wi, wg, wo):
     return linear(linear(x, wi) * F.silu(linear(x, wg)), wo)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Stable CE with z-loss, in f32; logits (..., V), labels (...,) int.
+    With `mask`, the mean over the masked positions (at least one)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll + z_loss * lse ** 2
+    if mask is not None:
+        mask = mask.to(loss.dtype)
+        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()

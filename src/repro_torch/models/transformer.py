@@ -1,7 +1,7 @@
-"""LM: init, prefill and one-token decode, for the dense, moe, ssm,
-hybrid and audio families.
+"""LM: init, the training loss, prefill and one-token decode, for the
+dense, vlm, moe, ssm, hybrid and audio families.
 
-Port of `repro.models.transformer` for those families.  The reference's
+Port of `repro.models.transformer`.  The reference's
 nested parameter dict with stacked (L, ...) blocks becomes a `Transformer`
 module holding `embed` (V, d), `unembed` (d, V), `final_norm` (d,) and an
 `nn.ModuleList` of one `Block` per layer, plus the family extras: the
@@ -17,9 +17,12 @@ layer's leaves before the layer runs, which turns the indexes into the
 operands `models.common.linear` multiplies.  As in the reference, it
 maps `blocks` only, never `shared_attn` or the encoder.
 
-The vlm family raises `NotImplementedError` naming the ROADMAP item that
-brings it; training (`forward_train`, the hybrid's `_hybrid_forward`)
-comes with ROADMAP Queue 1 #20.
+The vlm family's layer is the dense layer; its stub CLIP frontend's patch
+embeddings (B, n_patches, d) go before the text (`_maybe_concat_patches`)
+and occupy cache positions.  `forward_train` runs with autograd, layer by
+layer; the reference's `jax.checkpoint` rematerialisation has no
+counterpart here (it trades memory for recompute and leaves the numbers
+as they are), so activations are kept for the backward.
 """
 from __future__ import annotations
 
@@ -34,24 +37,18 @@ from repro_torch.models.attention import (KVCache, attention_cross,
                                           attention_decode, attention_encoder,
                                           attention_prefill, attention_train,
                                           init_attention)
-from repro_torch.models.common import (ArchConfig, init_dense, init_ones,
-                                       rms_norm, swiglu)
+from repro_torch.models.common import (ArchConfig, cross_entropy_loss,
+                                       init_dense, init_ones, rms_norm,
+                                       swiglu)
 from repro_torch.models.moe import init_moe, moe_ffn
 
-# family -> the ROADMAP item (Queue 1) that ports it
-_FAMILY_ITEMS = {
-    "vlm": "#19 (patch embeddings)",
-}
-_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+_KV_FAMILIES = ("dense", "vlm", "moe", "audio")
 
 
 def _check_cfg(cfg: ArchConfig) -> None:
     if cfg.family not in _FAMILIES:
-        item = _FAMILY_ITEMS.get(cfg.family)
-        if item is None:
-            raise ValueError(cfg.family)
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 {item})")
+        raise ValueError(cfg.family)
     if cfg.family == "hybrid" and cfg.n_layers % _attn_every(cfg):
         raise ValueError(f"{cfg.n_layers} layers are not groups of "
                          f"attn_every = {_attn_every(cfg)}")
@@ -320,6 +317,77 @@ def embed_tokens(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor
     return params.embed.to(cfg.dtype)[tokens.long()]
 
 
+def _maybe_concat_patches(x, batch: dict, cfg: ArchConfig):
+    """vlm: the patch embeddings (B, n_patches, d) before the text."""
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def forward_train(params: Transformer, cfg: ArchConfig, batch: dict
+                  ) -> torch.Tensor:
+    """The scalar training loss, differentiable in `params`.
+
+    batch: tokens (B, S), labels (B, S), optional loss_mask (B, S); the
+    vlm family's optional patch_embeds (B, n_patches, d), the audio
+    family's frames (B, enc_frames, d).  The loss is taken on text
+    positions only; the moe family adds 0.01 times the sum of its layers'
+    load-balancing terms.
+    """
+    _check_cfg(cfg)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    x = _maybe_concat_patches(x, batch, cfg)
+    aux_total = 0.0
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(x, params, cfg)
+    elif cfg.family == "audio":
+        enc = _encoder_forward(params, cfg, batch["frames"])
+        x = _decoder_forward(x, params, cfg, enc)
+    elif cfg.family == "ssm":
+        for block in params.blocks:
+            x = _ssm_block(x, block, cfg)
+    else:
+        auxs = []
+        for block in params.blocks:
+            x, aux = _attn_mlp_block(x, block, cfg)
+            auxs.append(aux)
+        if cfg.family == "moe":
+            aux_total = 0.01 * torch.stack(auxs).sum()
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = x[:, batch["patch_embeds"].shape[1]:]     # loss on text positions
+    logits = x @ params.unembed.to(cfg.dtype)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + aux_total
+
+
+def _hybrid_forward(x, params: Transformer, cfg: ArchConfig):
+    """zamba2: the shared attention block before every `attn_every` SSM
+    layers."""
+    sp = params.shared_attn
+    for layer, block in enumerate(params.blocks):
+        if _group(cfg, layer) is not None:
+            x = x + attention_train(rms_norm(x, sp["ln_attn"], cfg.norm_eps),
+                                    sp, cfg)
+        x = _ssm_block(x, block, cfg)
+    return x
+
+
+def _decoder_forward(x, params: Transformer, cfg: ArchConfig, enc):
+    """whisper decoder over the encoder output `enc` (B, F, d)."""
+    eps = cfg.norm_eps
+    for lp in params.blocks:
+        x = x + attention_train(rms_norm(x, lp["ln1"], eps), lp, cfg)
+        x = x + attention_cross(rms_norm(x, lp["ln_x"], eps), enc, lp, cfg)
+        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["mlp_wi"],
+                       lp["mlp_wg"], lp["mlp_wo"])
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
@@ -349,7 +417,7 @@ def _caches(cfg: ArchConfig, batch: int, cache_len: int, kv_dtype, device
     (one per group of `attn_every` layers)."""
     L = cfg.n_layers
     out = {"kv": (), "ssm": (), "shared_kv": ()}
-    if cfg.family in ("dense", "moe", "audio"):
+    if cfg.family in _KV_FAMILIES:
         out["kv"] = _kv_stack(cfg, L, batch, cache_len, kv_dtype, device)
     if cfg.family in ("ssm", "hybrid"):
         one = M2.init_cache(cfg, batch, cfg.dtype, device)
@@ -449,14 +517,16 @@ def forward_prefill(params: Transformer, cfg: ArchConfig, batch: dict,
     Full forward + cache population: each layer writes its k / v (or its
     SSM conv window and state) into its slice of one stack of x's type
     (states f32), as the reference's prefill caches are; the audio family
-    first runs the encoder over `batch["frames"]` (B, enc_frames, d).
-    `param_transform` as in `forward_decode`.
+    first runs the encoder over `batch["frames"]` (B, enc_frames, d); the
+    vlm family puts `batch["patch_embeds"]` (B, n_patches, d), when given,
+    before the text, so `pos` is n_patches + S and the cache must hold
+    them too.  `param_transform` as in `forward_decode`.
     """
     _check_cfg(cfg)
     eps = cfg.norm_eps
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    x = _maybe_concat_patches(x, batch, cfg)
+    b, s = x.shape[:2]           # vlm: patches occupy cache positions too
     caches = _caches(cfg, b, cache_len, x.dtype, x.device)
     enc = ()
     if cfg.family == "audio":

@@ -80,9 +80,9 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def apply(cfg: AdamWConfig, grads: Any, state: AdamWState, params: Any
-          ) -> tuple[Any, AdamWState, dict]:
-    """One update.  Returns (new_params, new_state, metrics)."""
+def _updater(cfg: AdamWConfig, grads: Any, state: AdamWState):
+    """(the leaf update (p, g, m, v) -> (p', m', v'), the new step, the
+    metrics) of one AdamW step over `grads`."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -101,12 +101,36 @@ def apply(cfg: AdamWConfig, grads: Any, state: AdamWState, params: Any
                  + cfg.weight_decay * p.to(torch.float32))
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
 
+    return upd, step, {"grad_norm": gnorm, "lr": lr}
+
+
+def apply(cfg: AdamWConfig, grads: Any, state: AdamWState, params: Any
+          ) -> tuple[Any, AdamWState, dict]:
+    """One update.  Returns (new_params, new_state, metrics)."""
+    upd, step, metrics = _updater(cfg, grads, state)
     out = tree_map(upd, params, grads, state.m, state.v)
     # `out` holds (p, m, v) triples at the leaves, where tree_map would
     # descend into them: pick each part through the params' structure
     new_p, new_m, new_v = (_select(params, out, i) for i in range(3))
-    return new_p, AdamWState(step=step, m=new_m, v=new_v), {
-        "grad_norm": gnorm, "lr": lr}
+    return new_p, AdamWState(step=step, m=new_m, v=new_v), metrics
+
+
+def apply_(cfg: AdamWConfig, grads: Any, state: AdamWState, params: Any
+           ) -> tuple[AdamWState, dict]:
+    """`apply` in place: the same numbers written into the leaves of
+    `params` and of the state's moments, a leaf at a time, so an update
+    holds one leaf's temporaries instead of a second copy of the
+    parameters and moments.  Returns (the state with the new step and the
+    same moment tensors, metrics)."""
+    upd, step, metrics = _updater(cfg, grads, state)
+    with torch.no_grad():
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state.m), tree_leaves(state.v)):
+            new_p, m2, v2 = upd(p, g, m, v)
+            p.copy_(new_p)
+            m.copy_(m2)
+            v.copy_(v2)
+    return AdamWState(step=step, m=state.m, v=state.v), metrics
 
 
 def _select(like, tree, i):

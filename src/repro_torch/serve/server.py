@@ -7,7 +7,11 @@ the prompts go.  Prefill and decode are the eager `forward_prefill` /
 `forward_decode` of `models.transformer`; with `cfg.quant_serving` both
 take `quant.lm_quant.make_param_transform(cfg.dtype)`, as the
 reference's prefill and decode steps do, so the model's C3-quantized
-2-D weights run on the `codebook_matmul` kernel.
+2-D weights run on the `codebook_matmul` kernel.  The audio family's
+encoder gets zero frames and the vlm family zero patch embeddings (the
+reference's stub frontends); a vlm `cache_len` must hold the
+n_patches patch positions beside the prompt and the new tokens, and
+prefill raises `ValueError` when patches and prompt do not fit.
 """
 from __future__ import annotations
 
@@ -67,6 +71,10 @@ class Server:
         if self.cfg.family == "audio":        # the stub frontend's frames
             batch["frames"] = torch.zeros(
                 (len(reqs), self.cfg.enc_frames, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        if self.cfg.family == "vlm":          # the stub frontend's patches
+            batch["patch_embeds"] = torch.zeros(
+                (len(reqs), self.cfg.n_patches, self.cfg.d_model),
                 dtype=torch.float32, device=self.device)
         return self.prefill(self.params, batch=batch)
 

@@ -1,1 +1,2 @@
-"""Training of the port: the hardware-aware SNN trainer."""
+"""Training of the port: the hardware-aware SNN trainer and the LM
+trainer."""

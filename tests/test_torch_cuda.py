@@ -693,7 +693,7 @@ def _flash_inputs(dev, seed, b, h, kv, s, t, hd, dtype):
             for shape in ((b, h, s, hd), (b, kv, t, hd), (b, kv, t, hd))]
 
 
-@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 80, 96, 128])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1247,3 +1247,139 @@ def test_whisper_prefill_takes_the_flash_kernel(dev):
     assert len(errs) == 4 and max(errs[2:]) <= 2e-2
     assert bool(logits[1].isfinite().all())
     torch.testing.assert_close(logits[1], logits[0], atol=0.125, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the vlm family and LM training on the card
+
+
+def test_vlm_prefill_at_hd96_on_the_card_matches_the_cpu(dev):
+    """phi-3-vision's head dim (96) and 576 patches, depth cut to 2
+    layers and d to 384 (4 heads), f32: patches + a 64-token prompt are
+    640 positions, which take the SIMT flash kernel once per layer (the
+    route used to raise there); logits and caches within the LM
+    tolerance (1e-4) of the same model on the CPU, and one decode step
+    after it."""
+    import copy
+
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch("phi-3-vision-4.2b"), n_layers=2,
+                              d_model=384, n_heads=4, n_kv_heads=4,
+                              d_ff=512, vocab=512, dtype=torch.float32)
+    assert cfg.hd == 96
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    on_dev = copy.deepcopy(model).to(dev)
+    rng = np.random.default_rng(8)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (2, 65)).astype(np.int32))
+    patches = torch.tensor(rng.normal(0, 1, (2, 576, 384)).astype(
+        np.float32))
+    out = []
+    for m, d in ((model, "cpu"), (on_dev, dev)):
+        FA.reset_launches()
+        batch = {"tokens": toks[:, :64].to(d), "patch_embeds": patches.to(d)}
+        logits, st = T.forward_prefill(m, cfg, batch, 704)
+        step, st = T.forward_decode(m, cfg, st, toks[:, 64:].to(d))
+        torch.cuda.synchronize()
+        out.append((logits.cpu(), step.cpu(), st.kv.k.cpu(), st.kv.v.cpu()))
+        assert int(st.pos) == 641
+    assert FA.launches == {"flash_attention": 2, "flash_attention_wgmma": 0}
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_vlm_bf16_prefill_takes_the_simt_kernel(dev):
+    """bf16 at hd 96 has no tensor-core instantiation: the SIMT kernel
+    runs, and a 512-token prompt (1088 positions, not a multiple of 128)
+    takes the plain SDPA."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch("phi-3-vision-4.2b"), n_layers=2,
+                              d_model=384, n_heads=4, n_kv_heads=4,
+                              d_ff=512, vocab=512)
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    for prompt, launches in ((64, 2), (512, 0)):
+        batch = {"tokens": torch.zeros((2, prompt), dtype=torch.int32,
+                                       device=dev),
+                 "patch_embeds": torch.zeros((2, 576, 384), device=dev)}
+        FA.reset_launches()
+        logits, _ = T.forward_prefill(model, cfg, batch, 1100)
+        torch.cuda.synchronize()
+        assert FA.launches == {"flash_attention": launches,
+                               "flash_attention_wgmma": 0}
+        assert bool(logits.float().isfinite().all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_on_the_card(dev, dtype):
+    """The flash route's autograd.Function on the card: one kernel launch
+    forward, none backward, and q / k / v gradients equal to autograd of
+    the plain version on the card (the same function, recomputed); in
+    f32 also within 1e-4 of the largest gradient of the CPU's."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as ATT
+
+    q, k, v = _flash_inputs(dev, 5, 2, 8, 2, 256, 256, 64, dtype)
+    g = _flash_inputs(dev, 6, 2, 8, 8, 256, 256, 64, dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.reset_launches()
+    out = ATT._FlashCore.apply(*leaves)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == 1
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(FA.flash_attention_plain(*plain), plain, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if dtype == torch.float32:
+        cpu = [t.cpu().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(FA.flash_attention_plain(*cpu), cpu,
+                                  g.cpu())
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One `make_train_step` of granite-3-2b's SMOKE model in f32 at
+    S = 256 (the flash route: one launch per layer, none in the
+    backward), on the card and on the CPU from the same weights: loss and
+    grad_norm within 1e-5 relative, the moments within 1e-4 of each
+    leaf's largest."""
+    import copy
+
+    from repro_torch.configs import registry as R
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(R.get_arch("granite-3-2b", smoke=True),
+                              dtype=torch.float32)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    step = make_train_step(cfg, adamw.AdamWConfig(warmup_steps=10))
+    data = TokenStream(cfg.vocab, 256, 2, seed=3)
+    out = []
+    for m, d in ((model, "cpu"), (copy.deepcopy(model).to(dev), dev)):
+        FA.reset_launches()
+        _, opt, metrics = step(m, adamw.init(dict(m.named_parameters())),
+                               data.batch_at(0, d))
+        torch.cuda.synchronize()
+        out.append((metrics, opt))
+        assert FA.launches["flash_attention"] == (
+            cfg.n_layers if d == dev else 0)
+    (cm, copt), (gm, gopt) = out
+    for key in ("loss", "grad_norm"):
+        assert abs(float(gm[key]) - float(cm[key])) <= 1e-5 * abs(
+            float(cm[key])), key
+    for name, want in copt.m.items():
+        torch.testing.assert_close(gopt.m[name].cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))

@@ -4,7 +4,9 @@ On the CPU `repro_torch.kernels.flash_attention.flash_attention` runs its
 plain version (GQA by repeat, one-pass f32 softmax); it is held to the
 reference's Pallas kernel in interpret mode (online softmax over 128-key
 blocks) and to the reference's oracle.  The CUDA kernel itself is checked
-on the card (`tests/test_torch_cuda.py`, `chip_smoke.py` phase 6).
+on the card (`tests/test_torch_cuda.py`, `chip_smoke.py` phases 6 and 15).
+`models.attention` takes the flash route only for shapes the kernel
+launches for (`flash_attention.supports`), and `_sdpa` otherwise.
 """
 import numpy as np
 import pytest
@@ -42,7 +44,7 @@ def _port(q, k, v, causal, dtype=torch.float32):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("group", [1, 2])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 96, 128])
 def test_matches_reference_kernel_and_oracle(hd, group, causal):
     h = 4
     q, k, v = _qkv(hd * 10 + group, 1, h, h // group, 256, 256, hd)
@@ -135,3 +137,57 @@ def test_hbm_io_bytes_equals_reference(args):
     *shape, nbytes, bwd = args
     assert FA.hbm_io_bytes(*shape, nbytes, with_backward=bwd) == \
         RFA.hbm_io_bytes(*shape, nbytes, with_backward=bwd)
+
+
+# ---------------------------------------------------------------------------
+# the route models.attention takes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,hd,b,h,want", [
+    (torch.float32, 96, 4, 32, True), (torch.bfloat16, 96, 4, 32, True),
+    (torch.bfloat16, 80, 1, 32, True), (torch.bfloat16, 64, 1, 8, True),
+    (torch.float32, 48, 1, 8, False), (torch.bfloat16, 112, 1, 8, False),
+    (torch.float16, 64, 1, 8, False), (torch.float32, 16, 2047, 32, True),
+    (torch.float32, 16, 2048, 32, False)])
+def test_supports_states_the_kernels_shapes(dtype, hd, b, h, want):
+    """Head dims 16, 32, 64, 80, 96 and 128 in f32 and bf16, B·H up to
+    the grid's 65535."""
+    assert FA.supports(dtype, hd, b, h) == want
+
+
+@pytest.mark.parametrize("hd,b,h,max_grid_y,taken", [
+    (96, 1, 4, None, True), (80, 1, 4, None, True), (16, 2, 4, None, True),
+    (48, 1, 4, None, False), (16, 2, 4, 8, True), (16, 2, 4, 7, False)],
+    ids=["hd96", "hd80", "hd16", "hd48", "BH-at-limit", "BH-above-limit"])
+def test_attention_takes_the_flash_route_only_where_the_kernel_launches(
+        monkeypatch, hd, b, h, max_grid_y, taken):
+    """A 256-token self-attention with no window qualifies by its length;
+    the route is taken only where the kernel launches for the head dim
+    and B·H (B·H above the limit is seen through a lowered `MAX_GRID_Y`),
+    else `_sdpa` runs; either way the output is the causal SDPA's.  The
+    kernel wrapper itself still raises on a CUDA tensor of a shape it
+    does not take (`tests/test_torch_cuda.py`)."""
+    from repro_torch.models import attention as TATT
+    from repro_torch.models import common as TC
+
+    if max_grid_y is not None:
+        monkeypatch.setattr(FA, "MAX_GRID_Y", max_grid_y)
+    calls = []
+    flash = TATT.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        calls.append(tuple(q.shape))
+        return flash(q, k, v, causal=causal)
+
+    monkeypatch.setattr(TATT, "flash_attention", spy)
+    cfg = TC.ArchConfig("route", "dense", n_layers=1, d_model=h * hd,
+                        n_heads=h, n_kv_heads=h // 2, d_ff=64, vocab=64,
+                        dtype=torch.float32)
+    rng = np.random.default_rng(hd + b)
+    q, k, v = (torch.tensor(rng.normal(0, 1, (b, 256, n, hd)).astype(
+        np.float32)) for n in (h, h // 2, h // 2))
+    got = TATT._self_attention(q, k, v, cfg)
+    mask = TATT.causal_mask(256)[None].expand(b, 256, 256)
+    want = TATT._sdpa(q, k, v, mask, cfg)
+    torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
+    assert calls == ([(b, h, 256, hd)] if taken else [])

@@ -17,7 +17,9 @@ tests of the port's device policy, which need no reference.
   test can hold an option that is off to costing nothing;
 * `c_argtypes` / `launch_args`: a CUDA source's C launch signature as
   ctypes types, and the arguments a kernel wrapper passes to its launch,
-  so the CPU tests hold the binding to the source.
+  so the CPU tests hold the binding to the source;
+* `plastic_*`: the plasticity tests' network, trains, faults and runs
+  (tests/test_torch_plasticity.py and test_torch_plasticity_runs.py).
 
 The contract (ROADMAP.md): integers exact; v within V_ATOL + V_RTOL·|v|;
 spikes equal except where the reference's |v_int - θ| < TIE.
@@ -233,6 +235,108 @@ def run_raw_ops(sim, trains):
         ys, counts = eng.run_raw(trains)
     return mode.ops, ys, counts
 
+
+# ---------------------------------------------------------------------------
+# plasticity fixtures (tests/test_torch_plasticity*.py): the reference
+# suite's network and runs (tests/test_plasticity.py)
+# ---------------------------------------------------------------------------
+
+PLASTIC_SIZES = [64, 96, 96, 16]  # widths stay multiples of 16 (fused pack)
+PLASTIC_STDP = dict(enabled=True, mode="stdp", lr=0.4)
+PLASTIC_REWARD = dict(enabled=True, mode="reward", lr=0.4, elig_pre=0.1,
+                      layers=(2,))
+PLASTIC_RULES = {"stdp": PLASTIC_STDP, "reward": PLASTIC_REWARD}
+PLASTIC_ENGINES = ("compiled", "fused", "reference")
+PLASTIC_REPORT_FIELDS = REPORT_FIELDS + ("write_energy_pj",)
+PLASTIC_CB_FAULT = (("stuck", 12, 0, 0, 3), ("bitflip", 13, 2, 5, 0))
+
+
+def plastic_weights(sizes=PLASTIC_SIZES, seed=0):
+    rng = np.random.default_rng(seed)
+    return [np.asarray(rng.normal(0, 1.2 / np.sqrt(a), (a, b)), np.float32)
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def plastic_trains(batch=4, T=6, seed=1):
+    rng = np.random.default_rng(seed)
+    return np.asarray(rng.random((batch, T, PLASTIC_SIZES[0])) < 0.25,
+                      np.float32)
+
+
+def plastic_faults(port: bool):
+    """The two codebook faults, as the port's or the reference's config."""
+    if port:
+        from repro_torch.faults import CodebookFault, FaultConfig
+    else:
+        from repro.faults import CodebookFault, FaultConfig
+    return FaultConfig(codebook_faults=tuple(
+        CodebookFault(kind=k, core_id=c, word=w, bit=b, value=v)
+        for k, c, w, b, v in PLASTIC_CB_FAULT))
+
+
+def plastic_pair(rule, engine="compiled", faulted=False):
+    """(reference simulator, the port's of the same network)."""
+    from repro.core import plasticity as ref_plasticity
+    from repro.core.quant import CodebookConfig as RefCodebookConfig
+    from repro.core.soc import ChipSimulator as RefChipSimulator
+
+    from repro_torch import PlasticityConfig
+
+    ref = RefChipSimulator(
+        plastic_weights(), engine=engine, quant_cfg=RefCodebookConfig(8, 8),
+        plasticity=ref_plasticity.PlasticityConfig(**PLASTIC_RULES[rule]),
+        faults=plastic_faults(False) if faulted else None)
+    port = port_from_reference(
+        ref, engine=engine,
+        plasticity=PlasticityConfig(**PLASTIC_RULES[rule]),
+        faults=plastic_faults(True) if faulted else None)
+    return ref, port
+
+
+def plastic_port_sim(engine, rule=None, mapping=None, **kw):
+    from repro_torch import ChipSimulator, CodebookConfig, PlasticityConfig
+
+    return ChipSimulator(plastic_weights(), engine=engine, device="cpu",
+                         quant_cfg=CodebookConfig(8, 8), mapping=mapping,
+                         plasticity=None if rule is None
+                         else PlasticityConfig(**PLASTIC_RULES[rule]), **kw)
+
+
+def to_np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_learned_equal(got, want, msg=""):
+    assert len(got) == len(want), msg
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None), msg
+        if w is not None:
+            np.testing.assert_array_equal(to_np(g), to_np(w), err_msg=msg)
+
+
+def assert_plastic_runs_equal(got, want, msg=""):
+    """Two (counts, reports, learned) runs: spikes, learned indexes and
+    writes equal, report fields within 1e-6."""
+    (c_g, r_g, l_g), (c_w, r_w, l_w) = got, want
+    np.testing.assert_array_equal(to_np(c_g), to_np(c_w), err_msg=msg)
+    assert_learned_equal(l_g, l_w, msg)
+    for a, b in zip(r_g, r_w):
+        assert a.stats.weight_writes == b.stats.weight_writes, msg
+        for f in PLASTIC_REPORT_FIELDS:
+            va, vb = getattr(a, f), getattr(b, f)
+            assert abs(va - vb) <= 1e-6 * max(abs(vb), 1.0), (msg, f, va, vb)
+
+
+def plastic_run(sim, trains, learned=None):
+    """(counts, reports, last_learned) of one run of either package's
+    simulator (the reference's takes a jax array)."""
+    from repro_torch import ChipSimulator
+
+    if not isinstance(sim, ChipSimulator):
+        import jax.numpy as jnp
+        trains = jnp.asarray(trains)
+    counts, reports = sim.run_batch(trains, learned=learned)
+    return counts, reports, sim.last_learned
 
 # ---------------------------------------------------------------------------
 # device policy (no reference needed)

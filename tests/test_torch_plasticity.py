@@ -10,11 +10,7 @@ Fixtures are the reference suite's (tests/test_plasticity.py): SIZES
 * the rule functions: traces within 2 ulp (XLA may contract
   `x * decay + s` into an FMA), indexes equal, on a fixture whose
   candidates all lie clear of the midpoints between levels;
-* whole runs of the port's compiled, fused and reference engines against
-  the same engine of the reference: spikes, learned indexes and
-  `weight_writes` equal, report fields within 1e-6; warm starts
-  (broadcast and per-sample), the scalar and vector reward commit, and a
-  codebook fault in the initial indexes;
+* whole runs against the reference: tests/test_torch_plasticity_runs.py;
 * inside the port, fused equals compiled bitwise under both rules;
 * zero cost off: plasticity None, NULL_PLASTICITY and a default
   PlasticityConfig() issue the same aten ops;
@@ -31,13 +27,13 @@ jax = pytest.importorskip("jax")
 from repro.core import plasticity as REF_PLC  # noqa: E402
 from repro.core import quant as REF_Q  # noqa: E402
 from repro.core.energy import WeightWriteModel as RefWriteModel  # noqa: E402
-from repro.core.quant import CodebookConfig as RefCodebookConfig  # noqa: E402
-from repro.core.soc import ChipSimulator as RefChipSimulator  # noqa: E402
 from repro.core.zspe import CycleModel as RefCycleModel  # noqa: E402
-from repro.faults import CodebookFault as RefCodebookFault  # noqa: E402
-from repro.faults import FaultConfig as RefFaultConfig  # noqa: E402
-from test_torch_harness import (assert_reports_close,  # noqa: E402
-                                port_from_reference, run_raw_ops)
+from test_torch_harness import (  # noqa: E402
+    PLASTIC_ENGINES as ENGINES, PLASTIC_REWARD as REWARD,
+    PLASTIC_SIZES as SIZES, PLASTIC_STDP as STDP,
+    assert_learned_equal as _assert_learned_equal, assert_reports_close,
+    plastic_port_sim as _port_sim, plastic_trains as _trains,
+    plastic_weights as _weights, run_raw_ops)
 
 from repro_torch import (NULL_PLASTICITY, ChipSimulator,  # noqa: E402
                          CodebookConfig, PlasticityConfig)
@@ -45,87 +41,8 @@ from repro_torch.core import plasticity as PLC  # noqa: E402
 from repro_torch.core import quant as Q  # noqa: E402
 from repro_torch.core.energy import WeightWriteModel  # noqa: E402
 from repro_torch.core.zspe import CycleModel  # noqa: E402
-from repro_torch.faults import CodebookFault, FaultConfig  # noqa: E402
 
-SIZES = [64, 96, 96, 16]          # widths stay multiples of 16 (fused pack)
-STDP = dict(enabled=True, mode="stdp", lr=0.4)
-REWARD = dict(enabled=True, mode="reward", lr=0.4, elig_pre=0.1, layers=(2,))
-RULES = {"stdp": STDP, "reward": REWARD}
-ENGINES = ("compiled", "fused", "reference")
-REPORT_FIELDS = ("energy_pj", "core_energy_pj", "noc_energy_pj",
-                 "riscv_energy_pj", "wall_cycles", "write_energy_pj")
-CB_FAULT = (("stuck", 12, 0, 0, 3), ("bitflip", 13, 2, 5, 0))
 MAX_ULP = 2
-
-
-def _weights(sizes=SIZES, seed=0):
-    rng = np.random.default_rng(seed)
-    return [np.asarray(rng.normal(0, 1.2 / np.sqrt(a), (a, b)), np.float32)
-            for a, b in zip(sizes[:-1], sizes[1:])]
-
-
-def _trains(batch=4, T=6, seed=1):
-    rng = np.random.default_rng(seed)
-    return np.asarray(rng.random((batch, T, SIZES[0])) < 0.25, np.float32)
-
-
-def _faults(port: bool):
-    cls, fc = ((CodebookFault, FaultConfig) if port
-               else (RefCodebookFault, RefFaultConfig))
-    return fc(codebook_faults=tuple(
-        cls(kind=k, core_id=c, word=w, bit=b, value=v)
-        for k, c, w, b, v in CB_FAULT))
-
-
-def _pair(rule, engine="compiled", faulted=False):
-    """(reference simulator, the port's of the same network)."""
-    ref = RefChipSimulator(
-        _weights(), engine=engine, quant_cfg=RefCodebookConfig(8, 8),
-        plasticity=REF_PLC.PlasticityConfig(**RULES[rule]),
-        faults=_faults(False) if faulted else None)
-    port = port_from_reference(
-        ref, engine=engine, plasticity=PlasticityConfig(**RULES[rule]),
-        faults=_faults(True) if faulted else None)
-    return ref, port
-
-
-def _port_sim(engine, rule=None, mapping=None, **kw):
-    return ChipSimulator(_weights(), engine=engine, device="cpu",
-                         quant_cfg=CodebookConfig(8, 8), mapping=mapping,
-                         plasticity=None if rule is None
-                         else PlasticityConfig(**RULES[rule]), **kw)
-
-
-def _np(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _assert_learned_equal(got, want, msg=""):
-    assert len(got) == len(want), msg
-    for g, w in zip(got, want):
-        assert (g is None) == (w is None), msg
-        if w is not None:
-            np.testing.assert_array_equal(_np(g), _np(w), err_msg=msg)
-
-
-def _assert_runs_equal(got, want, msg=""):
-    """Two (counts, reports, learned) runs: spikes, learned indexes and
-    writes equal, report fields within 1e-6."""
-    (c_g, r_g, l_g), (c_w, r_w, l_w) = got, want
-    np.testing.assert_array_equal(_np(c_g), _np(c_w), err_msg=msg)
-    _assert_learned_equal(l_g, l_w, msg)
-    for a, b in zip(r_g, r_w):
-        assert a.stats.weight_writes == b.stats.weight_writes, msg
-        for f in REPORT_FIELDS:
-            va, vb = getattr(a, f), getattr(b, f)
-            assert abs(va - vb) <= 1e-6 * max(abs(vb), 1.0), (msg, f, va, vb)
-
-
-def _run(sim, trains, learned=None):
-    if isinstance(sim, RefChipSimulator):
-        trains = jax.numpy.asarray(trains)
-    counts, reports = sim.run_batch(trains, learned=learned)
-    return counts, reports, sim.last_learned
 
 
 # ---------------------------------------------------------------------------
@@ -366,151 +283,6 @@ def test_config_matches_reference():
         assert [got.learns(li) for li in range(4)] == \
             [want.learns(li) for li in range(4)]
     assert NULL_PLASTICITY == PlasticityConfig()
-
-
-# ---------------------------------------------------------------------------
-# whole runs against the reference
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("batch", [1, 4])
-def test_stdp_run_matches_reference(engine, batch):
-    ref, port = _pair("stdp", engine)
-    trains = _trains(batch=batch)
-    got, want = _run(port, trains), _run(ref, trains)
-    _assert_runs_equal(got, want, f"stdp/{engine}/B{batch}")
-    assert sum(r.stats.weight_writes for r in got[1]) > 0
-    assert sum(r.write_energy_pj for r in got[1]) > 0
-    for got_t, want_t in zip(port.plasticity_tables(),
-                             ref.plasticity_tables()):
-        assert (got_t is None) == (want_t is None)
-        if want_t is not None:
-            _assert_learned_equal(got_t, want_t)
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("kind", ["scalar", "vector"])
-def test_reward_run_and_commit_match_reference(engine, kind):
-    ref, port = _pair("reward", engine)
-    trains = _trains()
-    got, want = _run(port, trains), _run(ref, trains)
-    _assert_runs_equal(got, want, f"reward/{engine}")
-    # in-trial: eligibility only, zero register writes
-    assert all(r.stats.weight_writes == 0 for r in got[1])
-    if kind == "scalar":
-        reward = 1.0
-    else:
-        reward = np.zeros(SIZES[-1], np.float32)
-        reward[3], reward[7] = 1.0, -1.0
-    info_g, info_w = port.apply_reward(reward), ref.apply_reward(reward)
-    np.testing.assert_array_equal(info_g["weight_writes"],
-                                  np.asarray(info_w["weight_writes"]))
-    np.testing.assert_allclose(info_g["write_energy_pj"],
-                               info_w["write_energy_pj"], rtol=1e-6)
-    np.testing.assert_array_equal(info_g["write_cycles"],
-                                  np.asarray(info_w["write_cycles"]))
-    assert info_g["weight_writes"].sum() > 0
-    _assert_learned_equal(port.last_learned, ref.last_learned,
-                          f"reward/{engine}: committed indexes")
-    # the committed indexes warm-start the next trial
-    _assert_runs_equal(_run(port, trains, port.last_learned),
-                       _run(ref, trains, ref.last_learned),
-                       f"reward/{engine}: warm")
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("form", ["broadcast", "per-sample"])
-def test_warm_start_matches_reference(engine, form):
-    ref, port = _pair("stdp", engine)
-    trains = _trains()
-    _run(ref, trains)
-    learned = [None if l is None else np.asarray(l) for l in ref.last_learned]
-    if form == "broadcast":
-        learned = [None if l is None else l[1] for l in learned]
-    _assert_runs_equal(_run(port, trains, learned),
-                       _run(ref, trains, learned), f"warm/{engine}/{form}")
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("rule", ["stdp", "reward"])
-def test_out_of_range_learned_matches_reference(engine, rule):
-    """Caller-given indexes -1, 8 and 100 in layer 2 (L = 8) run as the
-    JAX engines run them: read by JAX's gather rule, then learned."""
-    ref, port = _pair(rule, engine)
-    idx = np.array(ref.plasticity_tables()[2][0], np.int8)
-    idx[0, :3] = (-1, 8, 100)
-    idx[5, 7], idx[17, 2] = 100, -1
-    learned = [None, None, idx]
-    trains = _trains()
-    got, want = _run(port, trains, learned), _run(ref, trains, learned)
-    _assert_runs_equal(got, want, f"{rule}/{engine}")
-    if rule == "reward":
-        info_g, info_w = port.apply_reward(1.0), ref.apply_reward(1.0)
-        np.testing.assert_array_equal(info_g["weight_writes"],
-                                      np.asarray(info_w["weight_writes"]))
-        _assert_learned_equal(port.last_learned, ref.last_learned,
-                              f"{rule}/{engine}: committed")
-
-
-ODD_SIZES = [50, 40, 24, 10]      # no width a multiple of 16
-
-
-def _odd_pair(rule, engine):
-    cfg = (dict(enabled=True, mode="stdp", lr=0.4) if rule == "stdp" else
-           dict(enabled=True, mode="reward", lr=0.4, elig_pre=0.1,
-                layers=(0, 1)))
-    ref = RefChipSimulator(_weights(ODD_SIZES, seed=3), engine=engine,
-                           quant_cfg=RefCodebookConfig(8, 8),
-                           plasticity=REF_PLC.PlasticityConfig(**cfg))
-    port = port_from_reference(ref, engine=engine,
-                               plasticity=PlasticityConfig(**cfg))
-    return ref, port
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-def test_odd_widths_learn_as_reference(engine):
-    """50-40-24-10: STDP on every layer, then R-STDP on layers 0-1 with a
-    commit and a warm start, on rows the fused engine pads and crops."""
-    rng = np.random.default_rng(4)
-    trains = np.asarray(rng.random((3, 6, ODD_SIZES[0])) < 0.3, np.float32)
-    ref, port = _odd_pair("stdp", engine)
-    got, want = _run(port, trains), _run(ref, trains)
-    _assert_runs_equal(got, want, f"odd stdp/{engine}")
-    assert sum(r.stats.weight_writes for r in got[1]) > 0
-    ref, port = _odd_pair("reward", engine)
-    _assert_runs_equal(_run(port, trains), _run(ref, trains),
-                       f"odd reward/{engine}")
-    info_g, info_w = port.apply_reward(1.0), ref.apply_reward(1.0)
-    np.testing.assert_array_equal(info_g["weight_writes"],
-                                  np.asarray(info_w["weight_writes"]))
-    assert info_g["weight_writes"].sum() > 0
-    _assert_runs_equal(_run(port, trains, port.last_learned),
-                       _run(ref, trains, ref.last_learned),
-                       f"odd reward/{engine}: warm")
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-def test_faulted_plasticity_matches_reference(engine):
-    ref, port = _pair("stdp", engine, faulted=True)
-    _assert_runs_equal(_run(port, _trains()), _run(ref, _trains()),
-                       f"fault+stdp/{engine}")
-
-
-def test_codebook_fault_corrupts_initial_plasticity_tables():
-    clean = _port_sim("compiled", "stdp")
-    faulty = _port_sim("compiled", "stdp", mapping=clean.mapping,
-                       faults=_faults(True))
-    pt_c, pt_f = clean.plasticity_tables(), faulty.plasticity_tables()
-    # the fault reprograms codebook words => the plasticity lowering
-    # (which runs AFTER fault application) must see the corrupted levels
-    assert any(a is not None and not torch.equal(a[1], b[1])
-               for a, b in zip(pt_c, pt_f))
-    trains = _trains()
-    c_clean, _ = clean.run_batch(trains)
-    c_fault, _ = faulty.run_batch(trains)
-    assert not torch.equal(c_clean, c_fault)
-    assert any(a is not None and not torch.equal(a, b)
-               for a, b in zip(clean.last_learned, faulty.last_learned))
 
 
 # ---------------------------------------------------------------------------
