@@ -246,8 +246,34 @@ Phases, each of which must pass:
    call of one prefill against the plain version by phase 6's rule, and
    512 against 511 + 1 (the 511 prefill on the plain route).
 
+15. the vlm family and LM training — right after phase 14: (a) the flash
+   kernel's SIMT instantiations at hd 80 and 96; (b) phi-3-vision-4.2b
+   served at full width and depth, bf16; (c) its first 8 layers C3 int8;
+   (d) granite-3-2b training at full width and depth, bf16, B 2 x S 512,
+   4 `make_train_step` steps, exactly 160 flash launches; (e) `Trainer.run`
+   crashed in step 4 and resumed from 3.
+16. LM training on a DeviceMesh — right after phase 15, its memory freed:
+   (a) two gloo ranks spawned on the card, mesh data 1 x model 2,
+   granite-3-2b at full width and depth (40 layers, bf16), B 2 x S 512,
+   3 `make_train_step(mesh=...)` steps from phase 15 (d)'s seed and
+   batches: every rank exactly 40 flash launches a forward, all on the
+   tensor-core kernel, at the local shape (B 2, H 16, KV 4, S = T = 512,
+   hd 64); step 0's loss and grad_norm within MESH_LOSS_REL /
+   MESH_GNORM_REL of phase 15 (d)'s one-device step; ms per step, device
+   busy and peak memory per rank, and the collective bytes each rank
+   sends a step (one more step, profiled and counted); (b) the same on
+   data 2 x model 1 (batch and FSDP on the embed axes) at 8 of the 40
+   layers, against the one-device step of those 8 layers; (c) one NCCL
+   rank, mesh 1 x 1: loss, grad_norm and updated parameters bitwise the
+   one-device step's; (d) granite-3-2b train_4k on the (16, 16) mesh of
+   the dry run (`launch/dryrun.py`, a fake 256-rank world on the host) in
+   a subprocess, under the card machine's torch.  The ranks on the card
+   talk over gloo with every collective staged through host memory
+   (`launch/mesh.py` `stage_gloo_collectives_through_host`): NCCL refuses
+   two ranks on one card and gloo's CUDA all-gather crashes.
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 11, 12, 5, 6, 13 and 14); the last line is
+4, 7, 8, 9, 11, 12, 5, 6, 13, 14, 15 and 16); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -257,6 +283,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2554,11 +2581,15 @@ def _sync(dev=None) -> None:
 
 
 def _digest(tensors) -> str:
+    """A digest of the tensors' bits (any type, bf16 too)."""
     import hashlib
+
+    import torch
 
     h = hashlib.sha1()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().view(-1).numpy().tobytes())
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
     return h.hexdigest()
 
 
@@ -4359,6 +4390,515 @@ def vlm_train_path(seed: int, smi: str) -> dict:
     log(f"phase 15 ({smi}) seconds: {json.dumps(out['seconds'])}")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 16: LM training on a DeviceMesh, and one dry-run cell
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2                  # (a), (b): gloo ranks, both on the one card
+MESH_STEPS = 3                  # timed steps a rank; one more is profiled
+MESH_DP_LAYERS = 8              # (b), (c): granite-3-2b's first 8 layers
+MESH_JOIN_S = 900               # the spawned ranks' deadline
+# (a), (b): step 0 of a sharded bf16 step against the one-device step on
+# the same weights and batch.  The sharded step computes the same
+# function, but each row-parallel product (wo and mlp_wo of every layer,
+# the unembedding) rounds each rank's partial sum to bf16 before the two
+# are added, the sequence-parallel reductions add in another order, and
+# the vocab-parallel loss sums its exponentials in another order: each
+# is up to one bf16 rounding (2^-8 relative) of an addend.  The loss
+# and grad_norm limits are about 14x and 80x the gaps measured on an
+# H100 (7.3e-6 and 1.3e-5).  Per parameter leaf, the first moment after
+# step 0 ((1 - b1) times the clipped gradient, f32) is compared by its
+# norm and by its projection on a gaussian drawn from the leaf's index
+# (the projection of a difference d has the spread of |d|, so a
+# difference in any part of the leaf shows), both relative to the
+# one-device norm: each leaf's gradient carries the roundings of every
+# layer above it.  The step's update (the parameter after it less the
+# one before, by the same projection) is held relative to the one-device
+# update's norm: AdamW's first update is lr times the gradient's sign,
+# so an element whose gradient is within a rounding of 0 may flip, and a
+# share f of flips moves the update by about 2 sqrt(f) of its norm.  At
+# 4 layers and d 512 in bf16 on the CPU the worst leaf was 0.018
+# (gradient) and 0.16 (update) off; the same run with every partial
+# gradient keeping one rank's part was 2.0 and 2.3 off, and its grad_norm
+# 4.75e-2.  The leaf limits
+# leave room for 40 layers' roundings.
+MESH_LOSS_REL = 1e-4
+MESH_GNORM_REL = 1e-3
+MESH_GRAD_LEAF_REL = 0.1
+MESH_UPDATE_LEAF_REL = 0.75
+MESH_PRINT_SEED = 1601          # the leaves' gaussians: seed + leaf index
+DRYRUN_CELL = ("granite-3-2b", "train_4k")   # (d): on the (16, 16) mesh
+DRYRUN_TIMEOUT_S = 600
+
+
+def _mesh_rank(rank: int, world: int, backend: str, tmp: str,
+               job: dict) -> None:
+    """One spawned rank of phase 16: join the group, build the
+    ("data", "model") mesh of `job["model"]` on the card, train, save."""
+    import faulthandler
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    dev = torch.device("cuda", 0)                  # both on the one card
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/store-{job['name']}",
+        rank=rank, world_size=world,
+        timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    try:
+        res = _mesh_train(rank, dev, job)
+        torch.save(res, f"{tmp}/{job['name']}-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_model(layers: int, seed: int, dev):
+    """granite-3-2b at full width with `layers` layers (bf16), its random
+    weights from the port's init on `dev` (phase 15 (d)'s seed)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch(TRAIN_ARCH), n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    return cfg, T.init_model(cfg, gen)
+
+
+def _lm_batches(cfg, seed: int, dev, n: int) -> list:
+    from repro_torch.data.synthetic import TokenStream
+
+    data = TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH_LM, seed)
+    return [data.batch_at(i, dev) for i in range(n)]
+
+
+def _projections(tensors: dict, dev) -> dict:
+    """{leaf: the sum of its f32 values times a gaussian of its shape drawn
+    from MESH_PRINT_SEED + its index in name order}; a DTensor's is that
+    of the whole tensor (each device its own shard of the gaussian)."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+
+    out = {}
+    for i, name in enumerate(sorted(tensors)):
+        t = tensors[name].detach()
+        gen = torch.Generator(device=dev).manual_seed(MESH_PRINT_SEED + i)
+        r = torch.randn(tuple(t.shape), generator=gen, device=dev)
+        if SH.is_dtensor(t):
+            r = SH.shard(r, SH.spec_of(t.placements, t.ndim, t.device_mesh),
+                         t.device_mesh)
+        out[name] = _whole(torch.sum(t.float() * r))
+    return out
+
+
+def _whole(x) -> float:
+    from repro_torch.distributed import sharding as SH
+
+    return float(x.full_tensor() if SH.is_dtensor(x) else x)
+
+
+def _leaf_prints(params: dict, moments: dict, before: dict, dev) -> dict:
+    """Per leaf after step 0: the first moment's norm and projection, and
+    the update's projection (`before` holds the parameters'
+    projections before the step)."""
+    import torch
+
+    m_proj = _projections(moments, dev)
+    p_proj = _projections(params, dev)
+    return {n: {"m_norm": math.sqrt(_whole(torch.sum(moments[n] ** 2))),
+                "m_proj": m_proj[n], "update_proj": p_proj[n] - before[n]}
+            for n in sorted(params)}
+
+
+def _mesh_train(rank: int, dev, job: dict) -> dict:
+    """`job["steps"]` steps of `make_train_step(mesh=...)` (each step's
+    ms, loss, grad_norm, flash launches; every flash call of step 0 and
+    the first of each later one held against the plain version on the
+    same local q, k, v; the leaves' prints after step 0), then one step
+    under the profiler and the collective counter (device busy, bytes
+    sent)."""
+    import torch
+
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import attention as ATT
+    from repro_torch.optim import adamw
+
+    mesh = MESH.make_host_mesh(model=job["model"], device=dev)
+    cfg, model = _mesh_model(job["layers"], job["seed"], dev)
+    model = ST.shard_params(model, mesh)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = ST.make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_STEPS_LM), mesh)
+    batches = _lm_batches(cfg, job["seed"], dev, job["steps"] + 1)
+    shapes, calls, flash_err, checking = set(), [0], [], [True]
+    plain = ATT.flash_attention
+
+    def spy(q, k, v, causal=True):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        out = plain(q, k, v, causal=causal)
+        if checking[0] and (calls[0] < job["layers"]
+                            or calls[0] % job["layers"] == 0):
+            flash_err.append(_flash_diff(
+                out, FA.flash_attention_plain(q, k, v, causal)))
+        calls[0] += 1
+        return out
+
+    ATT.flash_attention = spy
+    before = _projections(dict(model.named_parameters()), dev)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    ms, losses, norms, launches, routed = [], [], [], [], []
+    prints = None
+    for i in range(job["steps"]):
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, batches[i])
+        losses.append(float(metrics["loss"]))      # synchronises
+        norms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(FA.launches))
+        routed.append(calls[0])
+        if i == 0:
+            prints = _leaf_prints(dict(model.named_parameters()), opt.m,
+                                  before, dev)
+    checking[0] = False
+    res = {"rank": rank, "ms_per_step": ms, "loss": losses,
+           "grad_norm": norms, "launches": launches, "flash_calls": routed,
+           "flash_shapes": sorted(shapes), "flash_checked": len(flash_err),
+           "flash_max_err": max(flash_err), "prints": prints,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "placements": {n: [str(pl) for pl in p.placements]
+                          for n, p in list(model.named_parameters())[:4]}}
+    if job.get("digest"):
+        res["digest"] = _digest([p.full_tensor() for _, p in sorted(
+            model.named_parameters())])
+    warm = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    counted = {}
+
+    def traced_step():
+        counted["costs"] = TA.trace(lambda: step(model, opt,
+                                                 batches[job["steps"]]))
+
+    res.update(_device_breakdown(traced_step, warm,
+                                 (("flash_kernel_ms", "flash_attention"),
+                                  ("nccl_or_copy_ms", "Memcpy"))))
+    costs = counted["costs"]
+    res["sent_bytes_per_step"] = dict(costs.per_kind,
+                                      total=costs.coll_bytes)
+    res["collective_ops_per_step"] = costs.op_counts
+    ATT.flash_attention = plain
+    return res
+
+
+def _spawn_mesh(job: dict, world: int, backend: str, tmp: str) -> list:
+    """Start `world` ranks of `job`, join them by a deadline, stop any
+    still alive; raise unless every rank exited 0."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, world, backend, tmp, job))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    log(f"phase 16 {job['name']}: {backend} x {world} ranks exited {codes} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if hung or any(c != 0 for c in codes):
+        raise AssertionError(f"phase 16 {job['name']}: ranks failed, exit "
+                             f"codes {codes}, hung {hung}")
+    return [torch.load(f"{tmp}/{job['name']}-rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _one_device_step(layers: int, seed: int, dev) -> dict:
+    """The one-device step 0 of `_mesh_model(layers)` on batch 0: loss,
+    grad_norm, a digest of the updated parameters and the leaves'
+    prints, with each update's norm beside them."""
+    import torch
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+
+    cfg, model = _mesh_model(layers, seed, dev)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = ST.make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_STEPS_LM))
+    batch = _lm_batches(cfg, seed, dev, 1)[0]
+    named = dict(model.named_parameters())
+    before = _projections(named, dev)
+    start = {n: p.detach().clone() for n, p in named.items()}
+    model, opt, metrics = step(model, opt, batch)
+    named = dict(model.named_parameters())
+    prints = _leaf_prints(named, opt.m, before, dev)
+    for n, p in named.items():
+        prints[n]["update_norm"] = float(torch.linalg.vector_norm(
+            p.detach().float() - start[n].float()))
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "digest": _digest([p for _, p in sorted(named.items())]),
+           "prints": prints}
+    del model, opt, batch, named, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_gaps(got: dict, want: dict) -> dict:
+    """Per leaf, the relative gaps of `got`'s prints from the one-device
+    `want`'s: the first moment's norm and projection against its norm,
+    the update's projection against the update's norm."""
+    out = {}
+    for n, w in want.items():
+        g = got[n]
+        m = max(w["m_norm"], 1e-30)
+        out[n] = {"grad": max(abs(g["m_norm"] - w["m_norm"]),
+                              abs(g["m_proj"] - w["m_proj"])) / m,
+                  "update": abs(g["update_proj"] - w["update_proj"])
+                  / max(w["update_norm"], 1e-30)}
+    return out
+
+
+def _hold_mesh(what: str, ranks: list, want: dict, layers: int,
+               local_shapes: tuple) -> dict:
+    """Every rank: exactly `layers` flash calls a forward, each a launch
+    of the tensor-core kernel, at `local_shapes`, the checked ones within
+    FLASH_BF16_TOL of the plain version; the ranks' losses and prints
+    equal; step 0 against the one-device `want` within MESH_LOSS_REL /
+    MESH_GNORM_REL and, per leaf, MESH_GRAD_LEAF_REL /
+    MESH_UPDATE_LEAF_REL."""
+    for r in ranks:
+        for i, got in enumerate(r["launches"]):
+            n = (i + 1) * layers
+            expect = {"flash_attention": n, "flash_attention_wgmma": n}
+            if {key: got.get(key, 0) for key in expect} != expect \
+                    or r["flash_calls"][i] != n:
+                raise AssertionError(f"{what} rank {r['rank']}: launches "
+                                     f"{got}, {r['flash_calls'][i]} calls "
+                                     f"after step {i}, expected {expect}, "
+                                     f"{n}")
+        if r["flash_shapes"] != [local_shapes]:
+            raise AssertionError(f"{what} rank {r['rank']}: flash shapes "
+                                 f"{r['flash_shapes']}, expected "
+                                 f"{[local_shapes]}")
+        if r["flash_checked"] != layers + len(r["launches"]) - 1:
+            raise AssertionError(f"{what} rank {r['rank']}: "
+                                 f"{r['flash_checked']} flash calls held "
+                                 f"against the plain version")
+    if any(r["loss"] != ranks[0]["loss"] or r["prints"] != ranks[0]["prints"]
+           for r in ranks):
+        raise AssertionError(f"{what}: the ranks' losses or prints differ: "
+                             f"{[r['loss'] for r in ranks]}")
+    loss_rel = abs(ranks[0]["loss"][0] - want["loss"]) / abs(want["loss"])
+    gnorm_rel = (abs(ranks[0]["grad_norm"][0] - want["grad_norm"])
+                 / want["grad_norm"])
+    gaps = _leaf_gaps(ranks[0]["prints"], want["prints"])
+    worst = {k: max(gaps, key=lambda n: gaps[n][k])
+             for k in ("grad", "update")}
+    out = {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+           "flash_max_err": max(r["flash_max_err"] for r in ranks),
+           "leaf_grad_rel": [worst["grad"], gaps[worst["grad"]]["grad"]],
+           "leaf_update_rel": [worst["update"],
+                               gaps[worst["update"]]["update"]],
+           "leaf_grad_rel_median": statistics.median(
+               g["grad"] for g in gaps.values()),
+           "leaf_update_rel_median": statistics.median(
+               g["update"] for g in gaps.values()),
+           "want": {k: want[k] for k in ("loss", "grad_norm")}}
+    log(f"{what}: {sum(r['flash_checked'] for r in ranks)} flash calls on "
+        f"the ranks' local heads within {out['flash_max_err']:.3g} of the "
+        f"plain version (tolerance {FLASH_BF16_TOL} abs); step 0 loss "
+        f"{ranks[0]['loss'][0]} against one device {want['loss']} (rel "
+        f"{loss_rel:.3g}), grad_norm {ranks[0]['grad_norm'][0]} against "
+        f"{want['grad_norm']} (rel {gnorm_rel:.3g}); per leaf, the worst "
+        f"gradient {out['leaf_grad_rel']} (median "
+        f"{out['leaf_grad_rel_median']:.3g}), the worst update "
+        f"{out['leaf_update_rel']} (median "
+        f"{out['leaf_update_rel_median']:.3g})")
+    if not all(math.isfinite(x) for r in ranks for x in r["loss"]
+               + r["grad_norm"]):
+        raise AssertionError(f"{what}: non-finite loss or grad_norm")
+    if loss_rel > MESH_LOSS_REL or gnorm_rel > MESH_GNORM_REL:
+        raise AssertionError(f"{what}: step 0 outside ({MESH_LOSS_REL}, "
+                             f"{MESH_GNORM_REL}) of the one-device step")
+    bad = {n: g for n, g in gaps.items() if g["grad"] > MESH_GRAD_LEAF_REL
+           or g["update"] > MESH_UPDATE_LEAF_REL}
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves outside "
+                             f"({MESH_GRAD_LEAF_REL}, {MESH_UPDATE_LEAF_REL})"
+                             f" of the one-device step: {bad}")
+    return out
+
+
+def _dryrun_cell(device_note: str) -> dict:
+    """(d) one dry-run cell in a subprocess (a fake 256-rank world on
+    the host; no card)."""
+    import tempfile
+
+    arch, shape = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "cell.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)],
+            capture_output=True, text=True, env=env,
+            timeout=DRYRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 16 (d): the dry run exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        row = json.loads(out.read_text())[0]
+    r = row["roofline"]
+    if row["status"] != "ok" or not r["hlo_flops"] > 0 or r[
+            "bottleneck"] not in ("compute", "memory", "collective"):
+        raise AssertionError(f"phase 16 (d): {row}")
+    res = {"cell": f"{arch}/{shape} 16x16", "wall_s": wall,
+           "trace_s": row["trace_s"], "memory": row["memory"],
+           "flops_per_device": r["hlo_flops"],
+           "bytes_per_device": r["hlo_bytes"],
+           "coll_bytes": r["coll_bytes"], "bottleneck": r["bottleneck"],
+           "roofline_fraction": r["roofline_fraction"]}
+    log(f"phase 16 (d) dry-run cell ({device_note}, analytic H100 "
+        f"constants): {json.dumps(res)}")
+    return res
+
+
+def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
+    """Phase 16: granite-3-2b trained on a DeviceMesh: (a) two gloo ranks
+    on the card, data 1 x model 2, full width and depth; (b) data 2 x
+    model 1 at 8 of its 40 layers; (c) one NCCL rank, 1 x 1, bitwise the
+    one-device step; (d) one dry-run cell.  Each is held against the
+    one-device step 0 of its depth, run here first; `one_device` is phase
+    15 (d)'s record, whose step 0 the one at full depth repeats."""
+    import gc
+    import tempfile
+
+    import torch
+
+    dev = torch.device(DEVICE, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"seconds": {}}
+    part = time.perf_counter()
+    from repro_torch.configs import registry as R
+
+    cfg = R.get_arch(TRAIN_ARCH)
+    ref = {n: _one_device_step(n, seed, dev)
+           for n in (cfg.n_layers, MESH_DP_LAYERS)}
+    for n, r in ref.items():
+        log(f"phase 16: one-device step 0 at {n} layers: loss "
+            f"{r['loss']}, grad_norm {r['grad_norm']}, digest "
+            f"{r['digest']}")
+    full = ref[cfg.n_layers]
+    if (abs(full["loss"] - one_device["loss"][0]) > MESH_LOSS_REL
+            * abs(one_device["loss"][0])
+            or abs(full["grad_norm"] - one_device["grad_norm"][0])
+            > MESH_GNORM_REL * one_device["grad_norm"][0]):
+        raise AssertionError(f"phase 16: the one-device step 0 {full} is "
+                             f"not phase 15 (d)'s {one_device['loss'][0]}, "
+                             f"{one_device['grad_norm'][0]}")
+    out["seconds"]["one_device"] = time.perf_counter() - part
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, s = TRAIN_BATCH_LM, TRAIN_SEQ
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) tensor parallel over 2 ranks at full width and depth
+        part = time.perf_counter()
+        job = dict(name="a", model=MESH_RANKS, layers=cfg.n_layers,
+                   seed=seed, steps=MESH_STEPS)
+        ranks = _spawn_mesh(job, MESH_RANKS, "gloo", tmp)
+        out["a"] = _hold_mesh(
+            "phase 16 (a) data 1 x model 2", ranks, full, job["layers"],
+            ((b, h // MESH_RANKS, s, hd), (b, kv // MESH_RANKS, s, hd)))
+        out["a"]["ranks"] = ranks
+        out["seconds"]["a"] = time.perf_counter() - part
+        # (b) data parallel (FSDP on the embed axes) at 8 layers
+        part = time.perf_counter()
+        job = dict(name="b", model=1, layers=MESH_DP_LAYERS, seed=seed,
+                   steps=MESH_STEPS)
+        ranks = _spawn_mesh(job, MESH_RANKS, "gloo", tmp)
+        out["b"] = _hold_mesh(
+            "phase 16 (b) data 2 x model 1", ranks, ref[MESH_DP_LAYERS],
+            MESH_DP_LAYERS,
+            ((b // MESH_RANKS, h, s, hd), (b // MESH_RANKS, kv, s, hd)))
+        out["b"]["ranks"] = ranks
+        out["seconds"]["b"] = time.perf_counter() - part
+        # (c) one NCCL rank: the mesh path bitwise the one-device step
+        part = time.perf_counter()
+        job = dict(name="c", model=1, layers=MESH_DP_LAYERS, seed=seed,
+                   steps=1, digest=True)
+        (rank,) = _spawn_mesh(job, 1, "nccl", tmp)
+        want = {k: ref[MESH_DP_LAYERS][k]
+                for k in ("loss", "grad_norm", "digest", "prints")}
+        want["prints"] = {n: {k: v for k, v in p.items()
+                              if k != "update_norm"}
+                          for n, p in want["prints"].items()}
+        got = {"loss": rank["loss"][0], "grad_norm": rank["grad_norm"][0],
+               "digest": rank["digest"], "prints": rank["prints"]}
+        if got["digest"] != want["digest"] or got["loss"] != want["loss"] \
+                or got["grad_norm"] != want["grad_norm"]:
+            raise AssertionError(f"phase 16 (c): the 1 x 1 mesh step "
+                                 f"{got} is not bitwise the one-device "
+                                 f"step {want}")
+        log(f"phase 16 (c) nccl 1 x 1: loss, grad_norm and updated "
+            f"parameters bitwise the one-device step's; the leaves' prints "
+            f"{'equal' if got['prints'] == want['prints'] else 'differ'}")
+        out["c"] = {"ranks": [rank], "bitwise": True}
+        out["seconds"]["c"] = time.perf_counter() - part
+    part = time.perf_counter()
+    out["d"] = _dryrun_cell(f"torch {torch.__version__}")
+    out["seconds"]["d"] = time.perf_counter() - part
+    flash = sum(r["launches"][-1]["flash_attention"]
+                for p in "abc" for r in out[p]["ranks"])
+    out["launches"] = {"flash_attention": flash}
+    perf = {p: {"ms_per_step": [r["ms_per_step"] for r in out[p]["ranks"]],
+                "loss": out[p]["ranks"][0]["loss"],
+                "grad_norm": out[p]["ranks"][0]["grad_norm"],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in out[p]["ranks"]],
+                "device_busy_ms": [r.get("device_busy_ms")
+                                   for r in out[p]["ranks"]],
+                "idle_share": [r.get("idle_share")
+                               for r in out[p]["ranks"]],
+                "flash_kernel_ms": [r.get("flash_kernel_ms")
+                                    for r in out[p]["ranks"]],
+                "flash_max_err": [r["flash_max_err"]
+                                  for r in out[p]["ranks"]],
+                "sent_bytes_per_step": [r["sent_bytes_per_step"]
+                                        for r in out[p]["ranks"]],
+                "collective_ops_per_step": out[p]["ranks"][0][
+                    "collective_ops_per_step"]}
+            for p in "abc"}
+    for p in "ab":
+        perf[p].update({k: out[p][k] for k in (
+            "loss_rel", "grad_norm_rel", "leaf_grad_rel",
+            "leaf_grad_rel_median", "leaf_update_rel",
+            "leaf_update_rel_median")})
+    log(f"phase 16 ({smi}): {json.dumps(perf)}")
+    log(f"phase 16 seconds: {json.dumps(out['seconds'])}")
+    out["perf"] = perf
+    return out
+
+
 # instructions a built library must hold: the flash kernel's bf16 wgmma
 # (HGMMA) and TMA loads (UTMALDG), the fused timestep's f64 tensor-core
 # adds (DMMA)
@@ -4491,6 +5031,11 @@ def main() -> int:
     vt = vlm_train_path(args.seed, smi)
     log(f"vlm and LM training phase: {time.perf_counter() - t0:.1f} s")
 
+    # 16. LM training on a DeviceMesh and one dry-run cell
+    t0 = time.perf_counter()
+    mt = mesh_train_path(args.seed, smi, vt["d"])
+    log(f"mesh training and dry-run phase: {time.perf_counter() - t0:.1f} s")
+
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
     # server), phase 11 (deploy and adaptation), phase 12 (the spawned
@@ -4499,7 +5044,8 @@ def main() -> int:
     # runs, bf16 and C3 int8, and the 4-bit dense run), phase 14 (the
     # served mamba2 C3 run and whisper's served run) and phase 15 (the
     # served phi-3-vision runs, bf16 and C3 int8, and granite-3-2b's
-    # training steps)
+    # training steps) and phase 16 (the meshed training steps of every
+    # rank)
     launches = dict(mp["launches"])
     for loop in [fp, pp, sp, dp, shp, *api.values()]:
         for kname, count in loop["launches"].items():
@@ -4507,7 +5053,8 @@ def main() -> int:
     launches["flash_attention"] = (lm["launches"]["flash_attention"]
                                    + mq["launches"]["flash_attention"]
                                    + fam["launches"]["flash_attention"]
-                                   + vt["launches"]["flash_attention"])
+                                   + vt["launches"]["flash_attention"]
+                                   + mt["launches"]["flash_attention"])
     launches["codebook_matmul"] += (mq["launches"]["codebook_matmul"]
                                     + fam["launches"]["codebook_matmul"]
                                     + vt["launches"]["codebook_matmul"])

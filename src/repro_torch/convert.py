@@ -170,7 +170,10 @@ def lm_tree(named: _Map) -> dict:
 def load_lm_tree(named: _Map, tree: _Map) -> None:
     """Copy the reference-layout `tree` (as `lm_tree` gives it; tensors
     or numpy arrays) into the tensors of `named` in place, each layer its
-    slice of the stacked leaves."""
+    slice of the stacked leaves.  A DTensor takes its own shard of the
+    full leaf."""
+    from torch.distributed.tensor import DTensor
+
     with torch.no_grad():
         for name, t in named.items():
             path, layer = _lm_slot(name)
@@ -181,7 +184,15 @@ def load_lm_tree(named: _Map, tree: _Map) -> None:
                 leaf = leaf[layer]
             if not isinstance(leaf, torch.Tensor):
                 leaf = _lm_tensor(np.asarray(leaf), t.device)
-            t.copy_(leaf)
+            if isinstance(t, DTensor):
+                from repro_torch.distributed import sharding as SH
+
+                mesh = t.device_mesh
+                part = SH.shard(leaf.to(t.device, t.dtype),
+                                SH.spec_of(t.placements, t.ndim, mesh), mesh)
+                t.to_local().copy_(part.to_local())
+            else:
+                t.copy_(leaf)
 
 
 def convert_params(tree, device=None):

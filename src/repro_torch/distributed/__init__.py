@@ -1,4 +1,5 @@
-"""Distributed runtime of the port: the elastic training loop's straggler
-policy and checkpoint/restart (`elastic.py`).  The reference's mesh
-sharding, collectives and `ElasticPlan` (a jax mesh per device count)
-wait for ROADMAP Queue 1 #21."""
+"""Distributed runtime of the port: the sharding rules and their DTensor
+layouts (`sharding.py`), the elastic training loop (`elastic.py`),
+gradient compression (`compression.py`), the collective planner
+(`collectives.py`), and the dry run's per-device counts
+(`trace_analysis.py`) and roofline terms (`roofline.py`)."""

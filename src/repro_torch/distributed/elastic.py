@@ -1,18 +1,19 @@
-"""Straggler mitigation and fault handling of the training loop.
+"""Elastic scaling, straggler mitigation and fault handling of the
+training loop.
 
-Port of `repro.distributed.elastic`'s `StragglerPolicy` and
-`FaultTolerantLoop`.  The paper's NoC has these mechanisms in silicon:
-the CMRouter's link controller raises *hang-up* signals on blocked links
-or out-of-sync timesteps.  At the scale of a training job:
+Port of `repro.distributed.elastic`.  The paper's NoC has these
+mechanisms in silicon: the CMRouter's link controller raises *hang-up*
+signals on blocked links or out-of-sync timesteps, and the level-2 router
+lets domains join and leave.  At the scale of a training job:
 
   * StragglerPolicy — per-step deadline; a slow or absent worker
     triggers skip-and-resync, and after `max_strikes` the worker is
     evicted;
+  * ElasticPlan — the ("data", "model") mesh for a device count; a
+    checkpoint (stored whole, in the reference's layout) restores onto
+    whatever mesh the job has now (`train/trainer.py`);
   * FaultTolerantLoop — wraps a step function with checkpoint/restart:
     crash -> restore the latest complete step -> continue.
-
-The reference's `ElasticPlan` builds a jax mesh for a device count; its
-port comes with the mesh (ROADMAP Queue 1 #21).
 """
 from __future__ import annotations
 
@@ -58,6 +59,35 @@ class StragglerPolicy:
             self.evicted.add(worker)
             return "evict"
         return "skip"
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    """Mesh shape for a given device count."""
+
+    n_devices: int
+    mesh_shape: tuple
+    axes: tuple
+
+    @staticmethod
+    def plan(n_devices: int, model_parallel: int = 1) -> "ElasticPlan":
+        mp = model_parallel
+        while n_devices % mp != 0:
+            mp //= 2
+        return ElasticPlan(n_devices, (n_devices // mp, mp), ("data", "model"))
+
+    def build_mesh(self, device_type: str = "cpu"):
+        """A `DeviceMesh` of this shape over the default process group,
+        which must hold exactly `n_devices` ranks."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        if have != self.n_devices:
+            raise RuntimeError(f"plan for {self.n_devices} devices, the "
+                               f"process group has {have}")
+        return init_device_mesh(device_type, self.mesh_shape,
+                                mesh_dim_names=self.axes)
 
 
 class FaultTolerantLoop:

@@ -16,6 +16,18 @@ for CPU tensors.  The reference takes that route only under
 runs in interpret mode; the port reads no such switch.  The route is
 differentiable (`_FlashCore`): the backward is the exact gradient of the
 reference SDPA, as the reference's custom VJP computes it.
+
+On a mesh (DTensor q / k / v, `launch/steps.py`), each attention runs on
+every device's own rows and heads through `local_map` (`_on_local_heads`):
+the batch on the rules' batch axes, the heads on "model" when they
+divide; kv heads that do not divide are repeated over their query group
+first, so each device's kv heads are those its query heads read.  The
+flash kernel's wrapper takes plain contiguous tensors, so this is the
+only way it runs on a mesh.  Decode and the prefill's cache writes work
+on each device's cache shard (`distributed.sharding.decode_state_spec`):
+a cache sharded over its positions (kv heads that do not divide) is read
+flash-decoding style, the softmax's max, sum and product combined over
+"model".
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  supports)
@@ -30,6 +43,36 @@ from repro_torch.models.common import (ArchConfig, apply_rope, init_dense,
                                        linear)
 
 NEG_INF = -1e30
+
+
+def _head_layout(q, k, rules: SH.ShardingRules):
+    """(mesh, batch entry, heads entry, kv entry or "repeat") of the
+    local attention for DTensor q (B, S, H, hd) and k (B, T, KV, hd) under
+    `rules`: "repeat" when the heads divide the model axis and the kv
+    heads do not."""
+    mesh = q.device_mesh
+    b, _, h, _ = q.shape
+    pb, ph = SH.spec_for((b, h), ("batch", "heads"), mesh, rules)
+    pk = SH.spec_for((b, k.shape[2]), ("batch", "kv_heads"), mesh, rules)[1]
+    return mesh, pb, ph, ("repeat" if ph is not None and pk != ph else pk)
+
+
+def _repeat_kv(t, h: int):
+    """(B, T, KV, hd) -> (B, T, H, hd), each kv head over its group."""
+    b, n, kv, hd = t.shape
+    return t[:, :, :, None, :].expand(b, n, kv, h // kv, hd).reshape(
+        b, n, h, hd)
+
+
+def _on_local_heads(fn, q, k, v, rules: SH.ShardingRules):
+    """`fn(q, k, v) -> (B, S, H * hd)` on each device's rows and heads of
+    DTensor q (B, S, H, hd), k / v (B, T, KV, hd), through `local_map`."""
+    mesh, pb, ph, pk = _head_layout(q, k, rules)
+    if pk == "repeat":
+        k, v, pk = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2]), ph
+    return SH.on_shards(fn, mesh, (q, k, v),
+                        (SH.P(pb, None, ph, None), SH.P(pb, None, pk, None),
+                         SH.P(pb, None, pk, None)), SH.P(pb, None, ph))
 
 
 def _flash_ok(cfg: ArchConfig, s: int) -> bool:
@@ -106,16 +149,35 @@ class KVCache(NamedTuple):
 
 
 def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
-         q_name="wq", k_name="wk", v_name="wv"):
+         q_name="wq", k_name="wk", v_name="wv", *,
+         rules: SH.ShardingRules = SH.ShardingRules()):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = linear(x, p[q_name]).reshape(b, s, h, hd)
-    k = linear(x, p[k_name]).reshape(b, s, kv, hd)
-    v = linear(x, p[v_name]).reshape(b, s, kv, hd)
+    q = _by_heads(linear(x, p[q_name]), h, "heads", rules).reshape(
+        b, s, h, hd)
+    k = _by_heads(linear(x, p[k_name]), kv, "kv_heads", rules).reshape(
+        b, s, kv, hd)
+    v = _by_heads(linear(x, p[v_name]), kv, "kv_heads", rules).reshape(
+        b, s, kv, hd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _by_heads(y, n_heads: int, logical: str, rules: SH.ShardingRules):
+    """A DTensor projection (B, S, n_heads * hd) laid out as the heads
+    split it: rows on the batch axes, the heads on "model" when they
+    divide it, else whole (a shard inside a head cannot be reshaped to
+    (..., heads, hd)).  A plain tensor passes through."""
+    if not SH.is_dtensor(y):
+        return y
+
+    mesh = y.device_mesh
+    pb, ph = SH.spec_for((y.shape[0], n_heads), ("batch", logical), mesh,
+                         rules)
+    want = SH.placements(SH.P(pb, None, ph), mesh)
+    return y if tuple(y.placements) == want else y.redistribute(mesh, want)
 
 
 def _sdpa(q, k, v, mask, cfg: ArchConfig):
@@ -179,7 +241,12 @@ def causal_mask(s: int, window: int = 0, offset: int = 0, device=None
     return m
 
 
-def _self_attention(q, k, v, cfg: ArchConfig):
+def _self_attention(q, k, v, cfg: ArchConfig,
+                    rules: SH.ShardingRules = SH.ShardingRules()):
+    if SH.is_dtensor(q):
+        return _on_local_heads(
+            lambda q, k, v: _self_attention(q, k, v, cfg, rules), q, k, v,
+            rules)
     b, s = q.shape[:2]
     if _flash_route(q, cfg):
         return _sdpa_flash(q, k, v)
@@ -189,36 +256,53 @@ def _self_attention(q, k, v, cfg: ArchConfig):
     return _sdpa(q, k, v, mask.expand(b, s, s), cfg)
 
 
-def attention_train(x, p, cfg: ArchConfig, positions=None):
-    """Full self-attention forward (train / prefill compute)."""
+def attention_train(x, p, cfg: ArchConfig, positions=None, *,
+                    rules: SH.ShardingRules = SH.ShardingRules()):
+    """Full self-attention forward (train / prefill compute).  `rules`
+    lay a mesh's attention out (`distributed.sharding`)."""
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions)
-    return linear(_self_attention(q, k, v, cfg), p["wo"])
+    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
+    return linear(_self_attention(q, k, v, cfg, rules), p["wo"])
 
 
-def attention_encoder(x, p, cfg: ArchConfig):
+def attention_encoder(x, p, cfg: ArchConfig, *,
+                      rules: SH.ShardingRules = SH.ShardingRules()):
     """Bidirectional attention (whisper encoder)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions)
-    return linear(_sdpa(q, k, v, None, cfg), p["wo"])
+    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
+    return linear(_full_attention(q, k, v, cfg, rules), p["wo"])
 
 
-def attention_cross(x, enc_out, p, cfg: ArchConfig):
+def _full_attention(q, k, v, cfg: ArchConfig,
+                    rules: SH.ShardingRules = SH.ShardingRules()):
+    """`_sdpa` with no mask (every position sees every other)."""
+    if SH.is_dtensor(q):
+        return _on_local_heads(lambda q, k, v: _sdpa(q, k, v, None, cfg),
+                               q, k, v, rules)
+    return _sdpa(q, k, v, None, cfg)
+
+
+def attention_cross(x, enc_out, p, cfg: ArchConfig, *,
+                    rules: SH.ShardingRules = SH.ShardingRules()):
     """Cross-attention: queries from decoder x, keys/values from encoder."""
     b, s, _ = x.shape
     t = enc_out.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = linear(x, p["xwq"]).reshape(b, s, h, hd)
-    k = linear(enc_out, p["xwk"]).reshape(b, t, kv, hd)
-    v = linear(enc_out, p["xwv"]).reshape(b, t, kv, hd)
-    return linear(_sdpa(q, k, v, None, cfg), p["xwo"])
+    q = _by_heads(linear(x, p["xwq"]), h, "heads", rules).reshape(
+        b, s, h, hd)
+    k = _by_heads(linear(enc_out, p["xwk"]), kv, "kv_heads", rules).reshape(
+        b, t, kv, hd)
+    v = _by_heads(linear(enc_out, p["xwv"]), kv, "kv_heads", rules).reshape(
+        b, t, kv, hd)
+    return linear(_full_attention(q, k, v, cfg, rules), p["xwo"])
 
 
 def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
-                      cache: KVCache | None = None):
+                      cache: KVCache | None = None, *,
+                      rules: SH.ShardingRules = SH.ShardingRules()):
     """Prefill: same compute as train + returns the populated KV cache.
 
     `cache`, when given, is a (B, kv, cache_len, hd) pair that receives
@@ -230,15 +314,48 @@ def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
         raise ValueError(f"prompt of {s} tokens does not fit a cache of "
                          f"{cache_len}")
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions)
-    out = _self_attention(q, k, v, cfg)
+    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
+    out = _self_attention(q, k, v, cfg, rules)
     if cache is None:
         kc = torch.zeros((b, cfg.n_kv_heads, cache_len, cfg.hd),
                          dtype=x.dtype, device=x.device)
         cache = KVCache(kc, torch.zeros_like(kc))
-    cache.k[:, :, :s] = k.transpose(1, 2)
-    cache.v[:, :, :s] = v.transpose(1, 2)
+    if SH.is_dtensor(cache.k):
+        _write_prompt_shards(cache, k, v)
+    else:
+        cache.k[:, :, :s] = k.transpose(1, 2)
+        cache.v[:, :, :s] = v.transpose(1, 2)
     return linear(out, p["wo"]), cache
+
+
+def _cache_layout(cache_k):
+    """(mesh, batch entry, heads entry, positions entry) of a DTensor
+    cache (B, kv, S_max, hd), from its placements."""
+    return (cache_k.device_mesh, SH.entry_of(cache_k, 0),
+            SH.entry_of(cache_k, 1), SH.entry_of(cache_k, 2))
+
+
+def _offset(mesh, entry, size: int) -> int:
+    """This device's first index of a dim of `size` sharded on `entry`
+    (an axis name or a tuple of them, pod-major)."""
+    if entry is None:
+        return 0
+    n = SH._axis_size(SH.mesh_sizes(mesh), entry)
+    return SH.shard_index(mesh, entry) * (size // n)
+
+
+def _write_prompt_shards(cache: KVCache, k, v) -> None:
+    """Prefill's cache write on a mesh: each device writes the prompt's
+    positions that fall in its shard of the cache.  k / v (B, S, kv, hd)
+    DTensors."""
+    mesh, pb, ph, ps = _cache_layout(cache.k)
+    want = SH.placements(SH.P(pb, None, ph, None), mesh)
+    t_loc = cache.k.to_local().shape[2]
+    off = _offset(mesh, ps, cache.k.shape[2])
+    n = max(0, min(k.shape[1] - off, t_loc))
+    for c, new in ((cache.k, k), (cache.v, v)):
+        part = new.redistribute(mesh, want).to_local()[:, off:off + n]
+        c.to_local()[:, :, :n] = part.transpose(1, 2)
 
 
 KV_INT8_SCALE = 0.05    # fixed-point step for int8 KV caches (perf option)
@@ -258,7 +375,8 @@ def _dequant_kv(x: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 def attention_decode(x, p, cfg: ArchConfig, cache: KVCache,
-                     pos: torch.Tensor):
+                     pos: torch.Tensor, *,
+                     rules: SH.ShardingRules = SH.ShardingRules()):
     """One-token decode against a (B, kv, S_max, hd) cache.
 
     `pos` is the current length (0-d int tensor, uniform across batch).
@@ -273,7 +391,10 @@ def attention_decode(x, p, cfg: ArchConfig, cache: KVCache,
     if s != 1:
         raise ValueError(f"decode takes one token per row, got {s}")
     positions = pos.reshape(1, 1)
-    q, k, v = _qkv(x, p, cfg, positions)
+    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
+    if SH.is_dtensor(cache.k):
+        return linear(_decode_on_shards(q, k, v, cache, pos, cfg),
+                      p["wo"]), cache
     t = cache.k.shape[2]
     write_pos = (pos % t).reshape(1).long()             # ring buffer when t<ctx
     cache.k.index_copy_(2, write_pos,
@@ -282,14 +403,73 @@ def attention_decode(x, p, cfg: ArchConfig, cache: KVCache,
                         _quant_kv(v.transpose(1, 2), cache.v.dtype))
 
     slots = torch.arange(t, device=x.device)[None, :]
+    mask = _decode_valid(slots, pos, t, cfg)[:, None, :].expand(b, 1, t)
+    kd = _dequant_kv(cache.k, x.dtype).transpose(1, 2)
+    vd = _dequant_kv(cache.v, x.dtype).transpose(1, 2)
+    out = _sdpa(q, kd, vd, mask, cfg)
+    return linear(out, p["wo"]), cache
+
+
+def _decode_valid(slots, pos, t: int, cfg: ArchConfig):
+    """The decode mask over cache slots (global slot numbers) of a cache
+    of `t` slots."""
     valid = slots <= pos                                # normal operation
     if cfg.sliding_window > 0:
         if cfg.sliding_window < t:
             valid &= slots > pos - cfg.sliding_window
         else:                                           # ring buffer full
             valid = valid | (pos >= t)
-    mask = valid[:, None, :].expand(b, 1, t)
-    kd = _dequant_kv(cache.k, x.dtype).transpose(1, 2)
-    vd = _dequant_kv(cache.v, x.dtype).transpose(1, 2)
-    out = _sdpa(q, kd, vd, mask, cfg)
-    return linear(out, p["wo"]), cache
+    return valid
+
+
+def _decode_on_shards(q, k, v, cache: KVCache, pos, cfg: ArchConfig):
+    """One decode step's attention on each device's cache shard (the
+    cache written in place there): q (B, 1, H, hd), k / v (B, 1, kv, hd)
+    DTensors -> (B, 1, H * hd).  Heads-sharded caches take the query
+    heads of their kv heads; a positions-sharded cache sees every query
+    head, and the softmax is combined over its axis: the max, then the
+    sum and the value product (flash decoding)."""
+    import torch.distributed._functional_collectives as funcol
+
+
+    mesh, pb, ph, ps = _cache_layout(cache.k)
+    t = cache.k.shape[2]
+    t_loc = cache.k.to_local().shape[2]
+    off = _offset(mesh, ps, t)
+    axis = None if ps is None else mesh.mesh_dim_names.index(ps)
+
+    def local(q, k, v, ck, cv):
+        b, _, h, hd = q.shape
+        kvh = k.shape[2]
+        slot = pos % t
+        here = (slot >= off) & (slot < off + t_loc)
+        idx = torch.clamp(slot - off, 0, t_loc - 1).reshape(1).long()
+        for c, new in ((ck, k), (cv, v)):
+            new = _quant_kv(new.transpose(1, 2), c.dtype)
+            c.index_copy_(2, idx, torch.where(here, new,
+                                              c.index_select(2, idx)))
+        slots = off + torch.arange(t_loc, device=q.device)[None, :]
+        valid = _decode_valid(slots, pos, t, cfg)          # (1, t_loc)
+        g = h // kvh
+        qg = q.reshape(b, kvh, g, hd).float()
+        kd = _dequant_kv(ck, q.dtype).float()               # (b, kv, t, hd)
+        vd = _dequant_kv(cv, q.dtype)
+        scores = (qg @ kd.transpose(-1, -2)) / (hd ** 0.5)  # (b, kv, g, t)
+        scores = torch.where(valid[:, None, None], scores,
+                             torch.full_like(scores, NEG_INF))
+        m = scores.amax(dim=-1, keepdim=True)
+        if axis is not None:
+            m = funcol.all_reduce(m, "max", (mesh, axis))
+        e = torch.exp(scores - m)
+        den = e.sum(dim=-1, keepdim=True)
+        num = e.to(vd.dtype).float() @ vd.float()           # (b, kv, g, hd)
+        if axis is not None:
+            den = funcol.all_reduce(den, "sum", (mesh, axis))
+            num = funcol.all_reduce(num, "sum", (mesh, axis))
+        return (num / den).reshape(b, 1, h * hd).to(v.dtype)
+
+    # q's heads and the new k / v's kv heads on the cache's heads axis
+    hp = SH.P(pb, None, ph, None)
+    cp = SH.P(pb, ph, ps, None)
+    return SH.on_shards(local, mesh, (q, k, v, cache.k, cache.v),
+                        (hp, hp, hp, cp, cp), SH.P(pb, None, ph))

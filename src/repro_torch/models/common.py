@@ -1,9 +1,12 @@
 """Shared LM substrate: architecture configs, norms, RoPE, init, and the
 projection hook `linear`.
 
-Port of `repro.models.common`.  The reference's logical-axis specs feed
-its mesh sharding rules, which have no counterpart on one card, so
-`init_dense` / `init_ones` return plain tensors.
+Port of `repro.models.common`.  `init_dense` / `init_ones` return plain
+tensors; the reference's logical axes, which its `Initializer` records
+beside them, are `models.transformer.param_specs`, and the mesh layouts
+built from them are DTensors (`distributed/sharding.py`).  On a mesh,
+`linear` gathers a sharded sequence before it folds (B, S) into rows and
+`cross_entropy_loss` takes its vocab-parallel form.
 
 Every 2-D weight product of the LM goes through `linear(x, w)`: a tensor
 `w` is a plain `x @ w`; a `CodebookWeight` (C3 serving,
@@ -19,6 +22,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 
 
@@ -64,8 +68,10 @@ class ArchConfig:
     attn_chunk: int = 0          # >0: query-chunked attention (flash-style)
     kv_cache_dtype: Any = None   # e.g. torch.int8 for quantized KV cache
     quant_serving: Any = False   # C3 codebook weights in decode: True|"4bit"
-    constrain_ffn_out: bool = False  # mesh sharding hint; no effect here
-    remat_policy: str = "nothing"    # training; no effect here
+    constrain_ffn_out: bool = False  # on a mesh: lay the ffn output out
+                                     # before the residual add (train)
+    remat_policy: str = "nothing"    # training; no effect here (the port
+                                     # keeps activations for the backward)
 
     @property
     def hd(self) -> int:
@@ -217,7 +223,36 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
         k, n = w.idx.shape
         out = ops.codebook_matmul(x.reshape(-1, k).contiguous(), w.idx, w.cb)
         return out.to(x.dtype).reshape(*x.shape[:-1], n)
+    if x.ndim > 2 and SH.is_dtensor(x):
+        return _FoldReadyGrad.apply(_fold_ready(x) @ w)
     return x @ w
+
+
+def _fold_ready(x):
+    """A DTensor (..., K) with only its first dim (of those the product
+    folds into rows) left sharded: a shard of any other leading dim (the
+    sequence, under sequence parallelism) is gathered first, since a
+    flatten of (B, S) with S sharded has no DTensor rule (torch 2.11) or
+    needs a strided shard."""
+    want = tuple(SH.Replicate() if isinstance(pl, SH.Shard)
+                 and 0 < pl.dim < x.ndim - 1 else pl for pl in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+class _FoldReadyGrad(torch.autograd.Function):
+    """Identity on a folded product's DTensor output whose gradient is
+    made `_fold_ready`: the product's backward folds the gradient the
+    same way, and a gradient arriving sequence-sharded (from the next
+    residual layout) cannot be."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fold_ready(g) if SH.is_dtensor(g) else g
 
 
 def swiglu(x, wi, wg, wo):
@@ -226,14 +261,63 @@ def swiglu(x, wi, wg, wo):
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None,
-                       z_loss: float = 1e-4) -> torch.Tensor:
+                       z_loss: float = 1e-4, *,
+                       rules: SH.ShardingRules = SH.ShardingRules()
+                       ) -> torch.Tensor:
     """Stable CE with z-loss, in f32; logits (..., V), labels (...,) int.
-    With `mask`, the mean over the masked positions (at least one)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    With `mask`, the mean over the masked positions (at least one).  A
+    DTensor `logits` on a mesh is laid out by `rules` and, its vocab
+    split, takes the vocab-parallel form (`_vocab_parallel_terms`)."""
+    if SH.is_dtensor(logits):
+        logits, vocab_parallel = _vocab_layout(logits, rules)
+    if SH.is_dtensor(logits) and vocab_parallel:
+        lse, ll = _vocab_parallel_terms(logits, labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll + z_loss * lse ** 2
     if mask is not None:
         mask = mask.to(loss.dtype)
         return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss.mean()
+
+
+def _vocab_layout(logits, rules: SH.ShardingRules):
+    """DTensor logits (..., V) laid out as `rules` say (the batch on its
+    axes, "vocab" on "model"), and whether the vocab dim is
+    then split across devices (an axis of one device leaves it whole)."""
+    mesh = logits.device_mesh
+    nd = logits.ndim
+    spec = SH.spec_for(tuple(logits.shape),
+                       ("batch",) + (None,) * (nd - 2) + ("vocab",), mesh,
+                       rules)
+    split = SH.nontrivial(spec[-1], mesh) is not None
+    if not split:
+        spec = SH.P(*spec[:-1], None)
+    want = SH.placements(spec, mesh)
+    if tuple(logits.placements) != want:
+        logits = logits.redistribute(mesh, want)
+    return logits, split
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(logsumexp, the label's logit) of DTensor logits (..., V) whose
+    vocab dim is split across devices, in f32: the max, the sum of
+    exponentials and the label's logit are each taken on a device's
+    slice of the vocabulary and reduced over its axes, so no device holds
+    a full row.  The label's logit is the sum of the logits where the
+    device's vocab ids equal the label (a gather on a sharded vocab dim
+    has no DTensor rule)."""
+    mesh = logits.device_mesh
+    spec = SH.spec_of(logits.placements, logits.ndim, mesh)
+    logits = logits.float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
+           )[..., 0]
+    ids = SH.shard(torch.arange(logits.shape[-1], device=logits.device),
+                   SH.P(spec[-1]), mesh)
+    hit = labels.long()[..., None] == ids
+    ll = torch.where(hit, logits, torch.zeros((), device=logits.device)
+                     ).sum(dim=-1)
+    return lse, ll

@@ -15,11 +15,13 @@ product: it is read dense, as the reference's `cb[idx]`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.common import (ArchConfig, CodebookWeight,
                                        init_dense, init_ones, linear,
                                        rms_norm)
@@ -78,11 +80,25 @@ def _conv_weight(w) -> torch.Tensor:
     return w
 
 
-def _causal_conv_train(xbc: torch.Tensor, w, b: torch.Tensor
+def _conv_on_shards(xbc, w, b, rules: SH.ShardingRules):
+    """The causal conv on a mesh: each device convolves its rows of the
+    batch with the whole kernel (DTensor's convolution backward cannot
+    take a replicated kernel)."""
+    mesh = xbc.device_mesh
+    pb = SH.spec_for((xbc.shape[0],), ("batch",), mesh, rules)[0]
+    return SH.on_shards(_causal_conv_train, mesh, (xbc, w, b),
+                        (SH.P(pb, None, None), SH.P(None, None), SH.P(None)),
+                        SH.P(pb, None, None))
+
+
+def _causal_conv_train(xbc: torch.Tensor, w, b: torch.Tensor,
+                       rules: SH.ShardingRules = SH.ShardingRules()
                        ) -> torch.Tensor:
     """Depthwise causal conv, (B, S, CH) with kernel (CH, K): a
     cross-correlation over K - 1 zeros of left pad, in x's type."""
     w = _conv_weight(w)
+    if SH.is_dtensor(xbc):
+        return _conv_on_shards(xbc, w, b, rules)
     k = w.shape[-1]
     pad = F.pad(xbc, (0, 0, k - 1, 0)).transpose(1, 2)      # (B, CH, S+K-1)
     out = F.conv1d(pad, w[:, None, :].to(xbc.dtype), groups=xbc.shape[-1])
@@ -153,8 +169,53 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     return y, carry
 
 
+def _scan(xin, dt, B, C, A_log, dt_bias, D, hp: int, chunk: int):
+    """The SSD part of `mamba2_forward`: (y (b, s, nh * hp) f32 with the
+    D skip, the final state (b, nh, n, hp) f32) from the conv's x, B, C
+    and the raw dt."""
+    b, s, d_in = xin.shape
+    nh = d_in // hp
+    A = -torch.exp(A_log.float())
+    dt_act = F.softplus(dt.float() + dt_bias)
+    xh = xin.reshape(b, s, nh, hp)
+    # pad the sequence at the end to a chunk multiple; dt_act is padded
+    # after softplus with zeros, so padded steps neither decay the state
+    # nor add to it
+    pad = (-s) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt_act = F.pad(dt_act, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    y, final = ssd_chunked(xh, dt_act, A, B, C, chunk)
+    y = y[:, :s] + D[None, None, :, None] * xin.reshape(
+        b, s, nh, hp).float()
+    return y.reshape(b, s, d_in), final
+
+
+def _scan_on_shards(scan, rules: SH.ShardingRules, xin, dt, B, C, A_log,
+                    dt_bias, D):
+    """`_scan` on a mesh: each device scans its rows of the batch and its
+    SSD heads (the heads on the axis the layer's `A_log` is sharded on,
+    else all of them), with B and C whole: the scan's hundreds of small
+    ops then run on plain local tensors, not through DTensor's layout
+    propagation (which also cannot split (..., heads * hp) once it has
+    sharded it off the heads)."""
+    mesh = xin.device_mesh
+    ph = SH.entry_of(A_log, 0) if SH.is_dtensor(A_log) else None
+    pb = SH.free_of(SH.spec_for((xin.shape[0],), ("batch",), mesh,
+                                rules)[0], ph)
+    rows = SH.P(pb, None, ph)
+    heads = SH.P(ph)
+    return SH.on_shards(scan, mesh, (xin, dt, B, C, A_log, dt_bias, D),
+                        (rows, rows, SH.P(pb, None, None),
+                         SH.P(pb, None, None), heads, heads, heads),
+                        (rows, SH.P(pb, ph, None, None)))
+
+
 def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
-                   return_cache: bool = False):
+                   return_cache: bool = False, *,
+                   rules: SH.ShardingRules = SH.ShardingRules()):
     """Full-sequence forward (train / prefill).  x (B, S, d).
 
     With `return_cache`, also the cache a decode step continues from: the
@@ -173,25 +234,15 @@ def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
             f"step fails on it")
     z, xin, B, C, dt = _split_proj(linear(x, p["in_proj"]), cfg)
     pre_conv_xbc = torch.cat([xin, B, C], dim=-1)
-    xbc = _causal_conv_train(pre_conv_xbc, p["conv_w"], p["conv_b"])
+    xbc = _causal_conv_train(pre_conv_xbc, p["conv_w"], p["conv_b"], rules)
     xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
-
-    A = -torch.exp(p["A_log"].float())
-    dt_act = F.softplus(dt.float() + p["dt_bias"])
-    xh = xin.reshape(b, s, nh, hp)
-    # pad the sequence at the end to a chunk multiple; dt_act is padded
-    # after softplus with zeros, so padded steps neither decay the state
-    # nor add to it
-    pad = (-s) % cfg.ssm_chunk
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt_act = F.pad(dt_act, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, pad))
-    y, final = ssd_chunked(xh, dt_act, A, B, C, cfg.ssm_chunk)
-    y = y[:, :s] + p["D"][None, None, :, None] * xin.reshape(
-        b, s, nh, hp).float()
-    y = y.reshape(b, s, d_in).to(x.dtype)
+    scan = functools.partial(_scan, hp=hp, chunk=cfg.ssm_chunk)
+    args = (xin, dt, B, C, p["A_log"], p["dt_bias"], p["D"])
+    if SH.is_dtensor(xin):
+        y, final = _scan_on_shards(scan, rules, *args)
+    else:
+        y, final = scan(*args)
+    y = y.to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
     out = linear(y, p["out_proj"])
     if not return_cache:

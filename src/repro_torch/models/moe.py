@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.common import ArchConfig, init_dense, linear
 
 
@@ -74,7 +75,8 @@ def top_k_dispatch(probs: torch.Tensor, k: int, cap: int):
     return dispatch, combine
 
 
-def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig):
+def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig,
+            rules: SH.ShardingRules = SH.ShardingRules()):
     """x (B, S, d) -> ((B, S, d), aux load-balancing loss as a 0-d f32).
 
     The group size is the largest divisor of B * S not above
@@ -83,9 +85,9 @@ def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig):
     """
     b, s, d = x.shape
     tokens = b * s
-    gs = min(cfg.moe_group_size, tokens)
-    while tokens % gs != 0:          # largest divisor <= preferred size
-        gs -= 1
+    gs = _group_size(cfg, tokens)
+    if SH.is_dtensor(x):
+        return _moe_on_shards(x, p, cfg, gs, rules)
     g = tokens // gs
     xg = x.reshape(g, gs, d)
 
@@ -105,3 +107,76 @@ def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig):
     out_e = torch.einsum("egcf,efd->egcd", h, p["moe_wo"])
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out_e)
     return out.reshape(b, s, d), aux
+
+
+def _group_size(cfg: ArchConfig, tokens: int) -> int:
+    """The dispatch group: the largest divisor of `tokens` not above
+    `cfg.moe_group_size`."""
+    gs = min(cfg.moe_group_size, tokens)
+    while tokens % gs != 0:          # largest divisor <= preferred size
+        gs -= 1
+    return gs
+
+
+def _moe_core(x, router_logits, wi, wg, wo, cfg: ArchConfig, gs: int,
+              first: int, groups: int):
+    """`moe_ffn` over the experts [first, first + len(wi)) of
+    `cfg.n_experts`: (their part of the combined outputs (B, S, d), their
+    terms of the aux loss (E_local,)); `groups` is the number of dispatch
+    groups the aux loss averages over."""
+    b, s, d = x.shape
+    xg = x.reshape(-1, gs, d)
+    probs = F.softmax(router_logits.float(), dim=-1)
+    cap = capacity(cfg, gs)
+    dispatch, combine = top_k_dispatch(probs, cfg.top_k, cap)
+
+    # aux loss (Switch-style load balancing): the mean over groups and
+    # experts of density * router_mean, times E^2, split by expert
+    e_all, n = cfg.n_experts, wi.shape[0]
+    density = dispatch.sum(dim=(1, 3)) / gs                      # (G, E)
+    router_mean = probs.mean(dim=1)                              # (G, E)
+    terms = (density * router_mean)[:, first:first + n]
+    aux = terms.sum(dim=0) / (groups * e_all) * e_all ** 2
+
+    sl = slice(first, first + n)
+    xin = torch.einsum("gsec,gsd->egcd", dispatch[:, :, sl].to(x.dtype), xg)
+    h = (torch.einsum("egcd,edf->egcf", xin, wi)
+         * F.silu(torch.einsum("egcd,edf->egcf", xin, wg)))
+    out_e = torch.einsum("egcf,efd->egcd", h, wo)
+    out = torch.einsum("gsec,egcd->gsd", combine[:, :, sl].to(x.dtype),
+                       out_e)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_on_shards(x, p, cfg: ArchConfig, gs: int, rules: SH.ShardingRules):
+    """Expert parallelism on a mesh: each device routes all tokens of its
+    rows of the batch (the router replicated) and runs only its own
+    experts (the expert stacks' "experts" axis); the outputs and aux
+    terms of the experts are summed over the experts' axes (DTensor's
+    reduction of a stacked leading dim).  When a dispatch group spans
+    more rows than a batch shard holds (decode: one group of every
+    row), each device routes every row.  DTensor's rules for the
+    dispatch einsums fail in the backward."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    pe = SH.entry_of(p["moe_wi"], 0)
+    pb = SH.free_of(SH.spec_for((b,), ("batch",), mesh, rules)[0], pe)
+    n_b = SH._axis_size(SH.mesh_sizes(mesh), pb) if pb else 1
+    if (b // n_b * s) % gs:
+        pb = None     # a group straddles the batch shards: route them all
+    n_e = p["moe_wi"].to_local().shape[0]
+    first = SH.shard_index(mesh, pe) * n_e if pe else 0
+    groups = b * s // gs
+
+    def local(x, router, wi, wg, wo):
+        out, aux = _moe_core(x, linear(x.reshape(-1, gs, d), router), wi,
+                             wg, wo, cfg, gs, first, groups)
+        return out[None], aux.sum().reshape(1, 1)
+
+    w = SH.P(pe, None, None)
+    out, aux = SH.on_shards(local, mesh, (x, p["router"], p["moe_wi"],
+                                          p["moe_wg"], p["moe_wo"]),
+                            (SH.P(pb, None, None), SH.P(None, None), w, w,
+                             w),
+                            (SH.P(pe, pb, None, None), SH.P(pe, pb)))
+    return out.sum(dim=0), aux.sum()

@@ -23,23 +23,34 @@ and occupy cache positions.  `forward_train` runs with autograd, layer by
 layer; the reference's `jax.checkpoint` rematerialisation has no
 counterpart here (it trades memory for recompute and leaves the numbers
 as they are), so activations are kept for the backward.
+
+On a device mesh the parameters are DTensors (`launch/steps.py`
+`shard_params`, by `param_specs`, the reference's logical axes) and the
+forwards take the reference's `constraint` hook, which lays the (B, S, d)
+residual out after the embedding and after every block; the ops DTensor
+has no rule for run on each device's shards (`distributed/sharding.py`
+`on_shards`), laid out by the sharding rules the constraint carries
+(`sharding.rules_of`).  With `constraint=None` and plain tensors the ops
+are the one-device ops.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.attention import (KVCache, attention_cross,
                                           attention_decode, attention_encoder,
                                           attention_prefill, attention_train,
                                           init_attention)
 from repro_torch.models.common import (ArchConfig, cross_entropy_loss,
-                                       init_dense, init_ones, rms_norm,
-                                       swiglu)
+                                       init_dense, init_ones, linear,
+                                       rms_norm, swiglu)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 _FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -99,6 +110,67 @@ def _encoder_shapes(cfg: ArchConfig) -> dict:
     """One audio encoder block."""
     d = cfg.d_model
     return {**_attn_shapes(cfg), "ln1": (d,), "ln2": (d,), **_mlp_shapes(cfg)}
+
+
+def _shard_ssm_heads(cfg: ArchConfig) -> bool:
+    """mamba2-130m has 24 heads (not divisible by tp=16): replicate heads."""
+    _, nh, _, _ = M2.dims(cfg)
+    return nh % 16 == 0
+
+
+def _attn_axes(prefix: str = "") -> dict:
+    return {f"{prefix}wq": ("embed", "heads"),
+            f"{prefix}wk": ("embed", "kv_heads"),
+            f"{prefix}wv": ("embed", "kv_heads"),
+            f"{prefix}wo": ("heads", "embed")}
+
+
+_MLP_AXES = {"mlp_wi": ("embed", "mlp"), "mlp_wg": ("embed", "mlp"),
+             "mlp_wo": ("mlp", "embed")}
+
+
+def _layer_axes(cfg: ArchConfig) -> dict:
+    """A block's leaves and their logical axes (`_layer_shapes`' leaves;
+    the reference's `Initializer` axes without the stacked "layers")."""
+    if cfg.family in ("ssm", "hybrid"):
+        h = "heads" if (cfg.family == "hybrid" or _shard_ssm_heads(cfg)) \
+            else None
+        return {"in_proj": ("embed", h), "out_proj": (h, "embed"),
+                "conv_w": (h, None), "conv_b": (h,), "A_log": (h,),
+                "D": (h,), "dt_bias": (h,), "gnorm": (h,), "ln1": (None,)}
+    axes = {**_attn_axes(), "ln1": (None,), "ln2": (None,)}
+    if cfg.family == "moe":
+        axes.update(router=("embed", "experts"),
+                    moe_wi=("experts", "embed", "mlp"),
+                    moe_wg=("experts", "embed", "mlp"),
+                    moe_wo=("experts", "mlp", "embed"))
+    else:
+        axes.update(_MLP_AXES)
+    if cfg.family == "audio":
+        axes.update(_attn_axes("x"), ln_x=(None,))
+    return axes
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """{parameter name: logical axes} for every parameter of the model
+    `init_model(cfg)` builds, by its `named_parameters()` names: the
+    reference's logical spec tree with each stacked leaf's "layers" axis
+    dropped (`blocks.3.wq` is the reference's `blocks/wq` at layer 3)."""
+    _check_cfg(cfg)
+    out = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+           "final_norm": (None,)}
+    layer = _layer_axes(cfg)
+    for i in range(cfg.n_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in layer.items()})
+    if cfg.family == "hybrid":
+        out.update({f"shared_attn.{k}": v for k, v in
+                    {**_attn_axes(), "ln_attn": (None,)}.items()})
+    if cfg.family == "audio":
+        enc = {**_attn_axes(), "ln1": (None,), "ln2": (None,), **_MLP_AXES}
+        for i in range(cfg.enc_layers):
+            out.update({f"encoder.{i}.{k}": v for k, v in enc.items()})
+        out["enc_final_norm"] = (None,)
+    return out
 
 
 def _weight_shape(leaf) -> tuple:
@@ -215,6 +287,58 @@ class Transformer(nn.Module):
         return {}
 
 
+_F32_LEAVES = ("A_log", "D", "dt_bias")     # f32 whatever cfg.dtype is
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """{parameter name: (shape, dtype)} of the model `init_model(cfg)`
+    builds, in its `named_parameters()` order, with nothing allocated."""
+    _check_cfg(cfg)
+    d = cfg.d_model
+
+    def leaf(name, shape):
+        return tuple(shape), (torch.float32 if name in _F32_LEAVES
+                              else cfg.dtype)
+
+    out = {"embed": leaf("embed", (cfg.vocab, d)),
+           "unembed": leaf("unembed", (d, cfg.vocab)),
+           "final_norm": leaf("final_norm", (d,))}
+    if cfg.family == "audio":
+        out["enc_final_norm"] = leaf("enc_final_norm", (d,))
+    layer = _layer_shapes(cfg)
+    for i in range(cfg.n_layers):
+        out.update({f"blocks.{i}.{k}": leaf(k, v) for k, v in layer.items()})
+    if cfg.family == "hybrid":
+        out.update({f"shared_attn.{k}": leaf(k, v)
+                    for k, v in _shared_shapes(cfg).items()})
+    if cfg.family == "audio":
+        for i in range(cfg.enc_layers):
+            out.update({f"encoder.{i}.{k}": leaf(k, v)
+                        for k, v in _encoder_shapes(cfg).items()})
+    return out
+
+
+def model_from(cfg: ArchConfig, tensors: Mapping[str, torch.Tensor]
+               ) -> Transformer:
+    """A `Transformer` holding `tensors`, keyed by parameter name as
+    `param_shapes` lists them (plain tensors, or DTensors on a mesh)."""
+    def group(prefix: str, n: int) -> list:
+        return [{k.split(".", 2)[2]: t for k, t in tensors.items()
+                 if k.startswith(f"{prefix}.{i}.")} for i in range(n)]
+
+    extras = {}
+    if cfg.family == "hybrid":
+        extras["shared_attn"] = {k.split(".", 1)[1]: t
+                                 for k, t in tensors.items()
+                                 if k.startswith("shared_attn.")}
+    if cfg.family == "audio":
+        extras["encoder"] = group("encoder", cfg.enc_layers)
+        extras["enc_final_norm"] = tensors["enc_final_norm"]
+    return Transformer(cfg, tensors["embed"], tensors["unembed"],
+                       tensors["final_norm"], group("blocks", cfg.n_layers),
+                       **extras)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -272,35 +396,50 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> Transformer:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _ffn(y, lp, cfg: ArchConfig):
+def _ffn(y, lp, cfg: ArchConfig, rules: SH.ShardingRules = SH.ShardingRules()):
     """The block's feed-forward: (output, aux loss)."""
     if cfg.family == "moe":
-        return moe_ffn(y, lp, cfg)
+        return moe_ffn(y, lp, cfg, rules)
     return swiglu(y, lp["mlp_wi"], lp["mlp_wg"], lp["mlp_wo"]), 0.0
 
 
-def _attn_mlp_block(x, lp, cfg: ArchConfig):
+def _constrained(constraint: Callable | None, x):
+    """The reference's residual `constraint` hook (a mesh layout for the
+    (B, S, d) residual, `distributed.sharding.make_residual_constraint`);
+    None issues no op."""
+    return x if constraint is None else constraint(x)
+
+
+def _attn_mlp_block(x, lp, cfg: ArchConfig, constraint: Callable | None = None):
     """One block of the train / prefill compute; returns (x, aux)."""
-    h = attention_train(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg)
+    rules = SH.rules_of(constraint)
+    h = attention_train(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg,
+                        rules=rules)
     x = x + h
     y = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    f, aux = _ffn(y, lp, cfg)
+    f, aux = _ffn(y, lp, cfg, rules)
+    if cfg.constrain_ffn_out:
+        # shard the ffn output before the residual add: the partial-sum
+        # all-reduce becomes reduce-scatter + local add
+        f = _constrained(constraint, f)
     return x + f, aux
 
 
-def _ssm_block(x, lp, cfg: ArchConfig):
+def _ssm_block(x, lp, cfg: ArchConfig, rules: SH.ShardingRules = SH.ShardingRules()):
     return x + M2.mamba2_forward(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
-                                 cfg)
+                                 cfg, rules=rules)
 
 
-def _encoder_forward(params: Transformer, cfg: ArchConfig, frames):
+def _encoder_forward(params: Transformer, cfg: ArchConfig, frames,
+                     constraint: Callable | None = None):
     """whisper encoder over stub frame embeddings (B, F, d)."""
-    x = frames.to(cfg.dtype)
+    x = _as_input(frames.to(cfg.dtype), params.enc_final_norm)
     for lp in params.encoder:
         x = x + attention_encoder(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
-                                  cfg)
+                                  cfg, rules=SH.rules_of(constraint))
         x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp_wi"],
                        lp["mlp_wg"], lp["mlp_wo"])
+        x = _constrained(constraint, x)
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
@@ -312,15 +451,57 @@ def _layer_params(block: Block, param_transform: Callable | None):
         block.leaves())
 
 
-def embed_tokens(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    return params.embed.to(cfg.dtype)[tokens.long()]
+def embed_tokens(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
+                 rules: SH.ShardingRules = SH.ShardingRules()) -> torch.Tensor:
+    """The rows of `embed` (V, d) at `tokens` (`F.embedding`); a DTensor
+    `embed` sharded over its vocab takes `_embed_vocab_parallel`."""
+    embed = params.embed.to(cfg.dtype)
+    mesh = _mesh_of(embed)
+    if mesh is not None and SH.nontrivial(SH.entry_of(embed, 0),
+                                          mesh) is not None:
+        return _embed_vocab_parallel(embed, tokens, rules)
+    return F.embedding(tokens.long(), embed)
+
+
+def _embed_vocab_parallel(embed, tokens, rules: SH.ShardingRules):
+    """The vocab-parallel lookup: each device looks its own rows of the
+    table up (zero for tokens outside them) for its rows of the batch,
+    the table's other dim gathered; the partial rows, stacked on a new
+    leading dim sharded over the vocab's axes, are summed (DTensor's
+    reduction).  DTensor's own embedding rule (a masked partial) fails
+    once the batch is sharded on another axis of a 2-D mesh."""
+    mesh = embed.device_mesh
+    pv = SH.entry_of(embed, 0)
+    pb = SH.free_of(SH.spec_for((tokens.shape[0],), ("batch",), mesh,
+                                rules)[0], pv)
+    n_rows = embed.to_local().shape[0]
+    off = SH.shard_index(mesh, pv) * n_rows
+
+    def local(w, t):
+        t = t.long() - off
+        hit = (t >= 0) & (t < n_rows)
+        rows = F.embedding(torch.clamp(t, 0, n_rows - 1), w)
+        return (rows * hit[..., None].to(rows.dtype))[None]
+
+    rest = [None] * (tokens.dim() - 1)
+    return SH.on_shards(local, mesh, (embed, tokens),
+                        (SH.P(pv, None), SH.P(pb, *rest)),
+                        SH.P(pv, pb, *rest, None)).sum(dim=0)
+
+
+def _as_input(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A plain input tensor `t` beside DTensor parameters (`like`): a
+    DTensor replicated on like's mesh, so the ops that mix the two are
+    DTensor ops; on one device `t` itself."""
+    mesh = _mesh_of(like)
+    return t if mesh is None else SH.replicated(t, mesh)
 
 
 def _maybe_concat_patches(x, batch: dict, cfg: ArchConfig):
     """vlm: the patch embeddings (B, n_patches, d) before the text."""
     if cfg.family == "vlm" and "patch_embeds" in batch:
-        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        x = torch.cat([_as_input(batch["patch_embeds"], x).to(x.dtype), x],
+                      dim=1)
     return x
 
 
@@ -328,63 +509,78 @@ def _maybe_concat_patches(x, batch: dict, cfg: ArchConfig):
 # Training loss
 # ---------------------------------------------------------------------------
 
-def forward_train(params: Transformer, cfg: ArchConfig, batch: dict
-                  ) -> torch.Tensor:
+def forward_train(params: Transformer, cfg: ArchConfig, batch: dict,
+                  constraint: Callable | None = None) -> torch.Tensor:
     """The scalar training loss, differentiable in `params`.
 
     batch: tokens (B, S), labels (B, S), optional loss_mask (B, S); the
     vlm family's optional patch_embeds (B, n_patches, d), the audio
     family's frames (B, enc_frames, d).  The loss is taken on text
     positions only; the moe family adds 0.01 times the sum of its layers'
-    load-balancing terms.
+    load-balancing terms.  `constraint`, the reference's hook, lays out
+    the (B, S, d) residual after the embedding and after every block
+    (`distributed.sharding.make_residual_constraint` on a mesh); None
+    issues no op.
     """
     _check_cfg(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"])
+    rules = SH.rules_of(constraint)
+    x = embed_tokens(params, cfg, batch["tokens"], rules)
     x = _maybe_concat_patches(x, batch, cfg)
+    x = _constrained(constraint, x)
     aux_total = 0.0
     if cfg.family == "hybrid":
-        x = _hybrid_forward(x, params, cfg)
+        x = _hybrid_forward(x, params, cfg, constraint)
     elif cfg.family == "audio":
-        enc = _encoder_forward(params, cfg, batch["frames"])
-        x = _decoder_forward(x, params, cfg, enc)
+        enc = _encoder_forward(params, cfg, batch["frames"], constraint)
+        x = _decoder_forward(x, params, cfg, enc, constraint)
     elif cfg.family == "ssm":
         for block in params.blocks:
-            x = _ssm_block(x, block, cfg)
+            x = _constrained(constraint, _ssm_block(x, block, cfg, rules))
     else:
         auxs = []
         for block in params.blocks:
-            x, aux = _attn_mlp_block(x, block, cfg)
+            x, aux = _attn_mlp_block(x, block, cfg, constraint)
+            x = _constrained(constraint, x)
             auxs.append(aux)
         if cfg.family == "moe":
             aux_total = 0.01 * torch.stack(auxs).sum()
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = x[:, batch["patch_embeds"].shape[1]:]     # loss on text positions
-    logits = x @ params.unembed.to(cfg.dtype)
-    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    logits = linear(x, params.unembed.to(cfg.dtype))
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
+                              rules=rules)
     return loss + aux_total
 
 
-def _hybrid_forward(x, params: Transformer, cfg: ArchConfig):
+def _hybrid_forward(x, params: Transformer, cfg: ArchConfig,
+                    constraint: Callable | None = None):
     """zamba2: the shared attention block before every `attn_every` SSM
     layers."""
     sp = params.shared_attn
+    rules = SH.rules_of(constraint)
     for layer, block in enumerate(params.blocks):
         if _group(cfg, layer) is not None:
             x = x + attention_train(rms_norm(x, sp["ln_attn"], cfg.norm_eps),
-                                    sp, cfg)
-        x = _ssm_block(x, block, cfg)
+                                    sp, cfg, rules=rules)
+            x = _constrained(constraint, x)
+        x = _constrained(constraint, _ssm_block(x, block, cfg, rules))
     return x
 
 
-def _decoder_forward(x, params: Transformer, cfg: ArchConfig, enc):
+def _decoder_forward(x, params: Transformer, cfg: ArchConfig, enc,
+                     constraint: Callable | None = None):
     """whisper decoder over the encoder output `enc` (B, F, d)."""
     eps = cfg.norm_eps
+    rules = SH.rules_of(constraint)
     for lp in params.blocks:
-        x = x + attention_train(rms_norm(x, lp["ln1"], eps), lp, cfg)
-        x = x + attention_cross(rms_norm(x, lp["ln_x"], eps), enc, lp, cfg)
+        x = x + attention_train(rms_norm(x, lp["ln1"], eps), lp, cfg,
+                                rules=rules)
+        x = x + attention_cross(rms_norm(x, lp["ln_x"], eps), enc, lp, cfg,
+                                rules=rules)
         x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["mlp_wi"],
                        lp["mlp_wg"], lp["mlp_wo"])
+        x = _constrained(constraint, x)
     return x
 
 
@@ -403,44 +599,65 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor  # 0-d int32
 
 
+def _zeros_on(device, mesh=None) -> Callable:
+    """`zeros(shape, dtype)`: a zero tensor on `device`; with a mesh, a
+    DTensor laid out by `distributed.sharding.decode_state_spec`, each
+    device allocating only its shard."""
+    if mesh is None:
+        return lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                device=device)
+
+    def zeros(shape, dtype):
+        spec = SH.decode_state_spec(tuple(shape), mesh)
+        return SH.from_shard(torch.zeros(SH.local_shape(shape, spec, mesh),
+                                         dtype=dtype, device=device),
+                             shape, spec, mesh)
+    return zeros
+
+
 def _kv_stack(cfg: ArchConfig, n: int, batch: int, cache_len: int, dtype,
-              device) -> KVCache:
+              zeros: Callable) -> KVCache:
     shape = (n, batch, cfg.n_kv_heads, cache_len, cfg.hd)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
 
-def _caches(cfg: ArchConfig, batch: int, cache_len: int, kv_dtype, device
-            ) -> dict:
+def _caches(cfg: ArchConfig, batch: int, cache_len: int, kv_dtype, device,
+            mesh=None) -> dict:
     """The family's empty stacked caches: `kv` (one per layer), `ssm`
     (conv windows in cfg.dtype, states f32) and the hybrid's `shared_kv`
-    (one per group of `attn_every` layers)."""
+    (one per group of `attn_every` layers); on `mesh` when given."""
     L = cfg.n_layers
+    zeros = _zeros_on(device, mesh)
     out = {"kv": (), "ssm": (), "shared_kv": ()}
     if cfg.family in _KV_FAMILIES:
-        out["kv"] = _kv_stack(cfg, L, batch, cache_len, kv_dtype, device)
+        out["kv"] = _kv_stack(cfg, L, batch, cache_len, kv_dtype, zeros)
     if cfg.family in ("ssm", "hybrid"):
-        one = M2.init_cache(cfg, batch, cfg.dtype, device)
-        out["ssm"] = M2.SSMCache(*(
-            torch.zeros((L, *t.shape), dtype=t.dtype, device=device)
-            for t in one))
+        one = M2.init_cache(cfg, batch, cfg.dtype, "meta")
+        out["ssm"] = M2.SSMCache(*(zeros((L, *t.shape), t.dtype)
+                                   for t in one))
     if cfg.family == "hybrid":
         out["shared_kv"] = _kv_stack(cfg, L // _attn_every(cfg), batch,
-                                     cache_len, kv_dtype, device)
+                                     cache_len, kv_dtype, zeros)
     return out
 
 
+def _mesh_of(t: torch.Tensor):
+    """The DeviceMesh of a DTensor, else None."""
+    return t.device_mesh if SH.is_dtensor(t) else None
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
-                      device=None) -> DecodeState:
-    """Empty caches on `device` (default: the card)."""
+                      device=None, mesh=None) -> DecodeState:
+    """Empty caches on `device` (default: the card); on a `DeviceMesh`,
+    DTensors laid out by `distributed.sharding.decode_state_spec`."""
     _check_cfg(cfg)
     device = resolve_device(device)
     dt = cfg.kv_cache_dtype or cfg.dtype     # int8 KV cache perf option
     enc = ()
     if cfg.family == "audio":
-        enc = torch.zeros((batch, cfg.enc_frames, cfg.d_model),
-                          dtype=cfg.dtype, device=device)
-    return DecodeState(**_caches(cfg, batch, cache_len, dt, device),
+        enc = _zeros_on(device, mesh)((batch, cfg.enc_frames, cfg.d_model),
+                                      cfg.dtype)
+    return DecodeState(**_caches(cfg, batch, cache_len, dt, device, mesh),
                        enc_out=enc,
                        pos=torch.zeros((), dtype=torch.int32, device=device))
 
@@ -448,7 +665,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
 def _logits(params: Transformer, cfg: ArchConfig, x: torch.Tensor
             ) -> torch.Tensor:
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.unembed.to(cfg.dtype)
+    return linear(x, params.unembed.to(cfg.dtype))
 
 
 def _group(cfg: ArchConfig, layer: int) -> int | None:
@@ -459,6 +676,15 @@ def _group(cfg: ArchConfig, layer: int) -> int | None:
     return layer // _attn_every(cfg)
 
 
+def _group_end(cfg: ArchConfig, layer: int, constraint, x):
+    """The residual constraint after an SSM layer: after every layer, or
+    for the hybrid after the last layer of each shared-attention group
+    (the reference constrains its group scan's carry)."""
+    if cfg.family == "hybrid" and (layer + 1) % _attn_every(cfg):
+        return x
+    return _constrained(constraint, x)
+
+
 def _stack_slice(stack, i: int):
     """Layer (or group) i's view of a stacked KVCache / SSMCache."""
     return type(stack)(*(t[i] for t in stack))
@@ -467,7 +693,8 @@ def _stack_slice(stack, i: int):
 @torch.no_grad()
 def forward_decode(params: Transformer, cfg: ArchConfig, state: DecodeState,
                    tokens: torch.Tensor,
-                   param_transform: Callable | None = None):
+                   param_transform: Callable | None = None,
+                   constraint: Callable | None = None):
     """One-token decode.  tokens (B, 1) -> (logits (B, V), new state).
 
     The caches of `state` are updated in place (layer l's KV slot `pos`,
@@ -476,18 +703,21 @@ def forward_decode(params: Transformer, cfg: ArchConfig, state: DecodeState,
     cache tensors with `pos + 1`; the reference returns new arrays.
     `param_transform` is the C3 codebook hook
     (`quant.lm_quant.make_param_transform`), applied to each layer's
-    leaves before the layer runs.
+    leaves before the layer runs.  `constraint` as in `forward_train`,
+    after the embedding and after every layer (the hybrid: every group).
     """
     _check_cfg(cfg)
     eps = cfg.norm_eps
-    x = embed_tokens(params, cfg, tokens)
+    rules = SH.rules_of(constraint)
+    x = _constrained(constraint, embed_tokens(params, cfg, tokens, rules))
     pos = state.pos
     for layer, block in enumerate(params.blocks):
         group = _group(cfg, layer)
         if group is not None:
             sp = params.shared_attn
             h, _ = attention_decode(rms_norm(x, sp["ln_attn"], eps), sp, cfg,
-                                    _stack_slice(state.shared_kv, group), pos)
+                                    _stack_slice(state.shared_kv, group), pos,
+                                    rules=rules)
             x = x + h
         lp = _layer_params(block, param_transform)
         if cfg.family in ("ssm", "hybrid"):
@@ -496,22 +726,24 @@ def forward_decode(params: Transformer, cfg: ArchConfig, state: DecodeState,
                                       cache)
             cache.conv.copy_(new.conv)
             cache.state.copy_(new.state)
-            x = x + h
+            x = _group_end(cfg, layer, constraint, x + h)
             continue
         h, _ = attention_decode(rms_norm(x, lp["ln1"], eps), lp, cfg,
-                                _stack_slice(state.kv, layer), pos)
+                                _stack_slice(state.kv, layer), pos,
+                                rules=rules)
         x = x + h
         if cfg.family == "audio":
             x = x + attention_cross(rms_norm(x, lp["ln_x"], eps),
-                                    state.enc_out, lp, cfg)
-        f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg)
-        x = x + f
+                                    state.enc_out, lp, cfg, rules=rules)
+        f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg, rules)
+        x = _constrained(constraint, x + f)
     return _logits(params, cfg, x)[:, 0], state._replace(pos=pos + 1)
 
 
 @torch.no_grad()
 def forward_prefill(params: Transformer, cfg: ArchConfig, batch: dict,
-                    cache_len: int, param_transform: Callable | None = None):
+                    cache_len: int, param_transform: Callable | None = None,
+                    constraint: Callable | None = None):
     """Prefill a prompt (B, S); returns (last-token logits, DecodeState).
 
     Full forward + cache population: each layer writes its k / v (or its
@@ -520,40 +752,46 @@ def forward_prefill(params: Transformer, cfg: ArchConfig, batch: dict,
     first runs the encoder over `batch["frames"]` (B, enc_frames, d); the
     vlm family puts `batch["patch_embeds"]` (B, n_patches, d), when given,
     before the text, so `pos` is n_patches + S and the cache must hold
-    them too.  `param_transform` as in `forward_decode`.
+    them too.  `param_transform` and `constraint` as in `forward_decode`.
+    On a mesh the caches are laid out by
+    `distributed.sharding.decode_state_spec`.
     """
     _check_cfg(cfg)
     eps = cfg.norm_eps
-    x = embed_tokens(params, cfg, batch["tokens"])
-    x = _maybe_concat_patches(x, batch, cfg)
+    rules = SH.rules_of(constraint)
+    x = embed_tokens(params, cfg, batch["tokens"], rules)
+    x = _constrained(constraint, _maybe_concat_patches(x, batch, cfg))
     b, s = x.shape[:2]           # vlm: patches occupy cache positions too
-    caches = _caches(cfg, b, cache_len, x.dtype, x.device)
+    caches = _caches(cfg, b, cache_len, x.dtype, x.device,
+                     _mesh_of(params.embed))
     enc = ()
     if cfg.family == "audio":
-        enc = _encoder_forward(params, cfg, batch["frames"])
+        enc = _encoder_forward(params, cfg, batch["frames"], constraint)
     for layer, block in enumerate(params.blocks):
         group = _group(cfg, layer)
         if group is not None:
             sp = params.shared_attn
             h, _ = attention_prefill(rms_norm(x, sp["ln_attn"], eps), sp, cfg,
                                      cache_len,
-                                     _stack_slice(caches["shared_kv"], group))
+                                     _stack_slice(caches["shared_kv"], group),
+                                     rules=rules)
             x = x + h
         lp = _layer_params(block, param_transform)
         if cfg.family in ("ssm", "hybrid"):
             h, _ = M2.mamba2_forward(rms_norm(x, lp["ln1"], eps), lp, cfg,
                                      _stack_slice(caches["ssm"], layer),
-                                     return_cache=True)
-            x = x + h
+                                     return_cache=True, rules=rules)
+            x = _group_end(cfg, layer, constraint, x + h)
             continue
         h, _ = attention_prefill(rms_norm(x, lp["ln1"], eps), lp, cfg,
-                                 cache_len, _stack_slice(caches["kv"], layer))
+                                 cache_len, _stack_slice(caches["kv"], layer),
+                                 rules=rules)
         x = x + h
         if cfg.family == "audio":
             x = x + attention_cross(rms_norm(x, lp["ln_x"], eps), enc, lp,
-                                    cfg)
-        f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg)
-        x = x + f
+                                    cfg, rules=rules)
+        f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg, rules)
+        x = _constrained(constraint, x + f)
     state = DecodeState(**caches, enc_out=enc,
                         pos=torch.tensor(s, dtype=torch.int32,
                                          device=x.device))

@@ -19,7 +19,8 @@ training step against the same step on the CPU, and codebook fits
 products (`models.common.linear` on a codebook operand) at the decode
 shapes, `moe_ffn` and a 4-bit quantized model against the CPU; one
 mamba2 layer against the CPU and whisper's decoder prefill on the flash
-kernel.  Marked `cuda`; every test skips without a card.  Run on the
+kernel; one tensor-parallel training step (data 1 x model 2) on two
+gloo ranks on the card against the same step on the CPU.  Marked `cuda`; every test skips without a card.  Run on the
 card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1383,3 +1384,43 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     for name, want in copt.m.items():
         torch.testing.assert_close(gopt.m[name].cpu(), want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+def test_tensor_parallel_step_on_two_gloo_ranks_matches_cpu(dev, tmp_path):
+    """granite-3-2b's widths at 4 layers, f32, B 2 x S 256 (the flash
+    route): one `make_train_step(mesh=...)` step on two gloo ranks of a
+    data 1 x model 2 mesh, both on the card, against the one-device step
+    on the CPU: loss within 1e-4 and grad_norm within 1e-3 (relative;
+    another summation order on the card)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import registry as R
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_mesh_ranks import spawn_mesh_ranks
+
+    cfg = dataclasses.replace(R.get_arch("granite-3-2b"), n_layers=4,
+                              dtype=torch.float32)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 257), generator=gen)
+    batch = {"tokens": toks[:, :-1].to(torch.int32),
+             "labels": toks[:, 1:].to(torch.int32)}
+    opt_kw = dict(warmup_steps=10, total_steps=100)
+    opt = adamw.init(dict(model.named_parameters()))
+    _, _, want = ST.make_train_step(cfg, adamw.AdamWConfig(**opt_kw))(
+        model, opt, batch)
+    case = dict(kind="train", arch="granite-3-2b", params=params,
+                batches=[batch], opt=opt_kw,
+                smoke=False, cfg=dict(n_layers=4))
+    ranks = spawn_mesh_ranks(tmp_path, 2, 2, [case], device="cuda:0")
+    for (r,) in ranks:
+        assert abs(r["loss"][0] - float(want["loss"])) <= 1e-4 * abs(
+            float(want["loss"]))
+        assert abs(r["grad_norm"][0] - float(want["grad_norm"])) <= 1e-3 \
+            * float(want["grad_norm"])

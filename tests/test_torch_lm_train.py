@@ -531,9 +531,25 @@ def test_launch_train_smoke_on_cpu(tmp_path, capsys):
     assert int(state["opt"].step) == 2
     out = capsys.readouterr().out
     assert "arch=phi-3-vision-4.2b-smoke" in out and "step     0 loss" in out
-    with pytest.raises(NotImplementedError, match="#21"):
-        train.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
-                    "--model-parallel", "2"])
+    # --model-parallel 2: two gloo ranks spawned by the launcher, a data 1
+    # x model 2 mesh, rank 0 printing and writing the checkpoint
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "granite-3-2b", "--smoke", "--device", "cpu", "--steps", "2",
+         "--batch", "2", "--seq", "16", "--model-parallel", "2", "--ckpt",
+         str(tmp_path / "mp")], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                 OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "mesh={'data': 1, 'model': 2}" in proc.stdout
+    assert proc.stdout.count("step     0 loss") == 1
+    assert (tmp_path / "mp" / "step_00000002").is_dir()
 
 
 def test_example_trains_the_tiny_lm_on_cpu(tmp_path, capsys):

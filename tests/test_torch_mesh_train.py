@@ -1,0 +1,308 @@
+"""LM training on a DeviceMesh against the JAX package, on the CPU.
+
+gloo ranks spawned from the test (tests/torch_mesh_ranks.py) mesh
+themselves (`launch/mesh.py` `make_host_mesh`) at world 2 (data 1 x
+model 2) and world 4 (data 2 x model 2) and train each family's SMOKE
+config in f32 for 3 steps with `make_train_step(mesh=...)`, from the
+reference's initial weights carried across by `convert_lm`.  Held:
+
+* each step's loss within 1e-5 relative of the reference's
+  `make_train_step` on the same weights and batches, and of the port's
+  one-device step; every rank reports the same loss and grad_norm; the
+  parameters are DTensors laid out by their specs;
+* the pure-FSDP rules (`FSDP_RULES`) at world 4, the same losses;
+* a prefill and three greedy decode steps at world 4 against one
+  device within 1e-5 of the logits' largest magnitude: the kv heads
+  sharded on "model", and (one kv head) the cache sharded over its
+  positions, read flash-decoding style;
+* `Trainer(mesh=...)`: a checkpoint written at world 4 restores at world
+  2, and the resumed run's loss and parameters are the uninterrupted
+  one-device run's;
+* `make_train_step` with `mesh=None`, the forwards with
+  `constraint=None` and `Server` issue the aten ops the port issued
+  before its mesh layer (a record in tests/data), but for the
+  embedding's; `embed_tokens` (F.embedding) is bitwise the old row
+  index, values and gradients.
+"""
+import dataclasses
+import functools
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import registry as TR
+from repro_torch.convert import convert_lm
+from repro_torch.launch import steps as TST
+from repro_torch.models import transformer as TT
+from repro_torch.optim import adamw as TA
+from repro_torch.train.trainer import Trainer, TrainJobConfig
+
+sys.path.insert(0, str(Path(__file__).parent))
+import torch_one_device_ops as one_device_ops  # noqa: E402
+from torch_mesh_ranks import spawn_mesh_ranks  # noqa: E402
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.configs import registry as RR  # noqa: E402
+from repro.launch import steps as RST  # noqa: E402
+from repro.launch.mesh import make_host_mesh as r_host_mesh  # noqa: E402
+from repro.models import transformer as RT  # noqa: E402
+from repro.optim import adamw as RA  # noqa: E402
+
+LOSS_REL = 1e-5
+LOGIT_REL = 1e-5          # of the logits' largest magnitude
+OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+B = 4
+# family -> (arch, text tokens); the hybrid at 16, where its SMOKE
+# gradients are well conditioned in f32 (tests/test_torch_lm_train.py)
+FAMILIES = {"dense": ("granite-3-2b", 32), "vlm": ("phi-3-vision-4.2b", 24),
+            "moe": ("granite-moe-1b-a400m", 32), "ssm": ("mamba2-130m", 24),
+            "hybrid": ("zamba2-2.7b", 16), "audio": ("whisper-tiny", 16)}
+DECODE = {"kv_heads": {}, "kv_positions": {"n_kv_heads": 1}}
+CKPT = dict(arch="granite-3-2b", batch=4, seq=16, seed=5)
+
+
+def _cfgs(name, **kw):
+    return (dataclasses.replace(RR.get_arch(name, smoke=True),
+                                dtype=jnp.float32, **kw),
+            dataclasses.replace(TR.get_arch(name, smoke=True),
+                                dtype=torch.float32, **kw))
+
+
+def _params(name, **kw):
+    rcfg, tcfg = _cfgs(name, **kw)
+    params, _ = RT.init_model(rcfg, jax.random.PRNGKey(0))
+    model = convert_lm(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    return params, {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+
+
+def _batches(cfg, s, n=3, seed=1) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, cfg.vocab, (B, s + 1)).astype(np.int32)
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "vlm":
+            b["patch_embeds"] = rng.normal(
+                0, 1, (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            b["frames"] = rng.normal(
+                0, 1, (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _torch(batch):
+    return {k: torch.tensor(v) for k, v in batch.items()}
+
+
+def _train_cases():
+    cases = {}
+    for fam, (arch, s) in FAMILIES.items():
+        _, params = _params(arch)
+        cases[fam] = dict(kind="train", arch=arch, params=params,
+                          batches=[_torch(b) for b in _batches(
+                              _cfgs(arch)[1], s)], opt=OPT)
+    return cases
+
+
+def _decode_case(**kw):
+    _, params = _params("granite-3-2b", **kw)
+    toks = np.random.default_rng(9).integers(0, 256, (B, 12))
+    return dict(kind="decode", arch="granite-3-2b", cfg=kw, params=params,
+                batch={"tokens": torch.tensor(toks, dtype=torch.int32)},
+                cache_len=16, steps=3)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both worlds' ranks, spawned once: world 4 trains every family,
+    FSDP, serves, and writes a checkpoint; world 2 trains every family
+    and resumes from it."""
+    cases = _train_cases()
+    ckpt = str(tmp_path_factory.mktemp("ckpt"))
+    four = [*cases.values(),
+            dict(cases["dense"], fsdp=True),
+            *(_decode_case(**kw) for kw in DECODE.values()),
+            dict(kind="checkpoint", steps=2, ckpt_dir=ckpt, **CKPT)]
+    w4 = spawn_mesh_ranks(tmp_path_factory.mktemp("w4"), 4, 2, four)
+    two = [*cases.values(),
+           dict(kind="checkpoint", steps=3, ckpt_dir=ckpt, **CKPT)]
+    w2 = spawn_mesh_ranks(tmp_path_factory.mktemp("w2"), 2, 2, two)
+    n = len(FAMILIES)
+    return {"cases": cases, "ckpt": ckpt,
+            4: {"train": {f: [r[i] for r in w4] for i, f in enumerate(cases)},
+                "fsdp": [r[n] for r in w4],
+                "decode": {k: [r[n + 1 + i] for r in w4]
+                           for i, k in enumerate(DECODE)},
+                "checkpoint": [r[-1] for r in w4]},
+            2: {"train": {f: [r[i] for r in w2] for i, f in enumerate(cases)},
+                "checkpoint": [r[-1] for r in w2]}}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_losses(arch, s) -> tuple:
+    rcfg, _ = _cfgs(arch)
+    params, _ = _params(arch)
+    mesh = r_host_mesh()
+    step = jax.jit(RST.make_train_step(rcfg, mesh, RA.AdamWConfig(**OPT)))
+    opt = RA.init(params)
+    losses = []
+    with mesh:
+        for b in _batches(rcfg, s):
+            params, opt, m = step(params, opt,
+                                  {k: jnp.asarray(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+    return tuple(losses)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_device_family(family: str) -> tuple:
+    arch, s = FAMILIES[family]
+    _, params = _params(arch)
+    return _one_device_losses(dict(arch=arch, params=params, batches=[
+        _torch(b) for b in _batches(_cfgs(arch)[1], s)]))
+
+
+def _one_device_losses(case) -> tuple:
+    cfg = _cfgs(case["arch"])[1]
+    model = TT.model_from(cfg, {k: v.clone()
+                                for k, v in case["params"].items()})
+    opt = TA.init(dict(model.named_parameters()))
+    step = TST.make_train_step(cfg, TA.AdamWConfig(**OPT))
+    losses = []
+    for b in case["batches"]:
+        model, opt, m = step(model, opt, b)
+        losses.append(float(m["loss"]))
+    return tuple(losses)
+
+
+def _close(got, want, rel=LOSS_REL):
+    return all(abs(g - w) <= rel * abs(w) for g, w in zip(got, want)) \
+        and len(got) == len(want)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_mesh_training_matches_reference(runs, family, world):
+    ranks = runs[world]["train"][family]
+    want_ref = _reference_losses(*FAMILIES[family])
+    want_one = _one_device_family(family)
+    got = ranks[0]["loss"]
+    assert all(r["loss"] == got and r["grad_norm"] == ranks[0]["grad_norm"]
+               for r in ranks)
+    assert _close(got, want_ref), (got, want_ref)
+    assert _close(got, want_one), (got, want_one)
+    placements = ranks[0]["placements"]
+    # ("vocab", "embed") on (data, model): the embed dim on "data" (of
+    # one device at world 2), the vocab on "model"
+    assert placements["embed"] == ("Shard(1)", "Shard(0)")
+    assert any("Shard" in str(p) for n, p in placements.items()
+               if n.startswith("blocks.0."))
+
+
+def test_fsdp_rules_train_the_same(runs):
+    ranks = runs[4]["fsdp"]
+    want = _one_device_family("dense")
+    assert _close(ranks[0]["loss"], want), (ranks[0]["loss"], want)
+    # pure ZeRO-3: no parameter dim on "model" alone
+    assert ranks[0]["placements"]["blocks.0.wq"] == ("Shard(0)",
+                                                     "Shard(0)")
+
+
+@pytest.mark.parametrize("layout", list(DECODE))
+def test_mesh_prefill_and_decode_match_one_device(runs, layout):
+    kw = DECODE[layout]
+    case = _decode_case(**kw)
+    cfg = _cfgs("granite-3-2b", **kw)[1]
+    model = TT.model_from(cfg, case["params"])
+    out, state = TT.forward_prefill(model, cfg, case["batch"],
+                                    case["cache_len"])
+    want = [out]
+    for _ in range(case["steps"]):
+        tok = want[-1].argmax(-1, keepdim=True).to(torch.int32)
+        out, state = TT.forward_decode(model, cfg, state, tok)
+        want.append(out)
+    for r in runs[4]["decode"][layout]:
+        assert len(r["logits"]) == len(want)
+        for g, w in zip(r["logits"], want):
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= LOGIT_REL * scale
+
+
+def test_checkpoint_at_world_4_restores_at_world_2(runs, tmp_path):
+    """2 steps at world 4 (saved), then world 2 resumes for step 3: its
+    loss and final parameters are the uninterrupted one-device run's."""
+    cfg = _cfgs(CKPT["arch"])[1]
+    job = TrainJobConfig(batch=CKPT["batch"], seq_len=CKPT["seq"],
+                         num_steps=3, save_every=3,
+                         ckpt_dir=str(tmp_path / "one"), seed=CKPT["seed"])
+    losses = []
+    state = Trainer(cfg, job, device="cpu").run(
+        on_metrics=lambda s, m, dt: losses.append(float(m["loss"])))
+    four, two = runs[4]["checkpoint"], runs[2]["checkpoint"]
+    assert all(r["step"] == 2 for r in four) and all(r["step"] == 3
+                                                     for r in two)
+    assert _close(four[0]["loss"], losses[:2])
+    assert len(two[0]["loss"]) == 1 and _close(two[0]["loss"], losses[2:])
+    for name, p in state["params"].named_parameters():
+        got = two[0]["params"][name]
+        assert float((got - p.detach()).abs().max()) <= 1e-5 * max(
+            float(p.abs().max()), 1.0), name
+
+
+# ---------------------------------------------------------------------------
+# no mesh: the one-device ops
+# ---------------------------------------------------------------------------
+
+# The port's one-device ops before its mesh layer, recorded by
+# tests/torch_one_device_ops.py at commit 2d44687; `embed_tokens` has
+# since become `F.embedding` (bitwise the row index it replaced), whose
+# forward and backward ops stand for the index's.
+PARENT_OPS = Path(__file__).parent / "data" / "torch_one_device_ops.json"
+EMBEDDING_WAS = {"aten.embedding.default": ["aten.index.Tensor"],
+                 "aten.embedding_dense_backward.default": [
+                     "aten.new_zeros.default", "aten.index_put.default"]}
+
+
+@functools.lru_cache(maxsize=None)
+def _ops_now() -> dict:
+    return one_device_ops.record()
+
+
+def _as_before(ops: list) -> list:
+    return [was for op in ops for was in EMBEDDING_WAS.get(op, [op])]
+
+
+@pytest.mark.parametrize("arch", one_device_ops.FAMILIES)
+def test_no_mesh_issues_the_one_device_ops(arch):
+    """With `mesh=None` and `constraint=None`, `make_train_step`,
+    `forward_prefill`, `forward_decode` and `Server` issue the aten ops
+    the port issued before its mesh layer, op for op, but for the
+    embedding's."""
+    before = one_device_ops.unpack(json.loads(PARENT_OPS.read_text()))
+    now = _ops_now()
+    cases = [k for k in before if k.startswith(f"{arch}/")]
+    assert len(cases) == 4
+    for case in cases:
+        assert _as_before(now[case]) == before[case], case
+        assert "aten.embedding.default" in now[case], case
+        assert not any("c10d" in op for op in now[case]), case
+
+
+def test_embed_tokens_is_the_row_index_bitwise():
+    cfg = _cfgs("granite-3-2b")[1]
+    model = TT.init_model(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 40)))
+    got = TT.embed_tokens(model, cfg, tokens)
+    (g_got,) = torch.autograd.grad(got.square().sum(), model.embed)
+    want = model.embed.to(cfg.dtype)[tokens.long()]
+    (g_want,) = torch.autograd.grad(want.square().sum(), model.embed)
+    assert torch.equal(got, want) and torch.equal(g_got, g_want)

@@ -1,0 +1,174 @@
+"""Rank programs of tests/test_torch_mesh_train.py: gloo ranks spawned on
+the CPU, each training the port's LM on a ("data", "model") DeviceMesh
+(`launch/mesh.py` `make_host_mesh`) from weights and batches the test
+hands over, and saving what it saw.  Imports no JAX, so a rank starts in
+a few seconds.
+
+`spawn_mesh_ranks` starts the ranks, joins them by a deadline, stops any
+that is still alive and fails unless every rank exited 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+import multiprocessing as mp
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+GROUP_TIMEOUT = timedelta(seconds=60)
+JOIN_DEADLINE_S = 240
+
+
+def spawn_mesh_ranks(tmp_path: Path, world: int, model: int,
+                     cases: list[dict], device: str = "cpu") -> list:
+    """Run `cases` on `world` gloo ranks meshed (world // model, model) on
+    `device` (the CPU, or "cuda:0": every rank on the one card); returns
+    each rank's results (a list of per-case dicts)."""
+    torch.save(cases, tmp_path / "cases.pt")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, model, str(tmp_path), device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + JOIN_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert not hung and codes == [0] * world, (
+        f"ranks hung {hung}, exit codes {codes}")
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def rank_main(rank: int, world: int, model: int, tmp: str,
+              device: str = "cpu") -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(model=model, device=device)
+        cases = torch.load(f"{tmp}/cases.pt", weights_only=False)
+        torch.save([run_case(c, mesh) for c in cases], f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_case(case: dict, mesh) -> dict:
+    """case: "kind" "train" (arch, params: {name: tensor}, batches, opt;
+    the SMOKE config in f32 unless "smoke" is False, fields replaced by
+    "cfg"),
+    "checkpoint" (save at this world, or restore) or "decode" (arch,
+    params, prompt batch, cache_len, steps)."""
+    return {"train": _train, "decode": _serve,
+            "checkpoint": _checkpoint}[case["kind"]](case, mesh)
+
+
+def _cfg(case):
+    from repro_torch.configs import registry as R
+
+    return dataclasses.replace(
+        R.get_arch(case["arch"], smoke=case.get("smoke", True)),
+        dtype=torch.float32, **case.get("cfg", {}))
+
+
+def _model(cfg, params, mesh):
+    from repro_torch.models import transformer as T
+
+    dev = torch.device(mesh.device_type)
+    return T.model_from(cfg, {k: v.to(dev, copy=True)
+                              for k, v in params.items()})
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _train(case, mesh) -> dict:
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+
+    cfg = _cfg(case)
+    rules = SH.ShardingRules(SH.FSDP_RULES if case.get("fsdp") else None)
+    model = ST.shard_params(_model(cfg, case["params"], mesh), mesh, rules)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = ST.make_train_step(cfg, adamw.AdamWConfig(**case["opt"]), mesh,
+                              seq_parallel=case.get("seq_parallel", True),
+                              rules=rules)
+    losses, norms = [], []
+    dev = torch.device(mesh.device_type)
+    for batch in case["batches"]:
+        model, opt, m = step(model, opt, {k: v.to(dev)
+                                          for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    placements = {n: tuple(f"Shard({p.dim})" if p.is_shard() else
+                           type(p).__name__ for p in t.placements)
+                  for n, t in model.named_parameters()}
+    out = {"loss": losses, "grad_norm": norms, "placements": placements}
+    if case.get("return_params"):
+        out["params"] = {n: _full(t).detach()
+                         for n, t in model.named_parameters()}
+    return out
+
+
+def _serve(case, mesh) -> dict:
+    """Prefill then `steps` greedy decode steps on the mesh; the logits
+    of each step as full tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    cfg = _cfg(case)
+    model = ST.shard_params(_model(cfg, case["params"], mesh), mesh)
+    prefill_c = SH.make_residual_constraint(mesh, True)
+    decode_c = SH.make_residual_constraint(mesh, seq_parallel=False)
+    logits = []
+    with implicit_replication():
+        batch = ST.shard_batch(case["batch"], mesh)
+        out, state = T.forward_prefill(model, cfg, batch, case["cache_len"],
+                                       constraint=prefill_c)
+        logits.append(_full(out))
+        tok = case["batch"]["tokens"][:, -1:]
+        for _ in range(case["steps"]):
+            tok = logits[-1].argmax(-1, keepdim=True).to(torch.int32)
+            out, state = T.forward_decode(
+                model, cfg, state, ST.shard_batch({"t": tok}, mesh)["t"],
+                constraint=decode_c)
+            logits.append(_full(out))
+    return {"logits": logits}
+
+
+def _checkpoint(case, mesh) -> dict:
+    """Train `steps` steps with `Trainer(mesh=...)` from the seed, or
+    restore the latest checkpoint of `ckpt_dir` onto this mesh."""
+    from repro_torch.train.trainer import Trainer, TrainJobConfig
+
+    cfg = _cfg(case)
+    job = TrainJobConfig(batch=case["batch"], seq_len=case["seq"],
+                         num_steps=case["steps"], save_every=case["steps"],
+                         ckpt_dir=case["ckpt_dir"], seed=case["seed"])
+    tr = Trainer(cfg, job, mesh=mesh, device="cpu")
+    losses = []
+    state = tr.run(on_metrics=lambda s, m, dt: losses.append(
+        float(m["loss"])))
+    return {"loss": losses,
+            "params": {n: _full(t).detach()
+                       for n, t in state["params"].named_parameters()},
+            "step": int(state["opt"].step)}
