@@ -271,9 +271,25 @@ Phases, each of which must pass:
    talk over gloo with every collective staged through host memory
    (`launch/mesh.py` `stage_gloo_collectives_through_host`): NCCL refuses
    two ranks on one card and gloo's CUDA all-gather crashes.
+17. LM serving on a DeviceMesh — right after phase 16, its memory freed:
+   `Server(mesh=...)` with phase 6's first 4 prompts (4 x 512 tokens, 4
+   slots, 16 new each), random weights from --seed; one pair of gloo
+   ranks on the card runs (a) granite-3-2b at full width and depth, bf16,
+   data 1 x model 2: every rank exactly 40 flash launches, all on the
+   tensor-core kernel, at the local shape (B 4, H 16, KV 4, S = T = 512,
+   hd 64), the first against the plain version; (b) its first 8 layers
+   C3 int8 (fitted by the parent) on the same mesh: 896 codebook
+   launches a rank over 10 local (M, K, N), the first of each against
+   the f64 product; (c) 8 layers, data 2 x model 1; each run's every
+   step's logits within MESH_SERVE_TOL of the one-device model fed the
+   run's own tokens, no greedy token differing above it, and (a)'s two
+   planted faults outside it; tokens/s, prefill and decode ms, device
+   busy and idle share of one more decode step, peak memory and the
+   collective bytes of a decode step per rank; then (d) one NCCL rank,
+   1 x 1, 8 layers: tokens and logits bitwise the one-device `Server`.
 
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 11, 12, 5, 6, 13, 14, 15 and 16); the last line is
+4, 7, 8, 9, 11, 12, 5, 6, 13, 14, 15, 16 and 17); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -4599,15 +4615,17 @@ def _mesh_train(rank: int, dev, job: dict) -> dict:
     return res
 
 
-def _spawn_mesh(job: dict, world: int, backend: str, tmp: str) -> list:
-    """Start `world` ranks of `job`, join them by a deadline, stop any
-    still alive; raise unless every rank exited 0."""
+def _spawn_mesh(job: dict, world: int, backend: str, tmp: str,
+                target=None, what: str = "phase 16") -> list:
+    """Start `world` ranks of `job` (`target`, default phase 16's
+    `_mesh_rank`), join them by a deadline, stop any still alive; raise
+    unless every rank exited 0."""
     import multiprocessing as mp
 
     import torch
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_mesh_rank,
+    procs = [ctx.Process(target=target or _mesh_rank,
                          args=(r, world, backend, tmp, job))
              for r in range(world)]
     t0 = time.perf_counter()
@@ -4622,10 +4640,10 @@ def _spawn_mesh(job: dict, world: int, backend: str, tmp: str) -> list:
             p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    log(f"phase 16 {job['name']}: {backend} x {world} ranks exited {codes} "
+    log(f"{what} {job['name']}: {backend} x {world} ranks exited {codes} "
         f"in {time.perf_counter() - t0:.1f} s")
     if hung or any(c != 0 for c in codes):
-        raise AssertionError(f"phase 16 {job['name']}: ranks failed, exit "
+        raise AssertionError(f"{what} {job['name']}: ranks failed, exit "
                              f"codes {codes}, hung {hung}")
     return [torch.load(f"{tmp}/{job['name']}-rank{r}.pt", weights_only=False)
             for r in range(world)]
@@ -4899,6 +4917,469 @@ def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: LM serving on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+SERVE_SHORT_LAYERS = 8          # (b), (c), (d): granite-3-2b's first 8
+# Every step's logits of a meshed bf16 server against the one-device
+# model fed the meshed run's own tokens (teacher-forced).  The meshed
+# function is the same, but each row-parallel product (wo and mlp_wo of
+# every layer) rounds each rank's partial sum to bf16 before the two are
+# added, and data parallel runs every product at half the rows (another
+# cuBLAS tiling): each layer adds up to a bf16 rounding of its output to
+# the residual.  Logits are O(1) to O(8), where a bf16 ulp is 2^-7 to
+# 2^-4.  Measured on an H100 at --seed 0: (a) 0.0625, (b) 0.03125, (c)
+# 0.03516 at most over 16 steps x 4 rows; the limit is 2 to 4 times
+# that.  The planted faults of (a) move the prefill logits by 1.41 (every
+# row-parallel product keeps one rank's partial sum) and 0.306 (every
+# wq holds the other rank's heads): the random weights' layers add
+# little to a residual their embedding dominates, so a fault anywhere
+# but the logits moves them by tenths.
+MESH_SERVE_TOL = {"a": 0.125, "b": 0.125, "c": 0.125}
+
+
+def _serve_rank(rank: int, world: int, backend: str, tmp: str,
+                job: dict) -> None:
+    """One spawned rank of phase 17: join the group, run each of
+    `job["runs"]` on the card, save their results."""
+    import faulthandler
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    dev = torch.device("cuda", 0)                  # both on the one card
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/store-{job['name']}",
+        rank=rank, world_size=world,
+        timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    try:
+        res = [_mesh_serve(rank, dev, run, tmp) for run in job["runs"]]
+        torch.save(res, f"{tmp}/{job['name']}-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_mesh_model(run: dict, tmp: str, dev):
+    """granite-3-2b at full width with `run["layers"]` layers, bf16, from
+    the port's init seeded as phase 6's; or, for a C3 run, the quantized
+    leaves the parent saved."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(R.get_arch(LM_ARCH), n_layers=run["layers"])
+    if not run.get("c3"):
+        return cfg, T.init_model(cfg, torch.Generator(device=dev).manual_seed(
+            run["seed"]))
+    leaves = torch.load(f"{tmp}/c3.pt", weights_only=True)
+    to = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(dev)) for k, v in leaves.items()}
+    return (dataclasses.replace(cfg, quant_serving=True),
+            T.model_from(cfg, to))
+
+
+def _teacher_forced(cfg, model, batch: dict, tokens: list) -> list:
+    """The one-device model's logits of every step of a served run: its
+    prefill over `batch`, then one decode step per emitted token but the
+    last (the meshed run's own tokens)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.lm_quant import make_param_transform
+
+    pt = make_param_transform(cfg.dtype) if cfg.quant_serving else None
+    logits, state = T.forward_prefill(model, cfg, batch, LM_CACHE,
+                                      param_transform=pt)
+    out = [logits.float()]
+    for tok in tokens[:-1]:
+        logits, state = T.forward_decode(
+            model, cfg, state, tok.to(torch.int32)[:, None],
+            param_transform=pt)
+        out.append(logits.float())
+    return out
+
+
+def _gaps(got: list, want: list) -> dict:
+    """Per step, the max |logit difference| of two runs' logits, and
+    the rows whose greedy token differs with the one-device top-2 gap."""
+    diffs, flips, gaps = [], [], []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            raise AssertionError(f"phase 17: bad logits {tuple(g.shape)}")
+        diffs.append(float((g - w).abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        gaps.append(float(gap.min()))
+        flips.extend(float(x) for x in gap[g.argmax(-1) != w.argmax(-1)])
+    return {"diffs": diffs, "flip_gaps": flips, "min_gaps": gaps}
+
+
+def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
+    """One served run on a ("data", "model") mesh of `run["model"]`: a
+    warm-up request batch, then phase 6's first 4 prompts, 16 new tokens
+    each, with every LM launch count from 0 just before it and read just
+    after (the first flash call and the first codebook call of each
+    local shape held against their plain versions); one more decode
+    step profiled and its collectives counted; (a) the planted faults'
+    prefill; then the one-device model on the run's own tokens."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import attention as ATT
+    from repro_torch.serve.server import Request, Server
+
+    mesh = MESH.make_host_mesh(model=run["model"], device=dev)
+    cfg, model = _serve_mesh_model(run, tmp, dev)
+    prompts = _prompts(run["seed"], cfg.vocab)[:LM_SLOTS]
+    batch = {"tokens": torch.as_tensor(np.stack(prompts), device=dev)}
+    srv = Server(cfg, model, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
+                 mesh=mesh)
+    del model
+    timed = {"prefill": [], "decode": []}
+    last = {}
+
+    def clocked(fn, key):
+        def call(*args, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            _sync(dev)
+            timed[key].append((time.perf_counter() - t0) * 1e3)
+            last["state"] = out[1]
+            return out
+        return call
+
+    prefill, decode = srv.prefill, srv.decode
+    srv.prefill = clocked(prefill, "prefill")
+    srv.decode = clocked(decode, "decode")
+    flash, kernel = ATT.flash_attention, CBM.codebook_matmul
+    seen = {"flash": [], "flash_err": [], "codebook": {}, "cb_err": []}
+
+    def flash_spy(q, k, v, causal=True):
+        out = flash(q, k, v, causal=causal)
+        if seen["on"]:
+            if not seen["flash"]:
+                seen["flash_err"].append(_flash_diff(
+                    out, FA.flash_attention_plain(q, k, v, causal)))
+            seen["flash"].append((tuple(q.shape), tuple(k.shape)))
+        return out
+
+    def codebook_spy(x, idx, cb):
+        out = kernel(x, idx, cb)
+        if seen["on"]:
+            key = (x.shape[0], idx.shape[0], idx.shape[1])
+            if key not in seen["codebook"]:
+                seen["cb_err"].append(_assert_close(
+                    f"phase 17 codebook_matmul {key}", out,
+                    _exact_product(x, CBM.dequantize(idx, cb))))
+            seen["codebook"][key] = seen["codebook"].get(key, 0) + 1
+        return out
+
+    seen["on"] = False
+    ATT.flash_attention, CBM.codebook_matmul = flash_spy, codebook_spy
+    try:
+        for uid, p in enumerate(prompts):                   # warm up
+            srv.submit(Request(uid=uid, prompt=p, max_new_tokens=2))
+        srv.run()
+        timed = {"prefill": [], "decode": []}
+        logits, tokens = [], []
+
+        def sample(lg):
+            logits.append(lg.float())
+            tokens.append(lg.argmax(-1))
+            return tokens[-1]
+
+        for uid, p in enumerate(prompts):
+            srv.submit(Request(uid=uid, prompt=p, max_new_tokens=LM_NEW))
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        CBM.reset_launches()
+        seen["on"] = True
+        t0 = time.perf_counter()
+        done = srv.run(sample=sample)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        seen["on"] = False
+        launches = {**FA.launches, **CBM.launches}
+    finally:
+        ATT.flash_attention, CBM.codebook_matmul = flash, kernel
+    res = {"rank": rank, "launches": launches,
+           "flash_shapes": sorted(set(seen["flash"])),
+           "flash_calls": len(seen["flash"]),
+           "flash_max_err": max(seen["flash_err"], default=0.0),
+           "codebook_calls": {"x".join(map(str, k)): n
+                              for k, n in seen["codebook"].items()},
+           "codebook_max_err": max(seen["cb_err"], default=0.0),
+           "out_tokens": [r.out_tokens for r in done],
+           "tokens_per_s": sum(len(r.out_tokens) for r in done) / wall,
+           "ms_per_run": wall * 1e3,
+           "prefill_ms": timed["prefill"],
+           "decode_ms_per_step": statistics.median(timed["decode"]),
+           "decode_steps": len(timed["decode"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # one more decode step, profiled, its collectives counted
+    counted = {}
+    step_toks = tokens[-1].to(torch.int32)[:, None]
+
+    def traced_step():
+        counted["costs"] = TA.trace(lambda: decode(
+            srv.params, state=last["state"], tokens=step_toks))
+
+    res.update(_device_breakdown(
+        traced_step, res["decode_ms_per_step"],
+        (("flash_kernel_ms", "flash_attention"),
+         ("codebook_kernel_ms", "codebook_matmul"),
+         ("copy_ms", "Memcpy"))))
+    costs = counted["costs"]
+    res["decode_collective_bytes"] = dict(costs.per_kind,
+                                          total=costs.coll_bytes)
+    res["decode_collective_ops"] = costs.op_counts
+    faults = {}
+    if run.get("fault"):
+        faults = _planted_faults(rank, srv, prefill, batch, mesh)
+    del srv, last, counted
+    torch.cuda.empty_cache()
+    # the one-device model on the meshed run's own tokens
+    cfg1, one = _serve_mesh_model(run, tmp, dev)
+    want = _teacher_forced(cfg1, one, batch, tokens)
+    res["held"] = _gaps(logits, want)
+    res["fault_diff"] = {k: float((f - want[0]).abs().max())
+                         for k, f in faults.items()}
+    if run.get("bitwise"):
+        # (d): the one-device Server over the same requests
+        srv1 = Server(cfg1, one, device=dev, batch_slots=LM_SLOTS,
+                      cache_len=LM_CACHE)
+        for uid, p in enumerate(prompts):
+            srv1.submit(Request(uid=uid, prompt=p, max_new_tokens=LM_NEW))
+        got1 = []
+        done1 = srv1.run(sample=lambda lg: (got1.append(lg.float()),
+                                            lg.argmax(-1))[1])
+        res["bitwise"] = (
+            [r.out_tokens for r in done1] == res["out_tokens"]
+            and len(got1) == len(logits)
+            and all(torch.equal(a, b) for a, b in zip(got1, logits)))
+    del one
+    torch.cuda.empty_cache()
+    return res
+
+
+def _planted_faults(rank: int, srv, prefill, batch: dict, mesh) -> dict:
+    """The full prefill logits of the meshed model under two planted
+    faults, each undone before the next: "partial_sum", every
+    row-parallel product (wo, mlp_wo) keeping rank 0's partial sum (rank
+    1's shards zeroed); "head_swap", every layer's wq holding the other
+    rank's heads."""
+    import torch
+    import torch.nn as nn
+
+    from repro_torch.distributed import sharding as SH
+
+    blocks, out = srv.params.blocks, {}
+    with torch.no_grad():
+        kept = [(b.wo.to_local().clone(), b.mlp_wo.to_local().clone())
+                for b in blocks]
+        if rank:
+            for b in blocks:
+                b.wo.to_local().zero_()
+                b.mlp_wo.to_local().zero_()
+        out["partial_sum"] = SH.full(prefill(srv.params, batch=batch)[0])
+        for b, (wo, mo) in zip(blocks, kept):
+            b.wo.to_local().copy_(wo)
+            b.mlp_wo.to_local().copy_(mo)
+        for b in blocks:
+            full = b.wq.full_tensor()
+            half = full.shape[1] // 2
+            b.wq = nn.Parameter(SH.shard(
+                torch.cat([full[:, half:], full[:, :half]], dim=1),
+                SH.spec_of(b.wq.placements, 2, mesh), mesh),
+                requires_grad=False)
+        out["head_swap"] = SH.full(prefill(srv.params, batch=batch)[0])
+    return {k: v.float() for k, v in out.items()}
+
+
+def _hold_served(what: str, ranks: list, want: dict, tol: float | None,
+                 local_shapes: tuple) -> dict:
+    """Every rank: the launches `want`, all flash calls at
+    `local_shapes`; the ranks' tokens equal; every step's logits within
+    `tol` of the one-device model on the run's own tokens, and no token
+    differing where the one-device top-2 gap exceeds `tol`."""
+    for r in ranks:
+        got = {k: r["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"{what} rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {want}")
+        if want["flash_attention"] and r["flash_shapes"] != [local_shapes]:
+            raise AssertionError(f"{what} rank {r['rank']}: flash shapes "
+                                 f"{r['flash_shapes']}, expected "
+                                 f"{[local_shapes]}")
+        toks = r["out_tokens"]
+        if len(toks) != LM_SLOTS or any(len(t) != LM_NEW for t in toks):
+            raise AssertionError(f"{what}: bad served tokens {toks}")
+    if any(r["out_tokens"] != ranks[0]["out_tokens"] for r in ranks):
+        raise AssertionError(f"{what}: the ranks' tokens differ")
+    worst = max(max(r["held"]["diffs"]) for r in ranks)
+    out = {"max_logit_diff": worst,
+           "step_diffs": ranks[0]["held"]["diffs"],
+           "flips": [r["held"]["flip_gaps"] for r in ranks],
+           "min_top2_gap": min(ranks[0]["held"]["min_gaps"]),
+           "flash_max_err": max(r["flash_max_err"] for r in ranks),
+           "codebook_max_err": max(r["codebook_max_err"] for r in ranks)}
+    log(f"{what}: every step's logits within {worst:.4g} of the one-device "
+        f"model on the run's own tokens (limit {tol}); greedy tokens "
+        f"differ at top-2 gaps {out['flips']}; the first flash call "
+        f"within {out['flash_max_err']:.3g} of the plain version "
+        f"(tolerance {FLASH_BF16_TOL}); codebook calls per local (M, K, N) "
+        f"{ranks[0]['codebook_calls']}, the first of each within "
+        f"{out['codebook_max_err']:.3g} of the f64 product")
+    if tol is not None:
+        if worst > tol:
+            raise AssertionError(f"{what}: logits {worst} off the "
+                                 f"one-device model (limit {tol})")
+        bad = [g for r in ranks for g in r["held"]["flip_gaps"] if g > tol]
+        if bad:
+            raise AssertionError(f"{what}: greedy tokens differ at top-2 "
+                                 f"gaps {bad} above {tol}")
+    return out
+
+
+def mesh_serve_path(seed: int, smi: str) -> dict:
+    """Phase 17: granite-3-2b served on a DeviceMesh by `Server(mesh=...)`
+    with phase 6's first 4 prompts: two gloo ranks on the card run (a)
+    data 1 x model 2 at full depth, bf16, with one planted fault; (b) the
+    same mesh at 8 layers, C3 int8; (c) data 2 x model 1 at 8 layers;
+    then (d) one NCCL rank, 1 x 1, 8 layers, bitwise the one-device
+    server."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import lm_quant as Q
+
+    dev = torch.device(DEVICE, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"seconds": {}}
+    cfg = R.get_arch(LM_ARCH)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, s = LM_SLOTS, LM_PROMPT
+    with tempfile.TemporaryDirectory() as tmp:
+        part = time.perf_counter()
+        import dataclasses
+
+        c3cfg = dataclasses.replace(cfg, n_layers=SERVE_SHORT_LAYERS)
+        qmodel, out["b_quant"] = _quantize_timed(T.init_model(
+            c3cfg, torch.Generator(device=dev).manual_seed(seed)),
+            "phase 17 (b)")
+        leaves = {n: p.detach().cpu() for n, p in qmodel.named_parameters()}
+        for i, block in enumerate(qmodel.blocks):
+            for name, v in block.leaves().items():
+                if isinstance(v, dict):
+                    leaves[f"blocks.{i}.{name}"] = {k: t.cpu()
+                                                    for k, t in v.items()}
+        torch.save(leaves, f"{tmp}/c3.pt")
+        del qmodel, leaves
+        torch.cuda.empty_cache()
+        out["seconds"]["quantize"] = time.perf_counter() - part
+        # (a), (b), (c) on one pair of gloo ranks
+        part = time.perf_counter()
+        runs = [dict(name="a", model=2, layers=cfg.n_layers, seed=seed,
+                     fault=True),
+                dict(name="b", model=2, layers=SERVE_SHORT_LAYERS,
+                     seed=seed, c3=True),
+                dict(name="c", model=1, layers=SERVE_SHORT_LAYERS,
+                     seed=seed)]
+        ranks = _spawn_mesh(dict(name="serve-gloo", runs=runs), MESH_RANKS,
+                            "gloo", tmp, _serve_rank, "phase 17")
+        out["seconds"]["gloo"] = time.perf_counter() - part
+        per = {run["name"]: [r[i] for r in ranks]
+               for i, run in enumerate(runs)}
+        n = SERVE_SHORT_LAYERS
+        tp = ((b, h // 2, s, hd), (b, kv // 2, s, hd))
+        dp = ((b // 2, h, s, hd), (b // 2, kv, s, hd))
+        out["a"] = _hold_served(
+            f"phase 17 (a) data 1 x model 2, {cfg.n_layers} layers", per["a"],
+            {"flash_attention": cfg.n_layers,
+             "flash_attention_wgmma": cfg.n_layers, "codebook_matmul": 0},
+            MESH_SERVE_TOL["a"], tp)
+        cb_want = n * len(DENSE_PROJECTIONS) * LM_NEW
+        out["b"] = _hold_served(
+            f"phase 17 (b) C3 int8, data 1 x model 2, {n} layers", per["b"],
+            {"flash_attention": n, "flash_attention_wgmma": n,
+             "codebook_matmul": cb_want}, MESH_SERVE_TOL["b"], tp)
+        for r in per["b"]:
+            shapes = r["codebook_calls"]
+            if sum(shapes.values()) != cb_want or len(shapes) != 10:
+                raise AssertionError(f"phase 17 (b): codebook calls "
+                                     f"{shapes}")
+        out["c"] = _hold_served(
+            f"phase 17 (c) data 2 x model 1, {n} layers", per["c"],
+            {"flash_attention": n, "flash_attention_wgmma": n,
+             "codebook_matmul": 0}, MESH_SERVE_TOL["c"], dp)
+        # (d) one NCCL rank
+        part = time.perf_counter()
+        (rank,) = _spawn_mesh(dict(name="serve-nccl", runs=[dict(
+            name="d", model=1, layers=n, seed=seed, bitwise=True)]), 1,
+            "nccl", tmp, _serve_rank, "phase 17")
+        rank = rank[0]
+        out["seconds"]["nccl"] = time.perf_counter() - part
+        out["d"] = _hold_served(f"phase 17 (d) nccl 1 x 1, {n} layers", [rank],
+                                {"flash_attention": n,
+                                 "flash_attention_wgmma": n,
+                                 "codebook_matmul": 0}, 0.0,
+                                ((b, h, s, hd), (b, kv, s, hd)))
+        if not rank["bitwise"]:
+            raise AssertionError("phase 17 (d): the 1 x 1 mesh's tokens or "
+                                 "logits are not bitwise the one-device "
+                                 "server's")
+        log("phase 17 (d) nccl 1 x 1: tokens and every step's logits "
+            "bitwise the one-device server's")
+        per["d"] = [rank]
+    keys = ("tokens_per_s", "ms_per_run", "prefill_ms",
+            "decode_ms_per_step", "decode_steps", "peak_mem_gb",
+            "device_busy_ms", "idle_share", "flash_kernel_ms",
+            "codebook_kernel_ms", "copy_ms", "decode_collective_bytes",
+            "decode_collective_ops", "launches", "codebook_calls")
+    perf = {p: {k: [r.get(k) for r in per[p]] for k in keys} for p in per}
+    for p in per:
+        perf[p].update({k: out[p][k] for k in (
+            "max_logit_diff", "min_top2_gap", "flash_max_err",
+            "codebook_max_err")})
+    perf["a"]["fault_diff"] = [r["fault_diff"] for r in per["a"]]
+    log(f"phase 17 ({smi}): {json.dumps(perf)}")
+    log(f"phase 17 seconds: {json.dumps(out['seconds'])}")
+    fault = [r["fault_diff"] for r in per["a"]]
+    log(f"phase 17 (a) planted faults (partial_sum: every row-parallel "
+        f"product keeps rank 0's partial sum; head_swap: every layer's wq "
+        f"holds the other rank's heads): prefill logits {fault} off the "
+        f"one-device model (limit {MESH_SERVE_TOL['a']}): the check fails, "
+        f"as it must")
+    if min(d for r in fault for d in r.values()) <= MESH_SERVE_TOL["a"]:
+        raise AssertionError(f"phase 17 (a): a planted fault passed the "
+                             f"check ({fault})")
+    out["a"]["fault_diff"] = fault
+    out["launches"] = {
+        k: sum(r["launches"].get(k, 0) for p in per for r in per[p])
+        for k in ("flash_attention", "codebook_matmul")}
+    out["perf"] = perf
+    return out
+
+
 # instructions a built library must hold: the flash kernel's bf16 wgmma
 # (HGMMA) and TMA loads (UTMALDG), the fused timestep's f64 tensor-core
 # adds (DMMA)
@@ -5036,6 +5517,11 @@ def main() -> int:
     mt = mesh_train_path(args.seed, smi, vt["d"])
     log(f"mesh training and dry-run phase: {time.perf_counter() - t0:.1f} s")
 
+    # 17. LM serving on a DeviceMesh
+    t0 = time.perf_counter()
+    ms = mesh_serve_path(args.seed, smi)
+    log(f"mesh serving phase: {time.perf_counter() - t0:.1f} s")
+
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
     # server), phase 11 (deploy and adaptation), phase 12 (the spawned
@@ -5044,8 +5530,8 @@ def main() -> int:
     # runs, bf16 and C3 int8, and the 4-bit dense run), phase 14 (the
     # served mamba2 C3 run and whisper's served run) and phase 15 (the
     # served phi-3-vision runs, bf16 and C3 int8, and granite-3-2b's
-    # training steps) and phase 16 (the meshed training steps of every
-    # rank)
+    # training steps), phase 16 (the meshed training steps of every
+    # rank) and phase 17 (every rank's meshed served run)
     launches = dict(mp["launches"])
     for loop in [fp, pp, sp, dp, shp, *api.values()]:
         for kname, count in loop["launches"].items():
@@ -5054,10 +5540,12 @@ def main() -> int:
                                    + mq["launches"]["flash_attention"]
                                    + fam["launches"]["flash_attention"]
                                    + vt["launches"]["flash_attention"]
-                                   + mt["launches"]["flash_attention"])
+                                   + mt["launches"]["flash_attention"]
+                                   + ms["launches"]["flash_attention"])
     launches["codebook_matmul"] += (mq["launches"]["codebook_matmul"]
                                     + fam["launches"]["codebook_matmul"]
-                                    + vt["launches"]["codebook_matmul"])
+                                    + vt["launches"]["codebook_matmul"]
+                                    + ms["launches"]["codebook_matmul"])
     csrc = "src/repro_torch/kernels/csrc"
     kernels = {
         "fused_timestep_codebook": ("fused_timestep.cu",

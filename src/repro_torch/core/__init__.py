@@ -9,8 +9,10 @@ calibrated 55nm energy model               -> repro_torch.core.energy
 on-chip learning (STDP, R-STDP)            -> repro_torch.core.plasticity
 
 Import the modules directly; this package exports only the plasticity
-config (`PlasticityConfig`, `NULL_PLASTICITY`).
+config (`PlasticityConfig`, `NULL_PLASTICITY`) and, as `repro.core`
+does, `neuron.run_timesteps`.
 """
+from repro_torch.core.neuron import run_timesteps
 from repro_torch.core.plasticity import NULL_PLASTICITY, PlasticityConfig
 
-__all__ = ["NULL_PLASTICITY", "PlasticityConfig"]
+__all__ = ["NULL_PLASTICITY", "PlasticityConfig", "run_timesteps"]

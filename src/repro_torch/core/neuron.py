@@ -128,3 +128,26 @@ def settle_state(state: LIFState, p: LIFParams) -> LIFState:
     decay = p.leak ** state.elapsed.to(state.v.dtype)
     return LIFState(v=state.v * decay,
                     elapsed=torch.zeros_like(state.elapsed))
+
+
+def dense_reference_step(state: LIFState, current: torch.Tensor,
+                         p: LIFParams) -> tuple[LIFState, torch.Tensor]:
+    """Traditional (baseline) scheme: the full MP update every step —
+    the oracle that shows partial update preserves the semantics, and
+    the energy baseline (the paper's 2.69x comparison point)."""
+    new_state, spikes, _ = lif_step(
+        state, current, dataclasses.replace(p, partial_update=False))
+    return new_state, spikes
+
+
+def run_timesteps(state: LIFState, currents: torch.Tensor, p: LIFParams
+                  ) -> tuple[LIFState, torch.Tensor, torch.Tensor]:
+    """`lif_step` over a (T, ..., n) current tensor: (final state, spikes
+    (T, ..., n), updated neurons per step (T,) int32), the reference's
+    scan as a loop over T."""
+    spikes, counts = [], []
+    for cur in currents:
+        state, spk, upd = lif_step(state, cur, p)
+        spikes.append(spk)
+        counts.append(upd.sum(dtype=torch.int32))
+    return state, torch.stack(spikes), torch.stack(counts)

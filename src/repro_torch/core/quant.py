@@ -330,6 +330,16 @@ def words_to_codebook(words, scale) -> torch.Tensor:
     return w * sc[..., None]
 
 
+def from_register_entry(words, scale, idx: torch.Tensor) -> torch.Tensor:
+    """Dequantize an index tensor through one register-table entry
+    (`words`, `scale`): the path the chip's SPEs take, a lookup of W-bit
+    words; an index is taken by JAX's gather rule (`gather_index`)."""
+    cb = words_to_codebook(np.asarray(words)[None, :],
+                           torch.tensor([scale], dtype=torch.float32,
+                                        device=idx.device))[0]
+    return cb[gather_index(idx, cb.shape[0])]
+
+
 def to_register_entries(q: QuantizedTensor, cfg: CodebookConfig
                         ) -> list[tuple[tuple[int, ...], float]]:
     """One `(words, scale)` register payload per codebook group."""

@@ -94,6 +94,13 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def full(t):
+    """A DTensor's full value as a plain tensor, the same on every rank (a
+    sharded one gathered, a partial one reduced); a plain tensor as it
+    is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def replicated(t, mesh):
     """A plain tensor (the same on every rank) as a DTensor replicated on
     `mesh`; a DTensor as it is."""
@@ -126,7 +133,10 @@ def spec_for(shape: tuple[int, ...], logical: tuple, mesh,
 
     Each dim takes the first rule candidate that (a) exists in the mesh,
     (b) divides the dim size, (c) doesn't reuse a mesh axis already
-    assigned to another dim.  Otherwise the dim is replicated.
+    assigned to another dim.  Otherwise the dim is replicated, and so is
+    a dim of size 1 (a batch of one request), which only an axis of one
+    device divides: placing it there would change nothing, and DTensor
+    refuses to fold a sharded singleton dim into another.
     """
     assert len(shape) == len(logical), (shape, logical)
     sizes = mesh_sizes(mesh)
@@ -134,7 +144,7 @@ def spec_for(shape: tuple[int, ...], logical: tuple, mesh,
     out = []
     for dim, name in zip(shape, logical):
         placed = None
-        for cand in rules.get(name):
+        for cand in rules.get(name) if dim != 1 else ():
             names = _axis_names(cand)
             if any(n not in sizes for n in names):
                 continue

@@ -66,6 +66,40 @@ def make_host_mesh(model: int = 1, device=None):
                             mesh_dim_names=("data", "model"))
 
 
+def spawn_ranks(entry, argv, world: int) -> None:
+    """Run `entry(argv)` (a launcher's `main`) on `world` ranks spawned
+    on this host, each with the variables `torchrun` sets (WORLD_SIZE,
+    RANK, LOCAL_RANK, MASTER_ADDR / MASTER_PORT on a free localhost
+    port), so `entry` joins them as torchrun's; raises unless every rank
+    exits 0."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank, args=(entry, argv, r, world, port))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"--model-parallel {world}: rank exit codes "
+                           f"{codes}")
+
+
+def _rank(entry, argv, rank: int, world: int, port: int) -> None:
+    import os
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    entry(argv)
+
+
 _STAGED: list = []
 _STAGED_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor",
                "all_reduce", "all_to_all_single", "broadcast")

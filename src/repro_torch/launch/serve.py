@@ -1,4 +1,5 @@
-"""Serving launcher: batched prefill + greedy decode on one card.
+"""Serving launcher: batched prefill + greedy decode on one card or on a
+device mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --prompt-len 512 --cache-len 640
@@ -11,6 +12,10 @@
         --prompt-len 512 --cache-len 640
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi-3-vision-4.2b [--quant] --prompt-len 64 --cache-len 768
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --prompt-len 512 --cache-len 640 --model-parallel 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch granite-3-2b --smoke --device cpu --model-parallel 2
 
 The dense (granite, yi, mistral), moe (granite-moe, moonshot), ssm
 (mamba2-130m), hybrid (zamba2-2.7b), audio (whisper-tiny: the server
@@ -22,13 +27,21 @@ Port of `repro.launch.serve` with the same options, plus `--device`
 the port's init; prompts from numpy).  `--quant` fits the C3 codebooks
 of the blocks on the device (`quant.lm_quant.quantize_blocks`), prints
 the reference's weight-bytes line and serves with `quant_serving`.
+`--model-parallel N` serves on the ("data", "model") mesh of
+`launch/mesh.py` `make_host_mesh(model=N)`, as the reference's server
+runs on its mesh, over the launched ranks: the ones `torchrun` started,
+or else N ranks this launcher spawns (a mesh of 1 x N; gloo when they
+share a card or the CPU, NCCL when each has its own card, as
+`launch/train.py` joins them).  Every rank builds the same weights from
+`--seed` and serves the same requests; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
-def main(argv=None) -> list:
+def main(argv=None) -> list | None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -42,21 +55,48 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1)
     args = ap.parse_args(argv)
+    if args.model_parallel > 1 and "WORLD_SIZE" not in os.environ:
+        from repro_torch.launch.mesh import spawn_ranks
 
+        return spawn_ranks(main, argv, args.model_parallel)
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = resolve_device(args.device)
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        own_cards = dev.type == "cuda" and torch.cuda.device_count() >= world
+        dist.init_process_group("nccl" if own_cards else "gloo",
+                                init_method="env://")
+        mesh = make_host_mesh(model=args.model_parallel, device=dev)
+    try:
+        return _serve(args, dev, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args, dev, mesh) -> list:
     import dataclasses
     import time
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import registry as R
-    from repro_torch.device import resolve_device
     from repro_torch.kernels import build
     from repro_torch.models import transformer as T
     from repro_torch.serve.server import Request, Server
 
-    dev = resolve_device(args.device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     cfg = R.get_arch(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
@@ -66,12 +106,16 @@ def main(argv=None) -> list:
         from repro_torch.quant import lm_quant as Q
         params = Q.quantize_blocks(params)
         before, after = Q.quantized_bytes(params)
-        print(f"C3 quantized serving: weight bytes {before/2**20:.1f} -> "
-              f"{after/2**20:.1f} MiB")
+        if lead:
+            print(f"C3 quantized serving: weight bytes {before/2**20:.1f} "
+                  f"-> {after/2**20:.1f} MiB")
         # the server runs the blocks through the param_transform hook
         cfg = dataclasses.replace(cfg, quant_serving=True)
     srv = Server(cfg, params, device=dev, batch_slots=args.slots,
-                 cache_len=args.cache_len)
+                 cache_len=args.cache_len, mesh=mesh)
+    if lead and mesh is not None:
+        print(f"arch={cfg.name} mesh="
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
 
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):
@@ -90,8 +134,9 @@ def main(argv=None) -> list:
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in done)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"served {len(done)} requests / {toks} tokens in {dt:.1f}s "
-          f"({toks/dt:.1f} tok/s) on {where}")
+    if lead:
+        print(f"served {len(done)} requests / {toks} tokens in {dt:.1f}s "
+              f"({toks/dt:.1f} tok/s) on {where}", flush=True)
     return done
 
 

@@ -12,9 +12,11 @@ reference's `lower_train` / `lower_prefill` / `lower_decode` lower and
 compile a step against placeholder devices; their counterparts
 `trace_train` / `trace_prefill` / `trace_decode` run one step of the
 sharded function on fake tensors under a fake process group and count
-what each device would do (`distributed/trace_analysis.py`).  The
-prefill and decode steps are `models.transformer.forward_prefill` /
-`forward_decode`, which `serve.server.Server` calls directly.
+what each device would do (`distributed/trace_analysis.py`).
+`make_prefill_step` / `make_decode_step` are the serving steps
+`serve.server.Server` runs: `models.transformer.forward_prefill` /
+`forward_decode`, on a mesh with the parameters and C3 buffers laid out
+by `shard_serving_params`.
 """
 from __future__ import annotations
 
@@ -34,12 +36,6 @@ def param_shapes_and_specs(cfg: ArchConfig):
     shapes = {name: torch.empty(shape, dtype=dtype, device="meta")
               for name, (shape, dtype) in T.param_shapes(cfg).items()}
     return shapes, T.param_specs(cfg)
-
-
-def _plain(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's full value as a plain tensor (a partial one reduced;
-    a replicated one as it is)."""
-    return t.full_tensor() if SH.is_dtensor(t) else t
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +130,123 @@ def make_train_step(cfg: ArchConfig,
                      else g.redistribute(mesh, p.placements)
                      for (n, p), g in zip(named.items(), grads)}
             opt, metrics = adamw.apply_(opt_cfg, grads, opt, named)
-        metrics = {k: _plain(v) for k, v in metrics.items()}
-        return params, opt, {"loss": _plain(loss.detach()), **metrics}
+        metrics = {k: SH.full(v) for k, v in metrics.items()}
+        return params, opt, {"loss": SH.full(loss.detach()), **metrics}
 
     return sharded_step
 
 
 # ---------------------------------------------------------------------------
+# Serve: prefill / decode
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ArchConfig, mesh, cache_len: int,
+                      seq_parallel: bool = True):
+    """`prefill_step(params, batch) -> (last-token logits, DecodeState)`.
+
+    With `mesh=None`, `forward_prefill` on one device.  On a mesh the
+    parameters are laid out by `shard_serving_params`, the batch by
+    `shard_batch` (the prompts on the batch axes), the residual by the
+    reference's constraint (sequence parallel unless
+    `seq_parallel=False`); the caches come out laid out by
+    `decode_state_specs` and the logits as a DTensor.  As the
+    reference's, the step takes no C3 parameter transform (the server
+    builds its C3 prefill itself)."""
+    if mesh is None:
+        def prefill_step(params: T.Transformer, batch: dict):
+            return T.forward_prefill(params, cfg, batch, cache_len)
+
+        return prefill_step
+    constraint = SH.make_residual_constraint(mesh, seq_parallel)
+
+    def sharded_prefill(params: T.Transformer, batch: dict):
+        logits, state = _serve_call(T.forward_prefill, params, cfg,
+                                    shard_batch(batch, mesh), cache_len,
+                                    constraint=constraint)
+        return logits, lay_out_state(state, mesh)
+
+    return sharded_prefill
+
+
+def lay_out_state(state: T.DecodeState, mesh) -> T.DecodeState:
+    """A prefill's DecodeState with every leaf laid out by
+    `decode_state_specs`: the caches are made so; the audio family's
+    encoder output, as its last layer left it, is redistributed."""
+    enc = state.enc_out
+    if not SH.is_dtensor(enc):
+        return state
+    want = SH.placements(SH.decode_state_spec(tuple(enc.shape), mesh), mesh)
+    if tuple(enc.placements) == want:
+        return state
+    return state._replace(enc_out=enc.redistribute(mesh, want))
+
+
+def make_decode_step(cfg: ArchConfig, mesh):
+    """`decode_step(params, state, tokens) -> (logits, DecodeState)`: one
+    `forward_decode` step; under `cfg.quant_serving` through
+    `quant.lm_quant.make_param_transform(cfg.dtype)`.  On a mesh the
+    tokens (B, 1) go on the batch axes and the residual is constrained
+    without sequence parallelism; with `mesh=None` the one-device step."""
+    pt = None
+    if cfg.quant_serving:
+        from repro_torch.quant.lm_quant import make_param_transform
+
+        pt = make_param_transform(cfg.dtype)
+    if mesh is None:
+        def decode_step(params: T.Transformer, state: T.DecodeState,
+                        tokens: torch.Tensor):
+            return T.forward_decode(params, cfg, state, tokens,
+                                    param_transform=pt)
+
+        return decode_step
+    constraint = SH.make_residual_constraint(mesh, seq_parallel=False)
+
+    def sharded_decode(params: T.Transformer, state: T.DecodeState,
+                       tokens: torch.Tensor):
+        tokens = shard_batch({"tokens": tokens}, mesh)["tokens"]
+        return _serve_call(T.forward_decode, params, cfg, state, tokens,
+                           param_transform=pt, constraint=constraint)
+
+    return sharded_decode
+
+
+# ---------------------------------------------------------------------------
 # Serve: the parameter and cache layouts
 # ---------------------------------------------------------------------------
+
+def serving_param_specs(model: T.Transformer, mesh) -> dict:
+    """{name: PartitionSpec} of every parameter and C3 buffer of `model`
+    (`named_parameters` and `named_buffers` names): `serve_shardings`'s
+    rule on the model's own leaves.  A quantized leaf's `idx` / `idx4`
+    takes its weight's logical axes and its codebook `cb` is replicated,
+    so a model quantized at some layers only is laid out too."""
+    logical = T.param_specs(model.cfg)
+    leaves = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    axes = {}
+    for name in leaves:
+        weight, _, key = name.rpartition(".")
+        axes[name] = (logical[name] if name in logical else
+                      (None,) if key == "cb" else logical[weight])
+    return SH.tree_specs(axes, leaves, mesh)
+
+
+def shard_serving_params(model: T.Transformer, mesh) -> T.Transformer:
+    """Lay `model`'s parameters and C3 buffers (full tensors, the same on
+    every rank) out on `mesh` by `serving_param_specs`, in place, as
+    `shard_params` lays out the parameters; DTensors stay as they are.
+    Returns the model."""
+    specs = serving_param_specs(model, mesh)
+    for name, t in [*model.named_parameters(), *model.named_buffers()]:
+        if SH.is_dtensor(t):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        laid = SH.shard(t.detach(), specs[name], mesh)
+        if isinstance(t, torch.nn.Parameter):
+            laid = torch.nn.Parameter(laid, requires_grad=t.requires_grad)
+        setattr(module, leaf, laid)
+    return model
+
 
 def _quantize_param_structs(cfg: ArchConfig, shapes: dict, logical: dict,
                             pack_4bit: bool = False):

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import tempfile
 
 
@@ -48,7 +47,9 @@ def _parse(argv):
 def main(argv=None):
     args = _parse(argv)
     if args.model_parallel > 1 and "WORLD_SIZE" not in os.environ:
-        return _spawn(argv, args.model_parallel)
+        from repro_torch.launch.mesh import spawn_ranks
+
+        return spawn_ranks(main, argv, args.model_parallel)
 
     import dataclasses
 
@@ -97,39 +98,6 @@ def main(argv=None):
     if lead:
         print("done; checkpoints in", args.ckpt, flush=True)
     return state
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(argv, world: int):
-    """Run `main(argv)` on `world` spawned ranks (a 1 x world mesh);
-    raises unless every rank exits 0."""
-    import multiprocessing as mp
-
-    port = _free_port()
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(argv, r, world, port))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join()
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * world:
-        raise RuntimeError(f"--model-parallel {world}: rank exit codes "
-                           f"{codes}")
-    return None
-
-
-def _rank(argv, rank: int, world: int, port: int) -> None:
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      WORLD_SIZE=str(world), RANK=str(rank),
-                      LOCAL_RANK=str(rank))
-    main(argv)
 
 
 if __name__ == "__main__":

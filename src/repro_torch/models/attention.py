@@ -426,7 +426,9 @@ def _decode_on_shards(q, k, v, cache: KVCache, pos, cfg: ArchConfig):
     """One decode step's attention on each device's cache shard (the
     cache written in place there): q (B, 1, H, hd), k / v (B, 1, kv, hd)
     DTensors -> (B, 1, H * hd).  Heads-sharded caches take the query
-    heads of their kv heads; a positions-sharded cache sees every query
+    heads of their kv heads, each device attending over its whole cache
+    shard by the one-device `_sdpa` (op for op the one-device step's
+    attention of those heads); a positions-sharded cache sees every query
     head, and the softmax is combined over its axis: the max, then the
     sum and the value product (flash decoding)."""
     import torch.distributed._functional_collectives as funcol
@@ -450,6 +452,10 @@ def _decode_on_shards(q, k, v, cache: KVCache, pos, cfg: ArchConfig):
                                               c.index_select(2, idx)))
         slots = off + torch.arange(t_loc, device=q.device)[None, :]
         valid = _decode_valid(slots, pos, t, cfg)          # (1, t_loc)
+        if axis is None:
+            return _sdpa(q, _dequant_kv(ck, q.dtype).transpose(1, 2),
+                         _dequant_kv(cv, q.dtype).transpose(1, 2),
+                         valid[:, None, :].expand(b, 1, t_loc), cfg)
         g = h // kvh
         qg = q.reshape(b, kvh, g, hd).float()
         kd = _dequant_kv(ck, q.dtype).float()               # (b, kv, t, hd)

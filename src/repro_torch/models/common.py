@@ -12,7 +12,9 @@ Every 2-D weight product of the LM goes through `linear(x, w)`: a tensor
 `w` is a plain `x @ w`; a `CodebookWeight` (C3 serving,
 `quant/lm_quant.py`) is the `codebook_matmul` kernel, x @ cb[idx] with
 the dequantization inside the kernel, where the reference computes
-`x @ cb[idx].astype(dtype)`.
+`x @ cb[idx].astype(dtype)`.  On a mesh each device launches the kernel
+on its own shards (`_codebook_on_shards`): the kernel takes plain
+tensors, never a DTensor.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import unpack_indexes_4bit
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 
@@ -207,10 +210,29 @@ class CodebookWeight(NamedTuple):
     """A (K, N) weight as int8 indexes into a codebook: the operand
     `linear` multiplies on the `codebook_matmul` kernel.  `cb` is f32 and
     already rounded to the serving type, so the kernel multiplies exactly
-    the weights the reference's `cb[idx].astype(dtype)` holds."""
+    the weights the reference's `cb[idx].astype(dtype)` holds.  With
+    `packed`, `idx` holds two 4-bit indexes a byte, (K, N / 2) uint8: a
+    DTensor's, unpacked on each device's own shard."""
 
-    idx: torch.Tensor      # (K, N) int8, contiguous
+    idx: torch.Tensor      # (K, N) int8, contiguous; (K, N / 2) if packed
     cb: torch.Tensor       # (L,) f32, L <= 16
+    packed: bool = False
+
+
+def _unpacked(idx: torch.Tensor, packed: bool) -> torch.Tensor:
+    return unpack_indexes_4bit(idx, idx.shape[-1] * 2) if packed else idx
+
+
+def gather_codebook(w: CodebookWeight) -> torch.Tensor:
+    """cb[idx] as a dense tensor of cb's type; a DTensor `idx` gathers
+    each device's own shard (its layout is the output's), the codebook
+    replicated."""
+    if not SH.is_dtensor(w.idx):
+        return w.cb[_unpacked(w.idx, w.packed).long()]
+    mesh = w.idx.device_mesh
+    spec = SH.spec_of(w.idx.placements, w.idx.ndim, mesh)
+    return SH.on_shards(lambda ix, cb: cb[_unpacked(ix, w.packed).long()],
+                        mesh, (w.idx, w.cb), (spec, SH.P(None)), spec)
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
@@ -218,14 +240,53 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     runs `ops.codebook_matmul` on x as a contiguous (M, K) matrix (on a
     CUDA tensor the kernel, or a raise; its plain version on the CPU);
     the f32 product is rounded to x's type, as the reference's product of
-    two tensors of that type is."""
+    two tensors of that type is; on a mesh, on each device's shards
+    (`_codebook_on_shards`)."""
     if isinstance(w, CodebookWeight):
-        k, n = w.idx.shape
-        out = ops.codebook_matmul(x.reshape(-1, k).contiguous(), w.idx, w.cb)
+        if SH.is_dtensor(x) or SH.is_dtensor(w.idx):
+            return _codebook_on_shards(x, w)
+        idx = _unpacked(w.idx, w.packed)
+        k, n = idx.shape
+        out = ops.codebook_matmul(x.reshape(-1, k).contiguous(), idx, w.cb)
         return out.to(x.dtype).reshape(*x.shape[:-1], n)
     if x.ndim > 2 and SH.is_dtensor(x):
         return _FoldReadyGrad.apply(_fold_ready(x) @ w)
     return x @ w
+
+
+def _codebook_on_shards(x, w: CodebookWeight):
+    """x @ cb[idx] on a mesh: each device launches the codebook product
+    on its local x and idx (a 4-bit idx unpacked there), the codebook
+    replicated.  x keeps its batch layout (`_fold_ready`); idx keeps its
+    own unless an axis of it is one x's rows are split on (FSDP's
+    "data"), which is gathered.  idx split on N (column-parallel): the
+    output is split on its last dim.  idx split on K (row-parallel): x's
+    last dim is split alike and each device's product, rounded to x's
+    type, is a partial sum, stacked on a new leading dim split over K's
+    axes and summed (DTensor's reduction)."""
+    mesh = (w.idx if SH.is_dtensor(w.idx) else x).device_mesh
+    x = _fold_ready(SH.replicated(x, mesh))
+    lead = tuple(SH.spec_of(x.placements, x.ndim, mesh))[:-1]
+    pk, pn = (SH.spec_of(w.idx.placements, 2, mesh)
+              if SH.is_dtensor(w.idx) else (None, None))
+    pk = SH.nontrivial(SH.free_of(pk, *lead), mesh)
+    pn = SH.free_of(pn, *lead, pk)
+    dtype = x.dtype
+
+    def local(xl, il, cb):
+        il = _unpacked(il, w.packed)
+        k, n = il.shape
+        out = ops.codebook_matmul(xl.reshape(-1, k).contiguous(),
+                                  il.contiguous(), cb.contiguous())
+        out = out.to(dtype).reshape(*xl.shape[:-1], n)
+        return out if pk is None else out[None]
+
+    in_specs = (SH.P(*lead, pk), SH.P(pk, pn), SH.P(None))
+    if pk is None:
+        return SH.on_shards(local, mesh, (x, w.idx, w.cb), in_specs,
+                            SH.P(*lead, pn))
+    return SH.on_shards(local, mesh, (x, w.idx, w.cb), in_specs,
+                        SH.P(pk, *lead, pn)).sum(dim=0)
 
 
 def _fold_ready(x):

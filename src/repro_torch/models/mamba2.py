@@ -23,8 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import sharding as SH
 from repro_torch.models.common import (ArchConfig, CodebookWeight,
-                                       init_dense, init_ones, linear,
-                                       rms_norm)
+                                       gather_codebook, init_dense,
+                                       init_ones, linear, rms_norm)
 
 
 class SSMCache(NamedTuple):
@@ -76,7 +76,7 @@ def _conv_weight(w) -> torch.Tensor:
     """The conv kernel (CH, K) as a tensor: a C3 leaf's `cb[idx]` (its
     codebook is already rounded to the serving type)."""
     if isinstance(w, CodebookWeight):
-        return w.cb[w.idx.long()]
+        return gather_codebook(w)
     return w
 
 

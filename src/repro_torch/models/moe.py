@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding as SH
-from repro_torch.models.common import ArchConfig, init_dense, linear
+from repro_torch.models.common import (ArchConfig, CodebookWeight,
+                                       init_dense, linear)
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, n_layers: int) -> dict:
@@ -150,7 +151,9 @@ def _moe_core(x, router_logits, wi, wg, wo, cfg: ArchConfig, gs: int,
 
 def _moe_on_shards(x, p, cfg: ArchConfig, gs: int, rules: SH.ShardingRules):
     """Expert parallelism on a mesh: each device routes all tokens of its
-    rows of the batch (the router replicated) and runs only its own
+    rows of the batch (the router replicated; a C3 router as its indexes
+    and codebook, multiplied on the device's codebook kernel) and runs
+    only its own
     experts (the expert stacks' "experts" axis); the outputs and aux
     terms of the experts are summed over the experts' axes (DTensor's
     reduction of a stacked leading dim).  When a dispatch group spans
@@ -168,15 +171,21 @@ def _moe_on_shards(x, p, cfg: ArchConfig, gs: int, rules: SH.ShardingRules):
     first = SH.shard_index(mesh, pe) * n_e if pe else 0
     groups = b * s // gs
 
-    def local(x, router, wi, wg, wo):
-        out, aux = _moe_core(x, linear(x.reshape(-1, gs, d), router), wi,
-                             wg, wo, cfg, gs, first, groups)
+    router = p["router"]
+    c3 = isinstance(router, CodebookWeight)     # C3: its idx and codebook
+    routers = (router.idx, router.cb) if c3 else (router,)
+
+    def local(x, *args):
+        r = CodebookWeight(*args[:2], router.packed) if c3 else args[0]
+        wi, wg, wo = args[-3:]
+        out, aux = _moe_core(x, linear(x.reshape(-1, gs, d), r), wi, wg, wo,
+                             cfg, gs, first, groups)
         return out[None], aux.sum().reshape(1, 1)
 
     w = SH.P(pe, None, None)
-    out, aux = SH.on_shards(local, mesh, (x, p["router"], p["moe_wi"],
+    r_specs = (SH.P(None, None), SH.P(None)) if c3 else (SH.P(None, None),)
+    out, aux = SH.on_shards(local, mesh, (x, *routers, p["moe_wi"],
                                           p["moe_wg"], p["moe_wo"]),
-                            (SH.P(pb, None, None), SH.P(None, None), w, w,
-                             w),
+                            (SH.P(pb, None, None), *r_specs, w, w, w),
                             (SH.P(pe, pb, None, None), SH.P(pe, pb)))
     return out.sum(dim=0), aux.sum()

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core.quant import (CodebookConfig, pack_indexes_4bit,
                                     quantize, unpack_indexes_4bit)
-from repro_torch.models.common import CodebookWeight
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.models.common import CodebookWeight, gather_codebook
 
 # weights worth quantizing: stacked (L, in, out) projection matrices
 _QUANT_MIN_SIZE = 1 << 16
@@ -94,12 +95,27 @@ def quantize_blocks(model, cfg: CodebookConfig | None = None,
                        model.final_norm, blocks, **model.extras())
 
 
+def _on_shards(leaf: Mapping, dtype):
+    """A quantized leaf of DTensors (a model laid out on a mesh) as its
+    operand: the indexes stay packed, each device unpacking its own
+    shard."""
+    packed = "idx4" in leaf
+    idx = leaf["idx4"] if packed else leaf["idx"]
+    if idx.dim() == 2:
+        return CodebookWeight(idx, leaf["cb"].to(dtype).to(torch.float32),
+                              packed)
+    return gather_codebook(CodebookWeight(idx, leaf["cb"].to(dtype), packed))
+
+
 def make_param_transform(dtype=torch.bfloat16) -> Callable[[dict], dict]:
     """The hook prefill and decode apply to each layer's leaves: a
     quantized leaf becomes the operand that computes the reference's
     `cb[idx].astype(dtype)`.  A 2-D leaf is a `CodebookWeight` (int8
     indexes, the codebook rounded to `dtype` and held in f32, for the
     kernel); an expert stack (E, in, out) the dense `cb.to(dtype)[idx]`.
+    On a mesh (DTensor leaves) a 4-bit leaf stays packed in its
+    `CodebookWeight` and an expert stack is gathered on each device's
+    own experts (`models.common.gather_codebook`).
     """
 
     def transform(lp: dict) -> dict:
@@ -107,6 +123,8 @@ def make_param_transform(dtype=torch.bfloat16) -> Callable[[dict], dict]:
         for name, v in lp.items():
             if not _is_quantized(v):
                 out[name] = v
+            elif any(is_dtensor(t) for t in v.values()):
+                out[name] = _on_shards(v, dtype)
             elif _indexes(v).dim() == 2:
                 out[name] = CodebookWeight(
                     _indexes(v).contiguous(),

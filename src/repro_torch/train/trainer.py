@@ -29,6 +29,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.convert import lm_tree, load_lm_tree
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.elastic import FaultTolerantLoop, StragglerPolicy
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
@@ -50,7 +51,7 @@ class TrainJobConfig:
 def _full(named: dict) -> dict:
     """Tensors by name, DTensors gathered whole (a collective: every
     rank calls it)."""
-    return {k: ST._plain(t) for k, t in named.items()}
+    return {k: SH.full(t) for k, t in named.items()}
 
 
 def _reference_layout(state: dict) -> dict:

@@ -214,3 +214,92 @@ def test_init_state_defaults_to_the_card():
         pytest.skip("a CUDA card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         N.init_state(5, (2,))
+
+
+def _lif_inputs(seed, shape, steps=None):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0.3, 0.5, shape).astype(np.float32)
+    el = rng.integers(0, 40, shape).astype(np.int32)
+    cur = rng.normal(0, 0.5, ((steps,) if steps else ()) + shape).astype(
+        np.float32)
+    cur[rng.random(cur.shape) < 0.3] = 0.0
+    return v, el, cur
+
+
+def _hold_v(got_v, want_v, v_scale, steps: int = 1):
+    """The one-ulp LIF rule of `test_lif_step_within_one_ulp`, once per
+    step: v' off by at most one ulp of the decayed product plus one of
+    the sum, each step adding its own (of the largest state seen)."""
+    bound = steps * 2 * np.spacing(np.float32(v_scale))
+    assert np.all(np.abs(got_v - want_v) <= bound), float(
+        np.abs(got_v - want_v).max())
+
+
+def test_dense_reference_step_within_one_ulp():
+    v, el, cur = _lif_inputs(12, (6, 257))
+    for reset_mode in ("hard", "soft"):
+        p = N.LIFParams(reset_mode=reset_mode)
+        rp = REF_N.LIFParams(reset_mode=reset_mode)
+        st, sp = N.dense_reference_step(
+            N.LIFState(torch.as_tensor(v), torch.as_tensor(el)),
+            torch.as_tensor(cur), p)
+        rst, rsp = REF_N.dense_reference_step(
+            REF_N.LIFState(jnp.asarray(v), jnp.asarray(el)), jnp.asarray(cur),
+            rp)
+        v_int = v * np.float32(0.9) + cur
+        assert not (np.abs(v_int - 1.0) < 1e-6).any()   # no spike on a tie
+        np.testing.assert_array_equal(sp.numpy(), np.asarray(rsp))
+        np.testing.assert_array_equal(st.elapsed.numpy(),
+                                      np.asarray(rst.elapsed))
+        assert not st.elapsed.any()              # the dense scheme's
+        _hold_v(st.v.numpy(), np.asarray(rst.v), np.abs(v_int).max())
+
+
+@pytest.mark.parametrize("partial_update", [True, False])
+def test_run_timesteps_matches_reference(partial_update):
+    """Over T = 6 steps: the updates per step and the final `elapsed`
+    exact, the spikes equal (the fixture has no potential within 1e-4 of
+    the threshold), v' within a one-ulp rule per step; the port's loop
+    is a loop of its own `lif_step`, bitwise."""
+    steps = 6
+    v, el, cur = _lif_inputs(13, (3, 130), steps)
+    p = N.LIFParams(partial_update=partial_update)
+    rp = REF_N.LIFParams(partial_update=partial_update)
+    st0 = N.LIFState(torch.as_tensor(v), torch.as_tensor(el))
+    st, sp, ups = N.run_timesteps(st0, torch.as_tensor(cur), p)
+    rst, rsp, rups = REF_N.run_timesteps(
+        REF_N.LIFState(jnp.asarray(v), jnp.asarray(el)), jnp.asarray(cur), rp)
+    assert sp.shape == (steps, 3, 130) and ups.shape == (steps,)
+    assert ups.dtype == torch.int32
+    np.testing.assert_array_equal(ups.numpy(), np.asarray(rups))
+    np.testing.assert_array_equal(st.elapsed.numpy(), np.asarray(rst.elapsed))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(rsp))
+    # a loop of the port's own step, bitwise; no potential near the
+    # threshold at any step
+    loop, scale = st0, float(np.abs(v).max())
+    for t in range(steps):
+        loop, spk, upd = N.lif_step(loop, torch.as_tensor(cur[t]), p)
+        assert torch.equal(spk, sp[t]) and int(upd.sum()) == int(ups[t])
+        assert not bool(((loop.v - 1.0).abs() < 1e-4).any())
+        scale = max(scale, float(loop.v.abs().max()) + 0.5)
+    assert torch.equal(loop.v, st.v) and torch.equal(loop.elapsed,
+                                                     st.elapsed)
+    _hold_v(st.v.numpy(), np.asarray(rst.v), scale, steps)
+    from repro_torch.core import run_timesteps
+    assert run_timesteps is N.run_timesteps
+
+
+@pytest.mark.parametrize("n,w", [(4, 4), (16, 8)])
+def test_from_register_entry_matches_reference(n, w):
+    rng = np.random.default_rng(n + w)
+    wt = rng.normal(0, 0.5, (24, 16)).astype(np.float32)
+    ref = REF_Q.quantize(jnp.asarray(wt), REF_Q.CodebookConfig(n, w))
+    (words, scale), = REF_Q.to_register_entries(ref, REF_Q.CodebookConfig(
+        n, w))
+    idx = np.asarray(ref.idx).astype(np.int8)
+    idx[0, :4] = (-1, n, 127, -128)          # JAX's gather: wrap, clamp
+    got = Q.from_register_entry(words, scale, torch.as_tensor(idx))
+    want = REF_Q.from_register_entry(words, scale, jnp.asarray(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy()[1:],
+                                  np.asarray(REF_Q.dequantize(ref))[1:])

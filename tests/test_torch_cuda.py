@@ -20,7 +20,10 @@ products (`models.common.linear` on a codebook operand) at the decode
 shapes, `moe_ffn` and a 4-bit quantized model against the CPU; one
 mamba2 layer against the CPU and whisper's decoder prefill on the flash
 kernel; one tensor-parallel training step (data 1 x model 2) on two
-gloo ranks on the card against the same step on the CPU.  Marked `cuda`; every test skips without a card.  Run on the
+gloo ranks on the card against the same step on the CPU; a C3 product
+on DTensor operands (column- and row-parallel, int8 and 4-bit) launching
+the codebook kernel on the rank's shards, and a meshed C3 prefill on a
+1 x 1 NCCL mesh against the one-device one.  Marked `cuda`; every test skips without a card.  Run on the
 card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1424,3 +1427,101 @@ def test_tensor_parallel_step_on_two_gloo_ranks_matches_cpu(dev, tmp_path):
             float(want["loss"]))
         assert abs(r["grad_norm"][0] - float(want["grad_norm"])) <= 1e-3 \
             * float(want["grad_norm"])
+
+
+# ---------------------------------------------------------------------------
+# C3 products on a DeviceMesh: the codebook kernel on each rank's shards
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A data 1 x model 1 mesh over one NCCL rank (`make_host_mesh` starts
+    the world of one), torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(device=dev)
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "4bit"])
+@pytest.mark.parametrize("split", ["n", "k"])
+def test_c3_linear_on_dtensors_launches_on_the_shard(nccl_mesh, packed,
+                                                     split):
+    """`linear` on DTensor operands (x, and a CodebookWeight whose idx is
+    laid out column- or row-parallel on "model") launches the codebook
+    kernel once, on plain local tensors, and gives the one-device
+    product: bitwise on this mesh of one device."""
+    from repro_torch.core.quant import pack_indexes_4bit
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.models.common import CodebookWeight, linear
+
+    mesh = nccl_mesh
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    m, k, n = 4, 256, 128
+    x = torch.tensor(rng.normal(0, 1, (1, m, k)).astype(np.float32),
+                     device=dev).to(torch.bfloat16)
+    idx = torch.tensor(rng.integers(0, 16, (k, n)).astype(np.int8),
+                       device=dev)
+    cb = torch.tensor(np.sort(rng.normal(0, 0.05, 16)).astype(np.float32),
+                      device=dev).to(torch.bfloat16).float()
+    want = linear(x, CodebookWeight(idx, cb))
+    ix = pack_indexes_4bit(idx) if packed else idx
+    spec = SH.P(None, "model") if split == "n" else SH.P("model", None)
+    xd = SH.shard(x, SH.P("data", None, "model" if split == "k" else None),
+                  mesh)
+    w = CodebookWeight(SH.shard(ix, spec, mesh), SH.replicated(cb, mesh))
+    if packed:
+        w = w._replace(packed=True)
+    kernel, seen = CBM.codebook_matmul, []
+
+    def spy(a, b, c):
+        seen.append(any(SH.is_dtensor(t) for t in (a, b, c)))
+        return kernel(a, b, c)
+
+    CBM.reset_launches()
+    CBM.codebook_matmul = spy
+    try:
+        got = linear(xd, w)
+    finally:
+        CBM.codebook_matmul = kernel
+    torch.cuda.synchronize()
+    assert seen == [False] and CBM.launches["codebook_matmul"] == 1
+    assert SH.is_dtensor(got) and got.dtype == torch.bfloat16
+    assert torch.equal(got.full_tensor(), want)
+
+
+def test_meshed_c3_prefill_on_one_nccl_rank_matches_one_device(nccl_mesh):
+    """A C3 int8 model (f32, granite-3-2b's head dim, MLP quantized):
+    `Server(mesh=...)`'s prefill on a 1 x 1 NCCL mesh against the
+    one-device server's, the same logits and the same codebook launches
+    (3 MLP products x 2 layers)."""
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import lm_quant as Q
+    from repro_torch.serve.server import Server
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(_tiny_cfg("dense", d_model=128, n_kv_heads=4,
+                                        d_ff=512), quant_serving=True)
+    batch = {"tokens": torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32), device=dev)}
+    out = []
+    for mesh in (None, nccl_mesh):
+        model = Q.quantize_blocks(T.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0)))
+        srv = Server(cfg, model, batch_slots=2, cache_len=32, mesh=mesh)
+        CBM.reset_launches()
+        logits, _ = srv.prefill(srv.params, batch=batch)
+        torch.cuda.synchronize()
+        out.append((logits.full_tensor() if mesh else logits,
+                    CBM.launches["codebook_matmul"]))
+    assert out[0][1] == out[1][1] == 3 * cfg.n_layers
+    torch.testing.assert_close(out[1][0], out[0][0], atol=1e-5, rtol=1e-5)

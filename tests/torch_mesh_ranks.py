@@ -1,5 +1,6 @@
-"""Rank programs of tests/test_torch_mesh_train.py: gloo ranks spawned on
-the CPU, each training the port's LM on a ("data", "model") DeviceMesh
+"""Rank programs of tests/test_torch_mesh_train.py and
+tests/test_torch_mesh_serve.py: gloo ranks spawned on the CPU, each
+training or serving the port's LM on a ("data", "model") DeviceMesh
 (`launch/mesh.py` `make_host_mesh`) from weights and batches the test
 hands over, and saving what it saw.  Imports no JAX, so a rank starts in
 a few seconds.
@@ -69,9 +70,11 @@ def run_case(case: dict, mesh) -> dict:
     """case: "kind" "train" (arch, params: {name: tensor}, batches, opt;
     the SMOKE config in f32 unless "smoke" is False, fields replaced by
     "cfg"),
-    "checkpoint" (save at this world, or restore) or "decode" (arch,
-    params, prompt batch, cache_len, steps)."""
-    return {"train": _train, "decode": _serve,
+    "checkpoint" (save at this world, or restore), "decode" (arch,
+    params, prompt batch, cache_len, steps) or "server" (arch, params,
+    prompts, slots, cache_len, new; on a mesh of "model" ranks a data
+    group when given, else the ranks' own)."""
+    return {"train": _train, "decode": _serve, "server": _server,
             "checkpoint": _checkpoint}[case["kind"]](case, mesh)
 
 
@@ -84,11 +87,18 @@ def _cfg(case):
 
 
 def _model(cfg, params, mesh):
+    """The model of `params` ({name: tensor}, a C3 leaf {"idx" | "idx4",
+    "cb"} under its weight's name) on the mesh's device."""
     from repro_torch.models import transformer as T
 
     dev = torch.device(mesh.device_type)
-    return T.model_from(cfg, {k: v.to(dev, copy=True)
-                              for k, v in params.items()})
+
+    def to(v):
+        if isinstance(v, dict):
+            return {k: t.to(dev, copy=True) for k, t in v.items()}
+        return v.to(dev, copy=True)
+
+    return T.model_from(cfg, {k: to(v) for k, v in params.items()})
 
 
 def _full(t):
@@ -153,6 +163,72 @@ def _serve(case, mesh) -> dict:
                 constraint=decode_c)
             logits.append(_full(out))
     return {"logits": logits}
+
+
+def _server(case, mesh) -> dict:
+    """`Server(mesh=...)` over the case's prompts: each request's tokens,
+    the full logits `sample` got at every step, the operand shapes of
+    every codebook product (and whether one was a DTensor), whether the parameters
+    and C3 buffers lie as `serving_param_specs` says, and the first
+    prefill's state leaves' specs beside `decode_state_spec`'s."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serve.server import Request, Server
+
+    if case.get("model", mesh.size(1)) != mesh.size(1):
+        mesh = make_host_mesh(model=case["model"], device=mesh.device_type)
+    cfg = _cfg(case)
+    model = _model(cfg, case["params"], mesh)
+    srv = Server(cfg, model, batch_slots=case["slots"],
+                 cache_len=case["cache_len"], mesh=mesh)
+    states = []
+    prefill = srv.prefill
+
+    def kept(params, batch):
+        out = prefill(params, batch=batch)
+        states.append(out[1])
+        return out
+
+    srv.prefill = kept
+    for uid, prompt in enumerate(case["prompts"]):
+        srv.submit(Request(uid=uid, prompt=prompt,
+                           max_new_tokens=case["new"]))
+    logits = []
+
+    def sample(lg):
+        assert not SH.is_dtensor(lg)
+        logits.append(lg.clone())
+        return lg.argmax(-1)
+
+    from repro_torch.kernels import codebook_matmul as CBM
+
+    kernel, products = CBM.codebook_matmul, []
+
+    def counted(x, idx, cb):
+        products.append((tuple(x.shape), tuple(idx.shape),
+                         SH.is_dtensor(x) or SH.is_dtensor(idx)))
+        return kernel(x, idx, cb)
+
+    CBM.codebook_matmul = counted
+    try:
+        done = srv.run(sample=sample)
+    finally:
+        CBM.codebook_matmul = kernel
+    specs = ST.serving_param_specs(srv.params, mesh)
+    laid = {n: SH.spec_of(t.placements, t.ndim, mesh) == specs[n]
+            for n, t in [*srv.params.named_parameters(),
+                         *srv.params.named_buffers()]}
+    leaves = tree_leaves(states[0])
+    want = [SH.decode_state_spec(tuple(t.shape), mesh) for t in leaves]
+    got = [SH.spec_of(t.placements, t.ndim, mesh) if SH.is_dtensor(t)
+           else SH.P(*[None] * t.ndim) for t in leaves]
+    return {"tokens": [r.out_tokens for r in done], "logits": logits,
+            "codebook_products": products,
+            "params_laid_out": all(laid.values()) and len(laid) > 0,
+            "buffers": sorted(n for n, _ in srv.params.named_buffers()),
+            "state_specs": got, "state_specs_want": want}
 
 
 def _checkpoint(case, mesh) -> dict:
