@@ -250,14 +250,24 @@ Phases, each of which must pass:
    kernel's SIMT instantiations at hd 80 and 96; (b) phi-3-vision-4.2b
    served at full width and depth, bf16; (c) its first 8 layers C3 int8;
    (d) granite-3-2b training at full width and depth, bf16, B 2 x S 512,
-   4 `make_train_step` steps, exactly 160 flash launches; (e) `Trainer.run`
-   crashed in step 4 and resumed from 3.
+   4 `make_train_step` steps at the remat default ("nothing"), exactly
+   320 flash launches (each layer's forward and its recompute); (e)
+   `Trainer.run` crashed in step 4 and resumed from 3; (f) granite-3-2b
+   at full width and depth, bf16, B 1 x S 4096 (train_4k's sequence),
+   3 steps at each remat policy ("everything", "nothing", "dots", then
+   "everything" again) from the same weights and batches: 40 / 80 / 80
+   flash launches a step, ms per step, peak memory and the memory
+   allocated before the first step, losses and grad_norms bitwise the
+   first "everything" run's or within its two runs' spread; step 0's
+   first and last flash call of each run (wgmma, q (1, 32, 4096, 64), k
+   / v (1, 8, 4096, 64)) held against the plain version on its own q / k
+   / v within FLASH_BF16_TOL.
 16. LM training on a DeviceMesh — right after phase 15, its memory freed:
    (a) two gloo ranks spawned on the card, mesh data 1 x model 2,
    granite-3-2b at full width and depth (40 layers, bf16), B 2 x S 512,
    3 `make_train_step(mesh=...)` steps from phase 15 (d)'s seed and
-   batches: every rank exactly 40 flash launches a forward, all on the
-   tensor-core kernel, at the local shape (B 2, H 16, KV 4, S = T = 512,
+   batches: every rank exactly 80 flash launches a step (40 forward, 40
+   recompute), all on the tensor-core kernel, at the local shape (B 2, H 16, KV 4, S = T = 512,
    hd 64); step 0's loss and grad_norm within MESH_LOSS_REL /
    MESH_GNORM_REL of phase 15 (d)'s one-device step; ms per step, device
    busy and peak memory per rank, and the collective bytes each rank
@@ -267,7 +277,9 @@ Phases, each of which must pass:
    rank, mesh 1 x 1: loss, grad_norm and updated parameters bitwise the
    one-device step's; (d) granite-3-2b train_4k on the (16, 16) mesh of
    the dry run (`launch/dryrun.py`, a fake 256-rank world on the host) in
-   a subprocess, under the card machine's torch.  The ranks on the card
+   a subprocess, under the card machine's torch:
+   its temp bytes beside the reference's (REF_DRYRUN_TEMP_BYTES), and
+   argument plus temp bytes below the card's memory.  The ranks on the card
    talk over gloo with every collective staged through host memory
    (`launch/mesh.py` `stage_gloo_collectives_through_host`): NCCL refuses
    two ranks on one card and gloo's CUDA all-gather crashes.
@@ -288,8 +300,15 @@ Phases, each of which must pass:
    collective bytes of a decode step per rank; then (d) one NCCL rank,
    1 x 1, 8 layers: tokens and logits bitwise the one-device `Server`.
 
+18. the examples — right after phase 17: examples/torch_quickstart.py
+   on the card, exactly one zspe_spmm and one lif_update launch and no
+   other, the product within V_ATOL and the LIF spikes and touched set
+   equal to the same script on the CPU; examples/torch_snn_nmnist_e2e.py
+   at its defaults (60 training steps, T 10), its differential check
+   against the interpretive reference engine passing.
+
 The line before the last is {"kernels": [...]} (launches from phases
-4, 7, 8, 9, 11, 12, 5, 6, 13, 14, 15, 16 and 17); the last line is
+4, 7, 8, 9, 11, 12, 5, 6, 13, 14, 15, 16, 17 and 18); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
 no CUDA card is present or any phase fails.
 """
@@ -4050,6 +4069,14 @@ VLM_C3_LAYERS = 8               # (c): the first 8 of 32 layers
 FLASH_NEW_HEAD_DIMS = (80, 96)  # the SIMT instantiations this phase adds
 TRAIN_ARCH = "granite-3-2b"     # configs/granite_3_2b.py ARCH
 TRAIN_BATCH_LM, TRAIN_SEQ, TRAIN_STEPS_LM = 2, 512, 4
+# (d), (f), 16: flash calls a layer a training step under remat
+# "nothing" or "dots": the forward and its recompute in the backward
+FLASH_CALLS_A_LAYER = 2
+# (f): granite-3-2b at train_4k's sequence length, one sequence a step,
+# each remat policy from the same weights and batches; "everything"
+# twice, the spread of its two runs the tolerance of the others
+REMAT_SEQ, REMAT_BATCH, REMAT_STEPS = 4096, 1, 3
+REMAT_RUNS = ("everything", "nothing", "dots", "everything")
 TINY_STEPS, TINY_SAVE, TINY_CRASH = 8, 3, 4   # (e): crash in step 4
 TINY_RESUME_REL = 1e-5          # (e): final loss, resumed vs uninterrupted
 # (d): one layer's q / k / v gradients through the flash autograd.Function
@@ -4205,8 +4232,9 @@ def _flash_grad_check(cfg, model, tokens, seed: int) -> dict:
 
 def _lm_training(seed: int) -> dict:
     """(d) granite-3-2b at full width and depth, bf16: TRAIN_STEPS_LM
-    steps of `make_train_step` on TokenStream(--seed) batches of B 2 x
-    S 512; exactly 40 flash launches a step (forward only)."""
+    steps of `make_train_step` (the remat default, "nothing") on
+    TokenStream(--seed) batches of B 2 x S 512; exactly 80 flash launches
+    a step (each layer's forward and its recompute in the backward)."""
     import torch
 
     from repro_torch.data.synthetic import TokenStream
@@ -4231,16 +4259,18 @@ def _lm_training(seed: int) -> dict:
         losses.append(float(metrics["loss"]))      # synchronises
         norms.append(float(metrics["grad_norm"]))
         ms.append((time.perf_counter() - t0) * 1e3)
-    want = TRAIN_STEPS_LM * cfg.n_layers
-    if FA.launches != {"flash_attention": want,
-                       "flash_attention_wgmma": want}:
+    want = TRAIN_STEPS_LM * cfg.n_layers * FLASH_CALLS_A_LAYER
+    if cfg.remat_policy != "nothing" or FA.launches != {
+            "flash_attention": want, "flash_attention_wgmma": want}:
         raise AssertionError(f"phase 15 (d): launches {FA.launches}, "
-                             f"expected {want} (the forward passes only)")
+                             f"expected {want} (each forward and its "
+                             f"recompute) at remat {cfg.remat_policy!r}")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"phase 15 (d): loss {losses}, grad_norm "
                              f"{norms}")
     warm = statistics.median(ms[1:])
-    perf = {"n_params": n_params, "init_s": init_s, "ms_per_step": ms,
+    perf = {"n_params": n_params, "init_s": init_s,
+            "remat_policy": cfg.remat_policy, "ms_per_step": ms,
             "ms_per_step_warm": warm,
             "tokens_per_s": TRAIN_BATCH_LM * TRAIN_SEQ / warm * 1e3,
             "loss": losses, "grad_norm": norms, "launches": dict(FA.launches),
@@ -4254,6 +4284,133 @@ def _lm_training(seed: int) -> dict:
     del model, opt, batches
     torch.cuda.empty_cache()
     return perf
+
+
+def _remat_run(seed: int, policy: str) -> dict:
+    """One (f) run: REMAT_STEPS steps of `make_train_step` at `policy`
+    from phase 15 (d)'s weights (the same seed, so the same bits each
+    run) on TokenStream(--seed) batches of REMAT_BATCH x REMAT_SEQ.  The
+    first and the last flash call of step 0's forward (layers 0 and 39,
+    (1, 32, 4096, 64) q against (1, 8, 4096, 64) k / v: the wgmma kernel
+    at 32 KV tiles) are copied to the host, so that the check adds no
+    device memory to the run's peak, and held after the run against
+    `flash_attention_plain` on the same q / k / v within FLASH_BF16_TOL."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention as ATT
+    from repro_torch.optim import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, _, _ = _lm_model(TRAIN_ARCH, seed + 3, remat_policy=policy)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=REMAT_STEPS))
+    data = TokenStream(cfg.vocab, REMAT_SEQ, REMAT_BATCH, seed)
+    batches = [data.batch_at(i, DEVICE) for i in range(REMAT_STEPS)]
+    flash, calls, held = ATT.flash_attention, [0], []
+
+    def spy(q, k, v, causal=True):
+        out = flash(q, k, v, causal=causal)
+        if calls[0] in (0, cfg.n_layers - 1):          # step 0's forward
+            held.append([t.detach().cpu() for t in (q, k, v, out)]
+                        + [causal])
+        calls[0] += 1
+        return out
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    ms, losses, norms = [], [], []
+    ATT.flash_attention = spy
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            model, opt, metrics = step(model, opt, batch)
+            losses.append(float(metrics["loss"]))      # synchronises
+            norms.append(float(metrics["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ATT.flash_attention = flash
+    out = {"policy": policy, "ms_per_step": ms,
+           "ms_per_step_warm": statistics.median(ms[1:]),
+           "allocated_before_gb": before / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": dict(FA.launches), "loss": losses, "grad_norm": norms}
+    out["step_memory_gb"] = out["peak_gb"] - out["allocated_before_gb"]
+    del model, opt, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(held) != 2:
+        raise AssertionError(f"phase 15 (f) {policy}: {calls[0]} flash "
+                             f"calls, step 0's forward not seen")
+    out["flash_checked"] = [list(h[0].shape) + [h[1].shape[1]] for h in held]
+    out["flash_max_err"] = max(_flash_diff(
+        got.to(DEVICE), FA.flash_attention_plain(
+            q.to(DEVICE), k.to(DEVICE), v.to(DEVICE), causal))
+        for q, k, v, got, causal in held)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_policies(seed: int, smi: str) -> dict:
+    """(f) granite-3-2b at full width and depth, bf16, B 1 x S 4096:
+    REMAT_STEPS steps at each of REMAT_RUNS ("everything" twice).  Flash
+    launches 40 a step keeping everything, 80 rematerialising; each
+    policy's losses and grad_norms bitwise the first "everything" run's,
+    or within the two "everything" runs' spread; ms per step, peak memory
+    and the memory allocated before the first step."""
+    from repro_torch.configs import registry as R
+
+    runs = []
+    for policy in REMAT_RUNS:
+        runs.append(_remat_run(seed, policy))
+        log(f"phase 15 (f) {TRAIN_ARCH} remat {policy!r}, B {REMAT_BATCH} "
+            f"x S {REMAT_SEQ}, bf16 ({smi}): {json.dumps(runs[-1])}")
+    layers = R.get_arch(TRAIN_ARCH).n_layers
+    first, again = runs[0], runs[-1]
+    spread = {k: [abs(a - b) for a, b in zip(first[k], again[k])]
+              for k in ("loss", "grad_norm")}
+    for r in runs:
+        calls = (1 if r["policy"] == "everything" else FLASH_CALLS_A_LAYER)
+        want = REMAT_STEPS * layers * calls
+        if r["launches"] != {"flash_attention": want,
+                             "flash_attention_wgmma": want}:
+            raise AssertionError(f"phase 15 (f) {r['policy']}: launches "
+                                 f"{r['launches']}, expected {want}")
+        for k in ("loss", "grad_norm"):
+            gaps = [abs(a - b) for a, b in zip(r[k], first[k])]
+            if not all(math.isfinite(x) for x in r[k]) or any(
+                    g > s for g, s in zip(gaps, spread[k])):
+                raise AssertionError(f"phase 15 (f) {r['policy']}: {k} "
+                                     f"{r[k]} against {first[k]}, outside "
+                                     f"the spread {spread[k]}")
+    out = {r["policy"]: r for r in runs[:-1]}
+    out["again"] = again
+    out["bitwise"] = {r["policy"]: r["loss"] == first["loss"]
+                      and r["grad_norm"] == first["grad_norm"]
+                      for r in runs[1:]}
+    out["spread"] = spread
+    out["step_memory_ratio"] = {
+        r["policy"]: r["step_memory_gb"] / first["step_memory_gb"]
+        for r in runs[1:-1]}
+    out["flash_max_err"] = max(r["flash_max_err"] for r in runs)
+    log(f"phase 15 (f): losses and grad_norms bitwise the first "
+        f"'everything' run's: {out['bitwise']} (spread of its two runs "
+        f"{spread}); step memory (peak less the memory allocated before "
+        f"the step) against 'everything': {out['step_memory_ratio']}; "
+        f"flash at S {REMAT_SEQ}, step 0's first and last forward call of "
+        f"each run, against its plain version: max |diff| "
+        f"{out['flash_max_err']} (tolerance {FLASH_BF16_TOL} abs)")
+    out["launches"] = {"flash_attention": sum(
+        r["launches"]["flash_attention"] for r in runs)}
+    return out
 
 
 def _tiny_trainer_resume(seed: int) -> dict:
@@ -4325,7 +4482,8 @@ def vlm_train_path(seed: int, smi: str) -> dict:
     """Phase 15: (a) the flash kernel at hd 80 and 96; (b) phi-3-vision-
     4.2b served at full width and depth, bf16; (c) its first 8 layers C3
     int8; (d) granite-3-2b LM training at full width and depth; (e)
-    `Trainer.run` with a crash and a resume."""
+    `Trainer.run` with a crash and a resume; (f) granite-3-2b training at
+    S 4096 under each remat policy."""
     import dataclasses
 
     import torch
@@ -4399,9 +4557,13 @@ def vlm_train_path(seed: int, smi: str) -> dict:
     out["e"] = _tiny_trainer_resume(seed)
     out["seconds"]["e"] = time.perf_counter() - part
 
+    part = time.perf_counter()
+    out["f"] = _remat_policies(seed, smi)
+    out["seconds"]["f"] = time.perf_counter() - part
+
     out["launches"] = {
         "flash_attention": sum(out[p]["launches"]["flash_attention"]
-                               for p in "bcd"),
+                               for p in "bcdf"),
         "codebook_matmul": out["c"]["launches"]["codebook_matmul"]}
     log(f"phase 15 ({smi}) seconds: {json.dumps(out['seconds'])}")
     return out
@@ -4445,6 +4607,11 @@ MESH_UPDATE_LEAF_REL = 0.75
 MESH_PRINT_SEED = 1601          # the leaves' gaussians: seed + leaf index
 DRYRUN_CELL = ("granite-3-2b", "train_4k")   # (d): on the (16, 16) mesh
 DRYRUN_TIMEOUT_S = 600
+# (d): the reference's temp bytes of that cell (XLA's buffer assignment),
+# from `python -m repro.launch.dryrun --arch granite-3-2b --shape
+# train_4k` under jax 0.9.0 on the CPU; tests/test_torch_dryrun.py runs
+# the reference beside the port's cell and holds the two within 0.5-2x
+REF_DRYRUN_TEMP_BYTES = 11_116_425_376
 
 
 def _mesh_rank(rank: int, world: int, backend: str, tmp: str,
@@ -4558,11 +4725,14 @@ def _mesh_train(rank: int, dev, job: dict) -> dict:
     shapes, calls, flash_err, checking = set(), [0], [], [True]
     plain = ATT.flash_attention
 
+    per_step = job["layers"] * FLASH_CALLS_A_LAYER
+
     def spy(q, k, v, causal=True):
         shapes.add((tuple(q.shape), tuple(k.shape)))
         out = plain(q, k, v, causal=causal)
+        # every forward call of step 0, the first call of each later step
         if checking[0] and (calls[0] < job["layers"]
-                            or calls[0] % job["layers"] == 0):
+                            or calls[0] % per_step == 0):
             flash_err.append(_flash_diff(
                 out, FA.flash_attention_plain(q, k, v, causal)))
         calls[0] += 1
@@ -4698,15 +4868,16 @@ def _leaf_gaps(got: dict, want: dict) -> dict:
 
 def _hold_mesh(what: str, ranks: list, want: dict, layers: int,
                local_shapes: tuple) -> dict:
-    """Every rank: exactly `layers` flash calls a forward, each a launch
-    of the tensor-core kernel, at `local_shapes`, the checked ones within
+    """Every rank: exactly 2 x `layers` flash calls a step (each forward
+    and its recompute), each a launch of the tensor-core kernel, at
+    `local_shapes`, the checked ones within
     FLASH_BF16_TOL of the plain version; the ranks' losses and prints
     equal; step 0 against the one-device `want` within MESH_LOSS_REL /
     MESH_GNORM_REL and, per leaf, MESH_GRAD_LEAF_REL /
     MESH_UPDATE_LEAF_REL."""
     for r in ranks:
         for i, got in enumerate(r["launches"]):
-            n = (i + 1) * layers
+            n = (i + 1) * layers * FLASH_CALLS_A_LAYER
             expect = {"flash_attention": n, "flash_attention_wgmma": n}
             if {key: got.get(key, 0) for key in expect} != expect \
                     or r["flash_calls"][i] != n:
@@ -4769,8 +4940,12 @@ def _hold_mesh(what: str, ranks: list, want: dict, layers: int,
 
 def _dryrun_cell(device_note: str) -> dict:
     """(d) one dry-run cell in a subprocess (a fake 256-rank world on
-    the host; no card)."""
+    the host; no card): its row, its temp bytes against the reference's
+    (REF_DRYRUN_TEMP_BYTES), and its argument plus temp bytes, which must
+    stay below the card's memory."""
     import tempfile
+
+    import torch
 
     arch, shape = DRYRUN_CELL
     with tempfile.TemporaryDirectory() as tmp:
@@ -4791,14 +4966,22 @@ def _dryrun_cell(device_note: str) -> dict:
     if row["status"] != "ok" or not r["hlo_flops"] > 0 or r[
             "bottleneck"] not in ("compute", "memory", "collective"):
         raise AssertionError(f"phase 16 (d): {row}")
+    mem = row["memory"]
+    card = torch.cuda.get_device_properties(0).total_memory
     res = {"cell": f"{arch}/{shape} 16x16", "wall_s": wall,
-           "trace_s": row["trace_s"], "memory": row["memory"],
+           "trace_s": row["trace_s"], "memory": mem,
+           "temp_vs_reference": mem["temp_bytes"] / REF_DRYRUN_TEMP_BYTES,
+           "card_bytes": card,
            "flops_per_device": r["hlo_flops"],
            "bytes_per_device": r["hlo_bytes"],
            "coll_bytes": r["coll_bytes"], "bottleneck": r["bottleneck"],
            "roofline_fraction": r["roofline_fraction"]}
     log(f"phase 16 (d) dry-run cell ({device_note}, analytic H100 "
         f"constants): {json.dumps(res)}")
+    if mem["argument_bytes"] + mem["temp_bytes"] >= card:
+        raise AssertionError(f"phase 16 (d): argument + temp bytes "
+                             f"{mem['argument_bytes'] + mem['temp_bytes']} "
+                             f"do not fit the card's {card}")
     return res
 
 
@@ -4807,8 +4990,8 @@ def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
     on the card, data 1 x model 2, full width and depth; (b) data 2 x
     model 1 at 8 of its 40 layers; (c) one NCCL rank, 1 x 1, bitwise the
     one-device step; (d) one dry-run cell.  Each is held against the
-    one-device step 0 of its depth, run here first; `one_device` is phase
-    15 (d)'s record, whose step 0 the one at full depth repeats."""
+    one-device step 0 of its depth, run here first; `one_device` is phase 15 (d)'s record, whose step 0 the one at
+    full depth repeats."""
     import gc
     import tempfile
 
@@ -5407,6 +5590,98 @@ def _sass_counts(build) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 18: the examples
+# ---------------------------------------------------------------------------
+
+# quickstart: one call each of the C1 product and the C2 update
+QUICKSTART_LAUNCHES = {"zspe_spmm": 1, "lif_update": 1,
+                       "fused_timestep_codebook": 0,
+                       "fused_timestep_dense": 0, "codebook_matmul": 0,
+                       "flash_attention": 0}
+
+
+def _kernel_modules() -> tuple:
+    """The kernel wrappers' modules, each with its `launches` counts."""
+    from repro_torch.kernels import codebook_matmul as CBM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_timestep as FT
+    from repro_torch.kernels import lif_update as LU
+    from repro_torch.kernels import zspe_spmm as ZS
+
+    return ZS, LU, FT, CBM, FA
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(smi: str) -> dict:
+    """Phase 18: examples/torch_quickstart.py on the card (exactly one
+    zspe_spmm and one lif_update launch, no other; the product against
+    the f64 product of the script's own spikes and weights by phase 3's
+    rule, the LIF step against its plain version on the kernel's
+    current by `check_step`; how far the card's run lies from the same
+    script on the CPU is logged), then examples/torch_snn_nmnist_e2e.py
+    at its defaults (train, quantize, compile, simulate on the compiled
+    engine; its differential check against the interpretive reference
+    engine must pass)."""
+    import torch
+
+    from repro_torch.kernels import lif_update as LU
+
+    out = {}
+    t0 = time.perf_counter()
+    quick = _example("torch_quickstart")
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    got = quick.main([])
+    torch.cuda.synchronize()
+    launches = {k: v for mod in _kernel_modules()
+                for k, v in mod.launches.items() if k in QUICKSTART_LAUNCHES}
+    if launches != QUICKSTART_LAUNCHES:
+        raise AssertionError(f"phase 18 quickstart: launches {launches}, "
+                             f"expected {QUICKSTART_LAUNCHES}")
+    cur = got["zspe_out"]
+    err = _assert_close("phase 18 quickstart zspe_spmm", cur,
+                        _exact_product(got["spikes"], got["weights"]))
+    v0, el0 = torch.zeros_like(cur), torch.zeros_like(cur, dtype=torch.int32)
+    lif_err = check_step("phase 18 quickstart lif_update", got["lif"],
+                         LU.lif_update_plain(v0, el0, cur, threshold=1.0,
+                                             leak=0.9, reset=0.0),
+                         LIF_INTS, _lif_v_int(v0, el0, cur, 0.9))
+    cpu = quick.main(["--device", "cpu"])
+    q, qc = got["quantized"], cpu["quantized"]
+    out["quickstart"] = {
+        "launches": launches, "zspe_max_abs_err": err,
+        "lif_v_max_abs_err": lif_err,
+        "fit_bitwise_the_cpu_run": bool(
+            torch.equal(q.idx.cpu(), qc.idx)
+            and torch.equal(q.codebook.cpu(), qc.codebook)),
+        "current_vs_cpu_run": float((cur.cpu() - cpu["zspe_out"]).abs().max()),
+        "touched_differing_from_cpu_run": int(
+            (got["lif"][3].cpu() != cpu["lif"][3]).sum()),
+        "seconds": time.perf_counter() - t0}
+    log(f"phase 18 quickstart: {json.dumps(out['quickstart'])}")
+    t0 = time.perf_counter()
+    e2e = _example("torch_snn_nmnist_e2e").main([])
+    rep = e2e["report"]
+    out["e2e"] = {"acc_fp": e2e["acc_fp"], "acc_q": e2e["acc_q"],
+                  "pj_per_sop": rep.pj_per_sop, "power_mw": rep.power_mw,
+                  "engine_ms": e2e["seconds"] * 1e3,
+                  "differential_check": "passed",
+                  "seconds": time.perf_counter() - t0}
+    log(f"phase 18 e2e ({smi}): {json.dumps(out['e2e'])}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5522,6 +5797,11 @@ def main() -> int:
     ms = mesh_serve_path(args.seed, smi)
     log(f"mesh serving phase: {time.perf_counter() - t0:.1f} s")
 
+    # 18. the examples
+    t0 = time.perf_counter()
+    ex = examples_path(smi)
+    log(f"examples phase: {time.perf_counter() - t0:.1f} s")
+
     # kernels line, then the result; launches from phase 4 (fused), phase
     # 7 (the faulted runs), phase 8 (the plastic runs), phase 9 (the SNN
     # server), phase 11 (deploy and adaptation), phase 12 (the spawned
@@ -5530,10 +5810,11 @@ def main() -> int:
     # runs, bf16 and C3 int8, and the 4-bit dense run), phase 14 (the
     # served mamba2 C3 run and whisper's served run) and phase 15 (the
     # served phi-3-vision runs, bf16 and C3 int8, and granite-3-2b's
-    # training steps), phase 16 (the meshed training steps of every
-    # rank) and phase 17 (every rank's meshed served run)
+    # training steps, and the remat policies' steps), phase 16 (the
+    # meshed training steps of every rank), phase 17 (every rank's meshed
+    # served run) and phase 18 (the quickstart's calls)
     launches = dict(mp["launches"])
-    for loop in [fp, pp, sp, dp, shp, *api.values()]:
+    for loop in [fp, pp, sp, dp, shp, ex, *api.values()]:
         for kname, count in loop["launches"].items():
             launches[kname] = launches.get(kname, 0) + count
     launches["flash_attention"] = (lm["launches"]["flash_attention"]

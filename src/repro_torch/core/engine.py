@@ -167,6 +167,15 @@ class FusedLayerWeights:
     def codebook_mode(self) -> bool:
         return self.idx is not None
 
+    def hbm_bytes_per_step(self, batch: int) -> int:
+        """Weight + input-spike HBM traffic for one timestep at `batch`:
+        the int8 indexes and f32 level values (or the f32 dense weights)
+        and the batch's uint16 spike words."""
+        spikes = batch * self.kw * 2
+        if self.codebook_mode:
+            return self.idx.numel() + self.cbw.numel() * 4 + spikes
+        return self.dense.numel() * 4 + spikes
+
 
 def _lower_codebook_layer(sim: "ChipSimulator", li: int, fill: float = 0.0,
                           ) -> tuple[np.ndarray, np.ndarray] | None:
@@ -1110,6 +1119,10 @@ class FusedEngine(_EngineBase):
     @property
     def codebook_layers(self) -> int:
         return sum(lw.codebook_mode for lw in self.fused_weights)
+
+    def hbm_bytes_per_step(self, batch: int) -> int:
+        """Weight + spike HBM bytes per timestep (the fused operands)."""
+        return sum(lw.hbm_bytes_per_step(batch) for lw in self.fused_weights)
 
     def _layer_apply(self, lw: FusedLayerWeights, packed, state: LIFState):
         from repro_torch.kernels.fused_timestep import (

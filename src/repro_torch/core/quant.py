@@ -55,6 +55,10 @@ class CodebookConfig:
     def index_bits(self) -> int:
         return max(1, (self.n_levels - 1).bit_length())
 
+    def bits_per_weight(self) -> float:
+        """Storage cost per synapse (indexes dominate; table is amortized)."""
+        return float(self.index_bits)
+
 
 class QuantizedTensor(NamedTuple):
     idx: torch.Tensor       # int8, shape == original weight shape

@@ -163,3 +163,23 @@ class CycleModel:
             crit = torch.maximum(crit,
                                  torch.ceil(writes / self.geom.write_lanes))
         return crit + self.geom.pipeline_depth
+
+    def sop_count(self, n_pre: int, n_post: int, nnz: float,
+                  zero_skip: bool = True) -> float:
+        """SOPs actually *performed*.  With zero-skip only valid-spike
+        synapses are ops; the baseline performs them all (zeros included)."""
+        return (nnz if zero_skip else n_pre) * n_post
+
+    def gsops(self, n_pre: int, n_post: int, sparsity: float,
+              zero_skip: bool = True, partial_update: bool = True) -> float:
+        """Computing efficiency (GSOP/s) at a given spike sparsity: SOPs
+        delivered per second, a delivered SOP being a valid-spike synaptic
+        update (the paper's Fig. 3 convention, so at sparsity 1.0 the
+        throughput is 0).  The touched neurons are the reference's rough
+        estimate, n_post * min(1, 4 nnz / n_post)."""
+        nnz = n_pre * (1.0 - sparsity)
+        touched = n_post * min(1.0, nnz / max(n_post, 1) * 4)
+        cyc = self.timestep_cycles(n_pre, n_post, nnz, touched,
+                                   zero_skip, partial_update)
+        sops = n_pre * (1.0 - sparsity) * n_post
+        return sops / cyc * self.geom.freq_hz / 1e9

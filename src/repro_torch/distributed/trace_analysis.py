@@ -19,6 +19,11 @@ through a `TorchDispatchMode`.  The reference's rules, on aten ops:
     gathers.
   * Collectives: output bytes per `_c10d_functional` op, bucketed by
     kind, counted apart from HBM bytes.
+  * Temp bytes: the peak of the bytes of live storages that the step's
+    ops made.  A storage lives while any tensor holds it, not only the
+    op's output object: autograd keeps a saved output, and a
+    rematerialising checkpoint its cached products, through tensors of
+    their own on the same storage (`CostMode._track`).
 
 The counts are per device: the mode lets DTensor run first (it returns
 NotImplemented for DTensor operands, as `CommDebugMode` does), so it sees
@@ -37,6 +42,7 @@ import weakref
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -113,15 +119,32 @@ class CostMode(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.n_ops = 0
-
-    def _free(self, n: int) -> None:
-        self.live -= n
+        self._storages = {}         # storage key -> (weak ref, bytes)
+        self._orphans = set()       # keys whose output object has died
 
     def _track(self, out) -> None:
+        """Count `out`'s storage live until no tensor holds it.  When the
+        output object dies its storage may live on (a saved output, a
+        checkpoint's cached product): it is an orphan, checked whenever
+        the live bytes would set a new peak."""
+        storage = out.untyped_storage()
+        key = storage._cdata
+        if key in self._storages:
+            return
         n = _nbytes(out)
+        self._storages[key] = (StorageWeakRef(storage), n)
+        weakref.finalize(out, self._orphans.add, key)
         self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(out, self._free, n)
+        if self.live > self.peak:
+            self._sweep()
+            self.peak = max(self.peak, self.live)
+
+    def _sweep(self) -> None:
+        """Drop the orphans whose storage no tensor holds any more."""
+        for key in [k for k in self._orphans
+                    if self._storages[k][0].expired()]:
+            self._orphans.discard(key)
+            self.live -= self._storages.pop(key)[1]
 
     def _traffic(self, tensors) -> float:
         total = 0

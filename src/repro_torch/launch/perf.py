@@ -12,10 +12,10 @@ the H100 constants of `distributed/roofline.py` — analytic, not measured.
 `flash_kernel` and `pure_fsdp_flash` re-account the attention-score
 traffic as the flash kernel's own I/O (`kernels/flash_attention.py`
 `hbm_io_bytes`): the trace runs the kernel's plain version on the CPU,
-whose (B, H, S, S) scores the kernel keeps on chip.  A variant whose
-field the port does not act on (`remat_policy`: the port keeps
-activations for the backward and recomputes nothing) says so in the
-row's `note`, and that part is no change.
+whose (B, H, S, S) scores the kernel keeps on chip.  `remat_dots`
+rematerialises a train cell's blocks saving their 2-D products
+(`models.transformer.REMAT_POLICIES`); on prefill and decode cells, which
+run no backward, it traces the baseline's numbers, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,11 +24,6 @@ import dataclasses
 import json
 
 import torch
-
-REMAT_NOTE = ("remat_policy: the port keeps every activation for the "
-              "backward (no rematerialisation), so the field changes "
-              "nothing; only the variant's other fields act")
-
 
 def apply_variant(cfg, name: str):
     """Named optimization variants (each = one hypothesis); returns
@@ -46,8 +41,7 @@ def apply_variant(cfg, name: str):
         "moe_group_512": (r(cfg, moe_group_size=512), {}),
         "moe_small_cf1": (r(cfg, moe_group_size=256, capacity_factor=1.0),
                           {}),
-        "remat_dots": (r(cfg, moe_group_size=256, remat_policy="dots"),
-                       {"note": REMAT_NOTE}),
+        "remat_dots": (r(cfg, moe_group_size=256, remat_policy="dots"), {}),
         "gs256_no_sp": (r(cfg, moe_group_size=256), {"seq_parallel": False}),
         "no_seq_parallel": (cfg, {"seq_parallel": False}),
         "ffn_out_rs": (r(cfg, constrain_ffn_out=True), {}),
@@ -116,8 +110,6 @@ def run_variant(arch: str, shape_name: str, variant: str,
     row["variant"] = variant
     row["temp_gib"] = round(costs.temp_bytes / 2**30, 2)
     row["args_gib"] = round(args / 2**30, 2)
-    if "note" in opts:
-        row["note"] = opts["note"]
     return row
 
 
@@ -176,11 +168,10 @@ def main(argv=None):
             delta = (f"  dominant({base['bottleneck']}) "
                      f"{base[key]:.4f}s -> {r[key]:.4f}s "
                      f"({(1 - r[key]/max(base[key],1e-12))*100:+.1f}% better)")
-        note = f"  [{r['note']}]" if "note" in r else ""
         print(f"{v:20s} comp={r['t_compute_s']:.4f}s mem={r['t_memory_s']:.4f}s "
               f"coll={r['t_collective_s']:.4f}s bound={r['bottleneck']} "
               f"temp={r['temp_gib']}GiB frac={r['roofline_fraction']:.3f}"
-              f"{delta}{note}", flush=True)
+              f"{delta}", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1, default=str)

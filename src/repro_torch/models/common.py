@@ -73,8 +73,8 @@ class ArchConfig:
     quant_serving: Any = False   # C3 codebook weights in decode: True|"4bit"
     constrain_ffn_out: bool = False  # on a mesh: lay the ffn output out
                                      # before the residual add (train)
-    remat_policy: str = "nothing"    # training; no effect here (the port
-                                     # keeps activations for the backward)
+    remat_policy: str = "nothing"    # training: nothing | dots | everything
+                                     # (models.transformer.REMAT_POLICIES)
 
     @property
     def hd(self) -> int:
@@ -331,9 +331,17 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     split, takes the vocab-parallel form (`_vocab_parallel_terms`)."""
     if SH.is_dtensor(logits):
         logits, vocab_parallel = _vocab_layout(logits, rules)
-    if SH.is_dtensor(logits) and vocab_parallel:
-        lse, ll = _vocab_parallel_terms(logits, labels)
+        lse, ll = (_vocab_parallel_terms(logits, labels) if vocab_parallel
+                   else _row_terms_on_shards(logits, labels))
     else:
+        # One device keeps the plain f32 chain, not `_RowTerms`: at
+        # mesh=None a training step issues the ops it issued before the
+        # mesh came (tests/test_torch_mesh_train.py
+        # `test_no_mesh_issues_the_one_device_ops` holds them to a
+        # record), and the chain is what `_RowTerms` is held to bitwise.
+        # Its cost is the f32 logits kept for the backward, a
+        # (1, 4096, 49155) tensor of 0.8 GB at granite-3-2b B 1 x S 4096,
+        # where a train_4k mesh device's rows would be 12 GiB.
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -360,6 +368,67 @@ def _vocab_layout(logits, rules: SH.ShardingRules):
     if tuple(logits.placements) != want:
         logits = logits.redistribute(mesh, want)
     return logits, split
+
+
+# f32 bytes of logits a slab of `_RowTerms` converts at a time
+ROW_SLAB_BYTES = 2 ** 28
+
+
+class _RowTerms(torch.autograd.Function):
+    """(logsumexp, the label's logit) of each row of logits (..., V) in
+    f32, the unsplit-vocab terms of `cross_entropy_loss` on each device's
+    rows, a slab of ROW_SLAB_BYTES (in f32) at a time.  The ops and their
+    gradient are the one-device ones (`logits.float()`, `logsumexp`,
+    `gather`; exp(x - lse) times the lse gradient with the label's
+    gradient added at its column, rounded to the logits' type), so a
+    single slab is bitwise the one-device loss.  Only the logits in their
+    own type are kept for the backward: autograd of the f32 chain keeps
+    f32 copies of every row (the (16, 4096, 49155) logits of a train_4k
+    device are 12 GiB in f32)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        flat = logits.reshape(-1, logits.shape[-1])
+        idx = labels.reshape(-1, 1).long()
+        lse = torch.empty(flat.shape[0], dtype=torch.float32,
+                          device=flat.device)
+        ll = torch.empty_like(lse)
+        for rows in _row_slabs(flat):
+            x = flat[rows].float()
+            lse[rows] = torch.logsumexp(x, dim=-1)
+            ll[rows] = torch.gather(x, -1, idx[rows])[:, 0]
+        ctx.save_for_backward(flat, idx, lse)
+        ctx.shape = logits.shape
+        return lse.view(logits.shape[:-1]), ll.view(logits.shape[:-1])
+
+    @staticmethod
+    def backward(ctx, g_lse, g_ll):
+        flat, idx, lse = ctx.saved_tensors
+        zeros = torch.zeros_like(lse)
+        g_lse = zeros if g_lse is None else g_lse.reshape(-1)
+        g_ll = zeros if g_ll is None else g_ll.reshape(-1)
+        grad = torch.empty_like(flat)
+        for rows in _row_slabs(flat):
+            d = g_lse[rows, None] * (flat[rows].float()
+                                     - lse[rows, None]).exp()
+            grad[rows] = d.scatter_add_(-1, idx[rows], g_ll[rows, None])
+        return grad.view(ctx.shape), None
+
+
+def _row_slabs(flat) -> list:
+    """Row slices of (R, V) `flat` of at most ROW_SLAB_BYTES in f32."""
+    step = max(1, ROW_SLAB_BYTES // (4 * flat.shape[1]))
+    return [slice(i, i + step) for i in range(0, flat.shape[0], step)]
+
+
+def _row_terms_on_shards(logits, labels):
+    """(logsumexp, the label's logit) of DTensor logits (..., V) with the
+    vocab dim whole: `_RowTerms` on each device's rows."""
+    mesh = logits.device_mesh
+    spec = SH.spec_of(logits.placements, logits.ndim, mesh)
+    rows = SH.P(*tuple(spec)[:-1])
+    return SH.on_shards(_RowTerms.apply, mesh, (logits, labels),
+                        (spec, rows), (rows, rows))
 
 
 def _vocab_parallel_terms(logits, labels):

@@ -4,12 +4,14 @@ group-local dispatch (mesh-TF / t5x style).
 Port of `repro.models.moe`.  Tokens are reshaped into G groups of
 `group_size`; each group dispatches into per-expert capacity buffers by
 one-hot products, so dispatch tensors stay O(tokens * k * cf),
-independent of E.  The reference's expert-parallel sharding over its
-mesh has no counterpart on one card: the dispatch, the expert SwiGLU and
-the combine are `torch.einsum` products (large batched GEMMs, which the
-reference computes outside any Pallas kernel too).  The router product
-goes through `linear`, so a C3-quantized router runs on the
-`codebook_matmul` kernel.
+independent of E.  The dispatch, the expert SwiGLU and the combine are
+`torch.einsum` products (large batched GEMMs, which the reference
+computes outside any Pallas kernel too).  On a device mesh the experts
+are sharded as the reference's expert parallelism shards them: each
+device runs its own experts on its rows (`_moe_on_shards`) and the
+partial outputs and aux terms are summed over the experts' axes.  The
+router product goes through `linear`, so a C3-quantized router runs on
+the `codebook_matmul` kernel.
 """
 from __future__ import annotations
 

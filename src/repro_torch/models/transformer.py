@@ -20,9 +20,13 @@ maps `blocks` only, never `shared_attn` or the encoder.
 The vlm family's layer is the dense layer; its stub CLIP frontend's patch
 embeddings (B, n_patches, d) go before the text (`_maybe_concat_patches`)
 and occupy cache positions.  `forward_train` runs with autograd, layer by
-layer; the reference's `jax.checkpoint` rematerialisation has no
-counterpart here (it trades memory for recompute and leaves the numbers
-as they are), so activations are kept for the backward.
+layer, rematerialised as the reference's `jax.checkpoint` regions are
+(`REMAT_POLICIES`, `torch.utils.checkpoint`): each block of the dense,
+vlm, moe and ssm families under `cfg.remat_policy`, the hybrid's
+shared-attention groups with each SSM block nested inside, and the audio
+family's encoder and decoder blocks, always saving nothing.  A region's
+forward runs again in the backward; the numbers are those of keeping
+every activation.
 
 On a device mesh the parameters are DTensors (`launch/steps.py`
 `shard_params`, by `param_specs`, the reference's logical axes) and the
@@ -35,11 +39,13 @@ are the one-device ops.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as CK
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as SH
@@ -431,15 +437,21 @@ def _ssm_block(x, lp, cfg: ArchConfig, rules: SH.ShardingRules = SH.ShardingRule
 
 
 def _encoder_forward(params: Transformer, cfg: ArchConfig, frames,
-                     constraint: Callable | None = None):
-    """whisper encoder over stub frame embeddings (B, F, d)."""
+                     constraint: Callable | None = None, remat: bool = False):
+    """whisper encoder over stub frame embeddings (B, F, d); in training
+    (`remat`) each block is one region saving nothing."""
     x = _as_input(frames.to(cfg.dtype), params.enc_final_norm)
-    for lp in params.encoder:
-        x = x + attention_encoder(rms_norm(x, lp["ln1"], cfg.norm_eps), lp,
+    run = REMAT_POLICIES["nothing" if remat else "everything"]
+
+    def body(c, lp):
+        c = c + attention_encoder(rms_norm(c, lp["ln1"], cfg.norm_eps), lp,
                                   cfg, rules=SH.rules_of(constraint))
-        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp_wi"],
+        c = c + swiglu(rms_norm(c, lp["ln2"], cfg.norm_eps), lp["mlp_wi"],
                        lp["mlp_wg"], lp["mlp_wo"])
-        x = _constrained(constraint, x)
+        return _constrained(constraint, c)
+
+    for lp in params.encoder:
+        x = run(body, x, lp)
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
@@ -506,6 +518,50 @@ def _maybe_concat_patches(x, batch: dict, cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`dots_with_no_batch_dims_saveable`: keep the outputs of the 2-D
+    products (`aten.mm` / `aten.addmm`, every `linear`), recompute the
+    rest: the batched products (attention scores, the moe expert einsums,
+    the SSD scan's), the flash route's `autograd.Function` and every
+    elementwise op."""
+    return (CK.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CK.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_saving_nothing(fn, *args):
+    return CK.checkpoint(fn, *args, use_reentrant=False,
+                         preserve_rng_state=False)
+
+
+def _run_saving_dots(fn, *args):
+    return CK.checkpoint(fn, *args, use_reentrant=False,
+                         preserve_rng_state=False,
+                         context_fn=functools.partial(
+                             CK.create_selective_checkpoint_contexts,
+                             _save_dots))
+
+
+def _run_saving_everything(fn, *args):
+    return fn(*args)
+
+
+# The reference's `REMAT_POLICIES` (jax.checkpoint policies) as runners
+# `run(fn, *args)` of one rematerialised region: "nothing" keeps only the
+# region's inputs and recomputes its forward in the backward, "dots"
+# also keeps the 2-D products' outputs (`_save_dots`), "everything" keeps
+# every activation (no recompute).  The forwards draw no random numbers,
+# so no RNG state is kept.
+REMAT_POLICIES = {"nothing": _run_saving_nothing, "dots": _run_saving_dots,
+                  "everything": _run_saving_everything}
+
+
+# ---------------------------------------------------------------------------
 # Training loss
 # ---------------------------------------------------------------------------
 
@@ -520,7 +576,9 @@ def forward_train(params: Transformer, cfg: ArchConfig, batch: dict,
     load-balancing terms.  `constraint`, the reference's hook, lays out
     the (B, S, d) residual after the embedding and after every block
     (`distributed.sharding.make_residual_constraint` on a mesh); None
-    issues no op.
+    issues no op.  The blocks are rematerialised as the reference's are:
+    `cfg.remat_policy` names what a dense, vlm, moe or ssm block keeps
+    for the backward (`REMAT_POLICIES`; an unknown name raises KeyError).
     """
     _check_cfg(cfg)
     rules = SH.rules_of(constraint)
@@ -531,17 +589,11 @@ def forward_train(params: Transformer, cfg: ArchConfig, batch: dict,
     if cfg.family == "hybrid":
         x = _hybrid_forward(x, params, cfg, constraint)
     elif cfg.family == "audio":
-        enc = _encoder_forward(params, cfg, batch["frames"], constraint)
+        enc = _encoder_forward(params, cfg, batch["frames"], constraint,
+                               remat=True)
         x = _decoder_forward(x, params, cfg, enc, constraint)
-    elif cfg.family == "ssm":
-        for block in params.blocks:
-            x = _constrained(constraint, _ssm_block(x, block, cfg, rules))
     else:
-        auxs = []
-        for block in params.blocks:
-            x, aux = _attn_mlp_block(x, block, cfg, constraint)
-            x = _constrained(constraint, x)
-            auxs.append(aux)
+        x, auxs = _remat_blocks(x, params, cfg, constraint)
         if cfg.family == "moe":
             aux_total = 0.01 * torch.stack(auxs).sum()
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -553,34 +605,74 @@ def forward_train(params: Transformer, cfg: ArchConfig, batch: dict,
     return loss + aux_total
 
 
+def _remat_blocks(x, params: Transformer, cfg: ArchConfig,
+                  constraint: Callable | None = None):
+    """The dense, vlm, moe and ssm layers, each block and the residual
+    constraint after it one region under `cfg.remat_policy` (the
+    reference's `_scan_blocks`); returns (x, [aux per layer])."""
+    run = REMAT_POLICIES[cfg.remat_policy]
+    rules = SH.rules_of(constraint)
+
+    def body(c, block):
+        if cfg.family == "ssm":
+            out, aux = _ssm_block(c, block, cfg, rules), 0.0
+        else:
+            out, aux = _attn_mlp_block(c, block, cfg, constraint)
+        return _constrained(constraint, out), aux
+
+    auxs = []
+    for block in params.blocks:
+        x, aux = run(body, x, block)
+        auxs.append(aux)
+    return x, auxs
+
+
 def _hybrid_forward(x, params: Transformer, cfg: ArchConfig,
                     constraint: Callable | None = None):
     """zamba2: the shared attention block before every `attn_every` SSM
-    layers."""
+    layers.  Each group (the shared block and its SSM layers) is one
+    region saving nothing, and each SSM block inside it another, nested
+    (the reference's checkpointed group scan over checkpointed blocks)."""
     sp = params.shared_attn
     rules = SH.rules_of(constraint)
-    for layer, block in enumerate(params.blocks):
-        if _group(cfg, layer) is not None:
-            x = x + attention_train(rms_norm(x, sp["ln_attn"], cfg.norm_eps),
-                                    sp, cfg, rules=rules)
-            x = _constrained(constraint, x)
-        x = _constrained(constraint, _ssm_block(x, block, cfg, rules))
+    run = REMAT_POLICIES["nothing"]
+
+    def ssm(c, block):
+        return _constrained(constraint, _ssm_block(c, block, cfg, rules))
+
+    def group(c, blocks):
+        c = c + attention_train(rms_norm(c, sp["ln_attn"], cfg.norm_eps),
+                                sp, cfg, rules=rules)
+        c = _constrained(constraint, c)
+        for block in blocks:
+            c = run(ssm, c, block)
+        return c
+
+    k = _attn_every(cfg)
+    blocks = list(params.blocks)
+    for first in range(0, len(blocks), k):
+        x = run(group, x, blocks[first:first + k])
     return x
 
 
 def _decoder_forward(x, params: Transformer, cfg: ArchConfig, enc,
                      constraint: Callable | None = None):
-    """whisper decoder over the encoder output `enc` (B, F, d)."""
+    """whisper decoder over the encoder output `enc` (B, F, d); each
+    block one region saving nothing."""
     eps = cfg.norm_eps
     rules = SH.rules_of(constraint)
-    for lp in params.blocks:
-        x = x + attention_train(rms_norm(x, lp["ln1"], eps), lp, cfg,
+
+    def body(c, lp):
+        c = c + attention_train(rms_norm(c, lp["ln1"], eps), lp, cfg,
                                 rules=rules)
-        x = x + attention_cross(rms_norm(x, lp["ln_x"], eps), enc, lp, cfg,
+        c = c + attention_cross(rms_norm(c, lp["ln_x"], eps), enc, lp, cfg,
                                 rules=rules)
-        x = x + swiglu(rms_norm(x, lp["ln2"], eps), lp["mlp_wi"],
+        c = c + swiglu(rms_norm(c, lp["ln2"], eps), lp["mlp_wi"],
                        lp["mlp_wg"], lp["mlp_wo"])
-        x = _constrained(constraint, x)
+        return _constrained(constraint, c)
+
+    for lp in params.blocks:
+        x = REMAT_POLICIES["nothing"](body, x, lp)
     return x
 
 

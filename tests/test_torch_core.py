@@ -303,3 +303,27 @@ def test_from_register_entry_matches_reference(n, w):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy()[1:],
                                   np.asarray(REF_Q.dequantize(ref))[1:])
+
+
+@pytest.mark.parametrize("n", REF_Q.VALID_N)
+def test_bits_per_weight_matches_reference(n):
+    got = Q.CodebookConfig(n_levels=n).bits_per_weight()
+    assert got == REF_Q.CodebookConfig(n_levels=n).bits_per_weight()
+    assert isinstance(got, float)
+
+
+@pytest.mark.parametrize("zero_skip,partial_update",
+                         [(True, True), (True, False), (False, True),
+                          (False, False)])
+def test_sop_count_and_gsops_match_reference(zero_skip, partial_update):
+    """The scalar throughput model at the ARCH layers' (n_pre, n_post)
+    over sparsities 0 .. 1, and the SOPs at fractional nnz."""
+    got, want = Z.CycleModel(), REF_Z.CycleModel()
+    for n_pre, n_post in ((2312, 4096), (4096, 1024), (1024, 10), (1, 1)):
+        for sparsity in (0.0, 0.1, 0.5, 0.9, 0.99, 1.0):
+            assert got.gsops(n_pre, n_post, sparsity, zero_skip,
+                             partial_update) == want.gsops(
+                n_pre, n_post, sparsity, zero_skip, partial_update)
+        for nnz in (0.0, 3.0, 17.25):
+            assert got.sop_count(n_pre, n_post, nnz, zero_skip) == \
+                want.sop_count(n_pre, n_post, nnz, zero_skip)

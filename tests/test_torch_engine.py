@@ -121,3 +121,45 @@ def test_unknown_engine_and_index_weights_rejected():
         np.float32)
     with pytest.raises(ValueError, match="look like codebook"):
         ChipSimulator([idx_like], quant_cfg=CodebookConfig(), device="cpu")
+
+
+def _arch_quantized(sizes, seed=0):
+    """Index weights of the layer sizes on a 16-level, 8-bit codebook
+    (no fit: a grid of levels, random indexes)."""
+    from repro.core.quant import QuantizedTensor
+
+    rng = np.random.default_rng(seed)
+    scale = np.float32(2.0 ** -7)
+    cb = (np.arange(-8, 8, dtype=np.float32) * 3 + 1) * scale
+    return [QuantizedTensor(
+        idx=jax.numpy.asarray(rng.integers(0, 16, (sizes[i], sizes[i + 1]),
+                                           dtype=np.int8)),
+        codebook=jax.numpy.asarray(cb[None]),
+        scale=jax.numpy.asarray([scale]), group_axis_size=0)
+        for i in range(len(sizes) - 1)]
+
+
+def test_hbm_bytes_per_step_matches_reference():
+    """`FusedEngine.hbm_bytes_per_step` of the paper's network (ARCH,
+    codebook form) and `FusedLayerWeights.hbm_bytes_per_step` of each of
+    its layers and of a float network's (dense form)."""
+    from repro.configs.snn_chip import ARCH
+
+    ref = RefChipSimulator(_arch_quantized(ARCH.layer_sizes),
+                           quant_cfg=RefCodebookConfig(16, 8),
+                           engine="fused", mapping_strategy="greedy")
+    port = port_from_reference(ref, engine="fused")
+    want, got = ref.fused_engine(), port.fused_engine()
+    assert got.codebook_layers == want.codebook_layers == 3
+    ref_f = RefChipSimulator([jax.numpy.asarray(w) for w in _weights(
+        SMOKE.layer_sizes)], engine="fused", freq_hz=SMOKE.freq_hz)
+    port_f = port_from_reference(ref_f, engine="fused")
+    assert port_f.fused_engine().codebook_layers == 0
+    for batch in (1, 32):
+        assert got.hbm_bytes_per_step(batch) == want.hbm_bytes_per_step(
+            batch)
+        for eng_ref, eng in ((want, got), (ref_f.fused_engine(),
+                                           port_f.fused_engine())):
+            assert [lw.hbm_bytes_per_step(batch) for lw in
+                    eng.fused_weights] == [lw.hbm_bytes_per_step(batch)
+                                           for lw in eng_ref.fused_weights]

@@ -12,8 +12,10 @@ SMOKE sizes.
 * `Trainer` runs and resumes, and checkpoints cross between the two
   packages' trainers in the reference's layout.
 
-Tolerances: the loss within 1e-5 relative; each gradient leaf within
-1e-4 of the leaf's largest magnitude.
+Both packages train at their remat default ("nothing": every block
+recomputed in the backward; tests/test_torch_remat.py holds the port's
+policies to each other).  Tolerances: the loss within 1e-5 relative;
+each gradient leaf within 1e-4 of the leaf's largest magnitude.
 """
 import dataclasses
 import shutil
@@ -118,6 +120,34 @@ def _grads(model, cfg, batch):
 # ---------------------------------------------------------------------------
 # the loss and the flash route's backward
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("slab_rows", [None, 3], ids=["one-slab", "slabs"])
+def test_row_terms_are_the_one_device_loss(monkeypatch, slab_rows):
+    """The meshed loss's per-device terms (`common._RowTerms`): in one
+    slab, the logsumexp, the label's logit and the bf16 gradient of a
+    z-loss of them are bitwise the one-device chain's; in slabs of 3 rows
+    (of 14), the same."""
+    rng = np.random.default_rng(3)
+    logits = torch.tensor(rng.normal(0, 3, (2, 7, 50)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    labels = torch.tensor(rng.integers(0, 50, (2, 7)).astype(np.int32))
+    if slab_rows:
+        monkeypatch.setattr(TC, "ROW_SLAB_BYTES", 4 * 50 * slab_rows)
+
+    def loss(lse, ll):
+        return (lse - ll + 1e-4 * lse ** 2).mean()
+
+    a = logits.clone().requires_grad_()
+    got = TC._RowTerms.apply(a, labels)
+    (g_got,) = torch.autograd.grad(loss(*got), a)
+    b = logits.clone().requires_grad_()
+    x = b.float()
+    want = (torch.logsumexp(x, dim=-1),
+            torch.gather(x, -1, labels.long()[..., None])[..., 0])
+    (g_want,) = torch.autograd.grad(loss(*want), b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert g_got.dtype == torch.bfloat16 and torch.equal(g_got, g_want)
+
 
 @pytest.mark.parametrize("masked", [False, True], ids=["mean", "masked"])
 def test_cross_entropy_loss_matches_reference(masked):

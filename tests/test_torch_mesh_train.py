@@ -9,7 +9,9 @@ reference's initial weights carried across by `convert_lm`.  Held:
 * each step's loss within 1e-5 relative of the reference's
   `make_train_step` on the same weights and batches, and of the port's
   one-device step; every rank reports the same loss and grad_norm; the
-  parameters are DTensors laid out by their specs;
+  parameters are DTensors laid out by their specs; at world 2 the dense
+  step at the remat policies "nothing" (the default) and "dots" is
+  bitwise the step keeping every activation;
 * the pure-FSDP rules (`FSDP_RULES`) at world 4, the same losses;
 * a prefill and three greedy decode steps at world 4 against one
   device within 1e-5 of the logits' largest magnitude: the kv heads
@@ -18,11 +20,13 @@ reference's initial weights carried across by `convert_lm`.  Held:
 * `Trainer(mesh=...)`: a checkpoint written at world 4 restores at world
   2, and the resumed run's loss and parameters are the uninterrupted
   one-device run's;
-* `make_train_step` with `mesh=None`, the forwards with
-  `constraint=None` and `Server` issue the aten ops the port issued
-  before its mesh layer (a record in tests/data), but for the
-  embedding's; `embed_tokens` (F.embedding) is bitwise the old row
-  index, values and gradients.
+* `make_train_step` with `mesh=None` (keeping every activation:
+  `remat_policy` "everything", tests/torch_one_device_ops.py
+  `no_remat`), the forwards with `constraint=None` and `Server` issue
+  the aten ops the port issued before its mesh layer (a record in
+  tests/data), but for the embedding's; `embed_tokens` (F.embedding) is
+  bitwise the old row index, values and gradients.  The steps at the
+  remat default are held in tests/test_torch_remat.py.
 """
 import dataclasses
 import functools
@@ -64,6 +68,9 @@ FAMILIES = {"dense": ("granite-3-2b", 32), "vlm": ("phi-3-vision-4.2b", 24),
             "moe": ("granite-moe-1b-a400m", 32), "ssm": ("mamba2-130m", 24),
             "hybrid": ("zamba2-2.7b", 16), "audio": ("whisper-tiny", 16)}
 DECODE = {"kv_heads": {}, "kv_positions": {"n_kv_heads": 1}}
+# the dense case again at the other remat policies (the default,
+# "nothing", is the train case itself)
+REMAT = ("dots", "everything")
 CKPT = dict(arch="granite-3-2b", batch=4, seq=16, seed=5)
 
 
@@ -108,7 +115,8 @@ def _train_cases():
         _, params = _params(arch)
         cases[fam] = dict(kind="train", arch=arch, params=params,
                           batches=[_torch(b) for b in _batches(
-                              _cfgs(arch)[1], s)], opt=OPT)
+                              _cfgs(arch)[1], s)], opt=OPT,
+                          return_params=fam == "dense")
     return cases
 
 
@@ -132,7 +140,9 @@ def runs(tmp_path_factory):
             *(_decode_case(**kw) for kw in DECODE.values()),
             dict(kind="checkpoint", steps=2, ckpt_dir=ckpt, **CKPT)]
     w4 = spawn_mesh_ranks(tmp_path_factory.mktemp("w4"), 4, 2, four)
-    two = [*cases.values(),
+    remat = [dict(cases["dense"], cfg={"remat_policy": p},
+                  return_params=True) for p in REMAT]
+    two = [*cases.values(), *remat,
            dict(kind="checkpoint", steps=3, ckpt_dir=ckpt, **CKPT)]
     w2 = spawn_mesh_ranks(tmp_path_factory.mktemp("w2"), 2, 2, two)
     n = len(FAMILIES)
@@ -143,6 +153,8 @@ def runs(tmp_path_factory):
                            for i, k in enumerate(DECODE)},
                 "checkpoint": [r[-1] for r in w4]},
             2: {"train": {f: [r[i] for r in w2] for i, f in enumerate(cases)},
+                "remat": {p: [r[n + i] for r in w2]
+                          for i, p in enumerate(REMAT)},
                 "checkpoint": [r[-1] for r in w2]}}
 
 
@@ -171,7 +183,7 @@ def _one_device_family(family: str) -> tuple:
 
 
 def _one_device_losses(case) -> tuple:
-    cfg = _cfgs(case["arch"])[1]
+    cfg = _cfgs(case["arch"], **case.get("cfg", {}))[1]
     model = TT.model_from(cfg, {k: v.clone()
                                 for k, v in case["params"].items()})
     opt = TA.init(dict(model.named_parameters()))
@@ -205,6 +217,27 @@ def test_mesh_training_matches_reference(runs, family, world):
     assert placements["embed"] == ("Shard(1)", "Shard(0)")
     assert any("Shard" in str(p) for n, p in placements.items()
                if n.startswith("blocks.0."))
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_mesh_remat_is_bitwise_keeping_everything(runs, policy):
+    """The dense case on the world-2 mesh at `policy` ("nothing": the
+    train case itself): loss, grad_norm and updated parameters bitwise
+    the same mesh step keeping every activation, and the losses within
+    LOSS_REL of the one-device step at the same policy."""
+    ranks = (runs[2]["train"]["dense"] if policy == "nothing"
+             else runs[2]["remat"][policy])
+    kept = runs[2]["remat"]["everything"][0]
+    got = ranks[0]
+    assert all(r["loss"] == got["loss"] for r in ranks)
+    assert got["loss"] == kept["loss"]
+    assert got["grad_norm"] == kept["grad_norm"]
+    assert got["params"].keys() == kept["params"].keys()
+    assert all(torch.equal(got["params"][n], kept["params"][n])
+               for n in kept["params"])
+    case = dict(runs["cases"]["dense"], cfg={"remat_policy": policy})
+    want = _one_device_losses(case)
+    assert _close(got["loss"], want), (got["loss"], want)
 
 
 def test_fsdp_rules_train_the_same(runs):
@@ -282,10 +315,10 @@ def _as_before(ops: list) -> list:
 
 @pytest.mark.parametrize("arch", one_device_ops.FAMILIES)
 def test_no_mesh_issues_the_one_device_ops(arch):
-    """With `mesh=None` and `constraint=None`, `make_train_step`,
-    `forward_prefill`, `forward_decode` and `Server` issue the aten ops
-    the port issued before its mesh layer, op for op, but for the
-    embedding's."""
+    """With `mesh=None` and `constraint=None`, `make_train_step` keeping
+    every activation, `forward_prefill`, `forward_decode` and `Server`
+    issue the aten ops the port issued before its mesh layer, op for op,
+    but for the embedding's."""
     before = one_device_ops.unpack(json.loads(PARENT_OPS.read_text()))
     now = _ops_now()
     cases = [k for k in before if k.startswith(f"{arch}/")]

@@ -4,9 +4,12 @@
 `make_train_step` step, one `forward_prefill`, one `forward_decode` and
 one `Server` request (a prompt of 6 tokens, 3 new ones), each from
 seeded weights and tokens, and returns {case: [op name, ...]} in issue
-order.  It calls only entry points whose one-device signatures predate
-the port's mesh layer, so it runs on a checkout from before that layer
-as well:
+order.  The train step keeps every activation (`remat_policy`
+"everything", and every fixed region of the hybrid and audio families
+too: `no_remat`), which is what the port did before it rematerialised.
+It calls only entry points whose one-device signatures predate the
+port's mesh layer, so it runs on a checkout from before that layer as
+well:
 
     PYTHONPATH=src python tests/torch_one_device_ops.py OUT.json
 
@@ -17,6 +20,8 @@ tests/test_torch_mesh_train.py holds the current ops to it.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import sys
 
@@ -45,6 +50,22 @@ def ops_of(fn) -> list:
     with mode:
         fn()
     return mode.ops
+
+
+@contextlib.contextmanager
+def no_remat():
+    """Every rematerialised region of `forward_train` keeps its
+    activations: each policy of `models.transformer.REMAT_POLICIES` runs
+    as "everything" (a tree without the table is left as it is)."""
+    from repro_torch.models import transformer as T
+
+    table = getattr(T, "REMAT_POLICIES", {})
+    saved = dict(table)
+    table.update({k: table["everything"] for k in table})
+    try:
+        yield
+    finally:
+        table.update(saved)
 
 
 def _batch(cfg, rng) -> dict:
@@ -78,8 +99,12 @@ def record() -> dict:
 
         params = model()
         opt = adamw.init(dict(params.named_parameters()))
-        step = ST.make_train_step(cfg, adamw.AdamWConfig())
-        out[f"{name}/train_step"] = ops_of(lambda: step(params, opt, batch))
+        step = ST.make_train_step(
+            dataclasses.replace(cfg, remat_policy="everything"),
+            adamw.AdamWConfig())
+        with no_remat():
+            out[f"{name}/train_step"] = ops_of(
+                lambda: step(params, opt, batch))
         params = model()
         cache = CACHE + (cfg.n_patches if cfg.family == "vlm" else 0)
         prompt = {k: v for k, v in batch.items() if k != "labels"}
