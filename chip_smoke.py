@@ -9,8 +9,9 @@ Phases, each of which must pass:
 2. build  — every CUDA source under src/repro_torch/kernels/csrc, one
    `nvcc` each, all started together; ptxas registers and spills per
    kernel; the flash library's SASS must hold `HGMMA` (wgmma) and
-   `UTMALDG` (TMA) instructions, the fused timestep's `DMMA` (f64 tensor
-   cores);
+   `UTMALDG` (TMA) instructions, in each of its tensor-core
+   instantiations (hd 64, 96 and 128), the fused timestep's `DMMA` (f64
+   tensor cores);
 3. kernels — each fused-timestep kernel against its plain torch version
    on the card, at the three layer shapes of the paper's network
    (configs/snn_chip.py ARCH: 2312-4096-1024-10) with a batch of 32, over
@@ -247,8 +248,17 @@ Phases, each of which must pass:
    512 against 511 + 1 (the 511 prefill on the plain route).
 
 15. the vlm family and LM training — right after phase 14: (a) the flash
-   kernel's SIMT instantiations at hd 80 and 96; (b) phi-3-vision-4.2b
-   served at full width and depth, bf16; (c) its first 8 layers C3 int8;
+   kernel at hd 80 and 96 (f32 at both and bf16 hd 80 on the SIMT
+   kernel, bf16 hd 96 on the tensor-core kernel, launches counted per
+   route; T > S,
+   S > T, GQA group 4, non-causal, phi-3-vision's prefill shape and a V
+   whose columns differ) against its plain version, then timed at
+   phi-3-vision's prefill shape (B 4, H = KV = 32, S = T = 640, hd 96,
+   bf16, causal) beside the plain version,
+   `scaled_dot_product_attention` and the bound, hd 64 and 128 beside it (`flash_head_dim_times`, which also runs alone against an
+   older tree's src); (b) phi-3-vision-4.2b served at full width and
+   depth, bf16, every flash launch on the tensor-core kernel; (c) its
+   first 8 layers C3 int8;
    (d) granite-3-2b training at full width and depth, bf16, B 2 x S 512,
    4 `make_train_step` steps at the remat default ("nothing"), exactly
    320 flash launches (each layer's forward and its recompute); (e)
@@ -4066,7 +4076,7 @@ VLM_LONG_PROMPT = 512           # 576 + 512 = 1088 positions: plain SDPA
 VLM_CACHE = 768                 # 576 + 64 + 16 new tokens
 VLM_LONG_CACHE = 1152
 VLM_C3_LAYERS = 8               # (c): the first 8 of 32 layers
-FLASH_NEW_HEAD_DIMS = (80, 96)  # the SIMT instantiations this phase adds
+FLASH_NEW_HEAD_DIMS = (80, 96)  # the head dims this phase adds
 TRAIN_ARCH = "granite-3-2b"     # configs/granite_3_2b.py ARCH
 TRAIN_BATCH_LM, TRAIN_SEQ, TRAIN_STEPS_LM = 2, 512, 4
 # (d), (f), 16: flash calls a layer a training step under remat
@@ -4089,18 +4099,56 @@ TINY_RESUME_REL = 1e-5          # (e): final loss, resumed vs uninterrupted
 FLASH_GRAD_REL = 2.0 ** -7
 
 
-def _flash_new_dims_phase(seed: int) -> dict:
-    """(a) the SIMT instantiations at hd 80 and 96 against the plain
-    version by phase 6 (a)'s rule, then timed at phi-3-vision's prefill
-    shape (B 4, H = KV = 32, S = T = 640, hd 96, bf16, causal) beside
-    `scaled_dot_product_attention`."""
+# (B, H, KV, S, T, hd) timed by `flash_head_dim_times`: the served
+# granite-3-2b prefill, phi-3-vision's prefill (576 patches + 64 tokens)
+# and granite-3-8b's head dim at the served shape
+FLASH_TIMED_SHAPES = {64: (LM_SLOTS, 32, 8, LM_PROMPT, LM_PROMPT, 64),
+                      96: (LM_SLOTS, 32, 32, 576 + VLM_PROMPT,
+                           576 + VLM_PROMPT, 96),
+                      128: (LM_SLOTS, 32, 8, LM_PROMPT, LM_PROMPT, 128)}
+
+
+def flash_head_dim_times(seed: int) -> dict:
+    """The flash route (`flash_attention`, bf16, causal) timed at
+    FLASH_TIMED_SHAPES beside `scaled_dot_product_attention` on the same
+    inputs and the bound.  Uses only what every tree of the port has, so
+    it also times an older tree (chip_smoke.py copied beside its src):
+    there bf16 hd 96 runs the SIMT kernel."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
+    rng = np.random.default_rng(seed + 30)
+    out = {}
+    for hd, shape in FLASH_TIMED_SHAPES.items():
+        q, k, v = _flash_case(rng, *shape, torch.bfloat16,
+                              torch.device(DEVICE))
+        bound, by = _flash_bound(q, k, True)
+        out[hd] = {"shape": list(shape),
+                   "ms": _time_graph_ms(lambda: FA.flash_attention(q, k, v)),
+                   "library_ms": _time_graph_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True)),
+                   "bound_ms": bound, "bound_by": by}
+    log(f"flash_attention by head dim, bf16 causal: {json.dumps(out)}")
+    return out
+
+
+def _flash_new_dims_phase(seed: int) -> dict:
+    """(a) the flash kernel at hd 80 and 96 against the plain version by
+    phase 6 (a)'s rule, launches counted per route (bf16 hd 96 on the
+    tensor-core kernel, the rest on the SIMT kernel), then timed at
+    phi-3-vision's prefill shape (B 4, H = KV = 32, S = T = 640, hd 96,
+    bf16, causal) beside the plain version, `scaled_dot_product_attention`
+    and the bound, with hd 64 and 128 in the same call."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed + 15)
+    phi3 = FLASH_TIMED_SHAPES[96]
     cases = []
     for hd in FLASH_NEW_HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4111,34 +4159,43 @@ def _flash_new_dims_phase(seed: int) -> dict:
                                       causal))
             cases.append(((2, 8, 2, 128, 512, hd), dtype, True))   # T > S
             cases.append(((2, 8, 2, 384, 256, hd), dtype, True))   # S > T
-    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+            cases.append((phi3[:5] + (hd,), dtype, True))
+    err = {"simt": 0.0, "wgmma": 0.0}
     FA.reset_launches()
     for shape, dtype, causal in cases:
         q, k, v = _flash_case(rng, *shape, dtype, dev)
         got = FA.flash_attention(q, k, v, causal=causal)
         want = FA.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
-        err[dtype] = max(err[dtype], _flash_diff(got, want))
-    if FA.launches != {"flash_attention": len(cases),
-                       "flash_attention_wgmma": 0}:
+        route = FA._route(dtype, shape[-1])
+        err[route] = max(err[route], _flash_diff(got, want))
+    # V's columns unlike one another (v rising with the column): a panel
+    # stored at the wrong column offset or row stride shows at once
+    q, k, v = _flash_case(rng, 2, 8, 8, 640, 640, 96, torch.bfloat16, dev)
+    v = (torch.arange(96, device=dev) / 96 + 0.1 * v.float()).to(v.dtype)
+    want = FA.flash_attention_plain(q, k, v, True)
+    err["wgmma"] = max(err["wgmma"], _flash_diff(
+        FA.flash_attention(q, k, v), want))
+    wgmma = 1 + sum(1 for shape, dtype, _ in cases
+                    if FA._route(dtype, shape[-1]) == "wgmma")
+    if FA.launches != {"flash_attention": len(cases) + 1,
+                       "flash_attention_wgmma": wgmma}:
         raise AssertionError(f"phase 15 (a): launches {FA.launches} for "
-                             f"{len(cases)} SIMT cases")
+                             f"{len(cases) + 1} cases, {wgmma} of them bf16 "
+                             f"hd 96")
     log(f"phase 15 (a): flash_attention at hd {FLASH_NEW_HEAD_DIMS}: "
-        f"{len(cases)} cases agree on the SIMT kernel, max |diff| f32 "
-        f"{err[torch.float32]:.3g} (tolerance {FLASH_F32_TOL} abs + rel), "
-        f"bf16 {err[torch.bfloat16]:.3g} (tolerance {FLASH_BF16_TOL} abs)")
-    shape = (LM_SLOTS, 32, 32, 576 + VLM_PROMPT, 576 + VLM_PROMPT, 96)
-    q, k, v = _flash_case(rng, *shape, torch.bfloat16, dev)
-    bound, by = _flash_bound(q, k, True)
-    timed = {"max_abs_err": max(err.values()),
-             "ms": _time_graph_ms(lambda: FA.flash_attention(q, k, v)),
+        f"{len(cases) + 1} cases agree ({wgmma} bf16 hd 96 on the tensor-"
+        f"core kernel, {len(cases) + 1 - wgmma} on the SIMT kernel), max "
+        f"|diff| SIMT {err['simt']:.3g} (f32 tolerance {FLASH_F32_TOL} abs "
+        f"+ rel, bf16 {FLASH_BF16_TOL} abs), tensor cores "
+        f"{err['wgmma']:.3g} (tolerance {FLASH_BF16_TOL} abs)")
+    by_hd = flash_head_dim_times(seed)
+    q, k, v = _flash_case(rng, *phi3, torch.bfloat16, dev)
+    timed = {**by_hd[96], "max_abs_err": err["wgmma"],
              "plain_ms": _time_eager_ms(
                  lambda: FA.flash_attention_plain(q, k, v)),
-             "library_ms": _time_graph_ms(
-                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                        is_causal=True)),
-             "bound_ms": bound, "bound_by": by}
-    log(f"phase 15 (a): flash_attention at (B, H, KV, S, T, hd) = {shape} "
+             "hd64_ms": by_hd[64]["ms"], "hd128_ms": by_hd[128]["ms"]}
+    log(f"phase 15 (a): flash_attention at (B, H, KV, S, T, hd) = {phi3} "
         f"bf16 causal: {json.dumps(timed)}")
     return timed
 
@@ -4499,14 +4556,14 @@ def vlm_train_path(seed: int, smi: str) -> dict:
     out["seconds"]["a"] = time.perf_counter() - part
 
     # (b) phi-3-vision-4.2b bf16: 576 zero patches + 64 prompt tokens =
-    # 640 positions, the SIMT flash kernel at hd 96 in every layer
+    # 640 positions, the tensor-core flash kernel at hd 96 in every layer
     part = time.perf_counter()
     cfg, model, init_s, n_params = _lm_model(VLM_ARCH, seed + 4)
     prompts = _prompts(seed + 20, cfg.vocab, VLM_PROMPT)
     flash = batches * cfg.n_layers
     out["b"] = _measured_serve(
         cfg, model, prompts, "phase 15 (b) phi-3-vision served run",
-        {"flash_attention": flash, "flash_attention_wgmma": 0,
+        {"flash_attention": flash, "flash_attention_wgmma": flash,
          "codebook_matmul": 0}, cache_len=VLM_CACHE, init_s=init_s,
         n_params=n_params)
     out["b"].pop("out_tokens")
@@ -4533,7 +4590,7 @@ def vlm_train_path(seed: int, smi: str) -> dict:
     out["c"] = _measured_serve(
         qcfg, qmodel, prompts, "phase 15 (c) phi-3-vision C3 int8 served run",
         {"flash_attention": batches * cfg8.n_layers,
-         "flash_attention_wgmma": 0,
+         "flash_attention_wgmma": batches * cfg8.n_layers,
          "codebook_matmul": calls * batches * LM_NEW}, cache_len=VLM_CACHE)
     out["c"].pop("out_tokens")
     batch = _vlm_batch(prompts[:LM_SLOTS], cfg8)
@@ -5570,21 +5627,54 @@ SASS_NEEDS = {"flash_attention": ("HGMMA", "UTMALDG"),
               "fused_timestep": ("DMMA",)}
 
 
+# each tensor-core instantiation of the flash kernel (the mangled head
+# dim and panel width) must hold both of the flash library's needs
+SASS_FLASH_KERNELS = {"hd 64": "wgmma_kernelILi64ELi64E",
+                      "hd 96": "wgmma_kernelILi96ELi32E",
+                      "hd 128": "wgmma_kernelILi128ELi64E"}
+
+
+def _sass_functions(sass: str) -> dict:
+    """The SASS text of each function, by its mangled name."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
+def _count_ops(lines, needs) -> dict:
+    return {op: sum(op in line for line in lines) for op in needs}
+
+
 def _sass_counts(build) -> dict:
     """SASS_NEEDS counted in each built library's SASS, by
-    `cuobjdump -sass`; raises if one is missing."""
+    `cuobjdump -sass`, and in each of SASS_FLASH_KERNELS; raises if one
+    is missing."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     out = {}
     for name, needs in SASS_NEEDS.items():
         sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts = {op: sum(op in line for line in sass.splitlines())
-                  for op in needs}
+        counts = _count_ops(sass.splitlines(), needs)
         if not all(counts.values()):
             raise AssertionError(f"{name} SASS lacks one of {needs}: "
                                  f"{counts}")
         out[name] = counts
+        if name != "flash_attention":
+            continue
+        funcs = _sass_functions(sass)
+        for what, key in SASS_FLASH_KERNELS.items():
+            lines = [x for f, body in funcs.items() if key in f for x in body]
+            counts = _count_ops(lines, needs)
+            if not lines or not all(counts.values()):
+                raise AssertionError(f"flash_attention {what} ({key}) SASS "
+                                     f"lacks one of {needs}: {counts}")
+            out[f"flash_attention {what}"] = counts
     return out
 
 

@@ -1,7 +1,7 @@
 // Flash attention forward (tiled online-softmax SDPA) for NVIDIA Hopper
-// (sm_90a): a tensor-core kernel for bf16 at head dims 64 and 128, and a
-// SIMT kernel for f32 (every head dim) and bf16 at head dims 16, 32, 80 and
-// 96.
+// (sm_90a): a tensor-core kernel for bf16 at head dims 64, 96 and 128, and
+// a SIMT kernel for f32 (every head dim) and bf16 at head dims 16, 32 and
+// 80.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention.py (entry point `flash_attention`, the
@@ -19,23 +19,37 @@
 // Bound at the served prefill shape (granite-3-2b, B 4, H 32, KV 8,
 // S = T = 512, hd 64, bf16, causal) on an H100 SXM: q + o 2 x 8.39 MB and
 // k + v 4.19 MB read once, 20.97 MB / 3.35 TB/s = 6.3 us; 4.29 GFLOP of
-// the causal half / 989 TFLOP/s = 4.3 us; so 6.3 us, set by bytes.
+// the causal half / 989 TFLOP/s = 4.3 us; so 6.3 us, set by bytes.  At
+// phi-3-vision's prefill shape (B 4, H = KV = 32, S = T = 640, hd 96) q,
+// k, v and o are 15.7 MB each: 62.9 MB / 3.35 TB/s = 18.8 us, by bytes.
 //
-// Tensor-core kernel (`flash_attention_wgmma_kernel`, bf16, hd 64 and 128).  A
-// block of 288 threads takes 128 query rows of one (b, h): two consumer
-// warpgroups of 64 rows each and one producer warp.  The producer's lane 0
-// loads the q tile once and then the 64-key K and V tiles by TMA (tiled tensor
-// maps over q as (B*H*S, hd) rows and k, v as (B*KV*T, hd) rows, 128-byte
-// swizzle, hd split into 64-column panels) into a three-stage ring, each stage
-// with a full and an empty mbarrier.  Each consumer warpgroup computes S = Q
-// K^T with `wgmma` m64n64k16 (both operands K-major in shared memory, f32
-// accumulators), runs the online softmax on its accumulator fragment (a thread
-// holds parts of two rows; a row's max and sum take two shuffles across its
-// quad, and l is reduced across the quad only at the end), converts p to bf16
-// pairs, which are exactly the register A fragment of the next `wgmma`, and
+// Tensor-core kernel (`flash_attention_wgmma_kernel`, bf16, hd 64, 96 and
+// 128).  A block takes 128 query rows of one (b, h) with two consumer
+// warpgroups of 64 rows each.  The q tile is loaded once and then the
+// 64-key K and V tiles by TMA (tiled tensor maps over q as (B*H*S, hd) rows
+// and k, v as (B*KV*T, hd) rows) into a three-stage ring, each stage with
+// a full mbarrier.  hd is cut into panels, each a TMA box: 64 columns with
+// 128-byte swizzle at hd 64 and 128, 32 columns with 64-byte swizzle at
+// hd 96 (three panels, so no column is padded).  Each consumer warpgroup
+// computes S = Q K^T with `wgmma` m64n64k16 over the hd / 16 k-steps (both
+// operands K-major in shared memory, f32 accumulators; the descriptors are
+// built once and stepped by adding offsets), runs the online softmax on its
+// accumulator fragment (a thread holds parts of two rows; a row's max and
+// sum are trees over its 16 entries and two shuffles across its quad, and l
+// is reduced across the quad only at the end), converts p to bf16 pairs,
+// which are exactly the register A fragment of the next `wgmma`, and
 // computes O += P V with V as the transposed (MN-major) B operand, one
-// m64n64k16 per 64 head dims; that product is waited for together with the next
-// tile's S.  No score tile passes through shared memory.  The softmax works in
+// m64n{hd}k16 a k-step whose B spans every panel (the panels are the
+// swizzle atoms along N); that product is waited for together with the
+// next tile's S.  No score tile passes through shared memory.  At the end
+// a warpgroup writes its O rows into its own (now unread) rows of the q
+// tile, swizzled as q, and stores them as whole 16-byte chunks: its 64
+// rows are one contiguous run of o.  At hd 64 and 96 (at most 48
+// accumulator registers a thread) two blocks of the eight consumer warps
+// share an SM and load their own tiles: thread 0 issues q and the first
+// three tiles, and the last warp to release a stage issues its next tile;
+// at hd 128 one block a SM adds a producer warp whose lane 0 issues every
+// load, waiting on each stage's empty mbarrier.  The softmax works in
 // base 2: with c = hd^-0.5 * log2(e), p = 2^(s c - m c) by one FFMA and the
 // SFU's `ex2.approx` (relative error about 2^-22), which is exp(s - m) to
 // within rounding; the row max is taken on the unscaled scores.  Causal: a
@@ -45,7 +59,10 @@
 // dispatched first (the query tile is the grid's slow dimension).  The tensor
 // maps are encoded on the host per call (cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so no -lcuda) and passed as __grid_constant__
-// parameters: a graph captures them with the launch.
+// parameters: a graph captures them with the launch.  What bounds it on an
+// H100: the softmax, whose 32 ex2 a thread a tile (16 a clock an SM) and
+// ~200 other instructions the warpgroups of an SM tend to run at the same
+// time, between their products (PERF.md).
 //
 // SIMT kernel (`flash_attention_kernel`).  One block of 256 threads per
 // (b*h, 64 query rows); the q tile and each 64-key K/V tile are staged in
@@ -58,8 +75,10 @@
 // 4 (64 (2 hd + 2) + 64 hd + 64 x 65 + 192) bytes: 89.5 KiB at hd 96, 77.5
 // KiB at hd 80, above the 48 KiB default, so each launch opts in.  f32
 // stays on this kernel: the reference computes full-f32 dots, and a
-// tensor-core f32 path (TF32) would compute another function.  It runs on
-// the f32 FMA units (67 TFLOP/s), two shared-memory loads per FMA pair.
+// tensor-core f32 path (TF32) would compute another function.  bf16 at hd
+// 80 (zamba2's shared attention, which a 4096-token window keeps off every
+// driven flash route) stays here too.  It runs on the f32 FMA units (67
+// TFLOP/s), two shared-memory loads per FMA pair.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -285,15 +304,15 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
     case 80:   // zamba2's shared attention
       return launch_typed<T, 80>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
                                  stream);
-    case 96:   // phi-3-vision
-      return launch_typed<T, 96>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
-                                 stream);
     default:
       break;
   }
   if constexpr (std::is_same<T, float>::value) {  // bf16: the wgmma kernel
     if (hd == 64)
       return launch_typed<T, 64>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
+                                 stream);
+    if (hd == 96)   // phi-3-vision
+      return launch_typed<T, 96>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
                                  stream);
     if (hd == 128)
       return launch_typed<T, 128>(q, k, v, o, B, H, KV, S, Tlen, causal,
@@ -303,7 +322,7 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core kernel: bf16, hd 64 and 128
+// tensor-core kernel: bf16, hd 64, 96 and 128
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -312,34 +331,70 @@ constexpr int kBQ = 128;            // two consumer warpgroups of 64 rows
 constexpr int kBK = 64;             // keys per K/V tile
 constexpr int kStages = 3;          // K/V ring
 constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 32 * kConsumerWarps + 32;  // + one producer warp
-constexpr int kRowBytes = 128;      // a swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+// The tiles in shared memory: hd cut into panels of W columns, each a TMA
+// box with a (2 W)-byte swizzle (W 64: 128-byte rows, W 32: 64-byte rows).
+template <int HD, int W>
 struct Layout {
-  static constexpr int kPanels = HD / 64;          // 64-column panels
+  static_assert(W == 64 || W == 32, "128- or 64-byte swizzled rows");
+  static_assert(HD % W == 0, "whole panels");
+  static constexpr int kPanels = HD / W;
+  static constexpr int kRowBytes = 2 * W;
+  static constexpr int kAtom = 8 * kRowBytes;      // one swizzle repeat
   static constexpr int kQPanel = kBQ * kRowBytes;  // bytes
   static constexpr int kKVPanel = kBK * kRowBytes;
   static constexpr int kQ = kPanels * kQPanel;
   static constexpr int kStage = 2 * kPanels * kKVPanel;  // K panels, V panels
   static constexpr int kBytes = kQ + kStages * kStage + 1024;  // + alignment
+  // Up to hd 96 (48 accumulator registers a thread) two blocks of the
+  // eight consumer warps share an SM, 128 registers a thread, and the
+  // consumers load their own tiles; at hd 128 one block has a producer
+  // warp (on an H100, 0.0325 ms at granite-3-8b's shape against 0.0347
+  // without it; PERF.md).
+  static constexpr bool kSelfLoad = HD <= 96;
+  static constexpr int kThreads = kSelfLoad ? 32 * kConsumerWarps
+                                            : 32 * kConsumerWarps + 32;
+  static constexpr int kBlocksPerSM = kSelfLoad ? 2 : 1;
 };
 
-// Two blocks share an SM at hd 64 (the launch bounds cap the registers
-// for that); at hd 128 the O accumulators leave room for one.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
+// bar.sync on named barrier `id` (1 or more: 0 is __syncthreads') for
+// `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The max (or the sum) of row j's 16 entries of a 64 x 64 fragment (d[4 i
+// + 2 j + c]) by a tree, four dependent steps rather than sixteen.
+template <bool kMax>
+__device__ __forceinline__ float row_reduce(const float (&d)[32], int j) {
+  float t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    t[i] = kMax ? fmaxf(d[4 * i + 2 * j], d[4 * i + 2 * j + 1])
+                : d[4 * i + 2 * j] + d[4 * i + 2 * j + 1];
+#pragma unroll
+  for (int w = 4; w >= 1; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i)
+      t[i] = kMax ? fmaxf(t[i], t[i + w]) : t[i] + t[i + w];
+  return t[0];
+}
+
+template <int HD, int W>
+__global__ void __launch_bounds__(Layout<HD, W>::kThreads,
+                                  Layout<HD, W>::kBlocksPerSM)
     flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
     int H, int KV, int S, int Tlen, int causal, float scale_log2) {
-  using L = Layout<HD>;
+  using L = Layout<HD, W>;
   using namespace hopper;
+  constexpr int kSteps = W / 16;  // k-steps of the S product in a panel
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ uint64_t full[kStages], empty[kStages], q_full;
-  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that
+  // the swizzle repeats every 1024 (or 512) bytes: tiles start on 1024
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
   uint8_t* kvs = smem + L::kQ;
@@ -354,56 +409,100 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
+  // q, and then the K and V panels of tile kt into its stage: issued by
+  // one thread, the producer warp's lane 0 or (kSelfLoad) thread 0 for q
+  // and the first kStages tiles, the stage's last releaser for the rest
+  auto load_q = [&]() {
+    mbar_arrive_expect_tx(&q_full, L::kQ);
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_load_2d(qs + p * L::kQPanel, &qmap, &q_full, W * p, g * S + q0);
+  };
+  auto load_tile = [&](int kt) {
+    const int s = kt % kStages;
+    uint8_t* st = kvs + s * L::kStage;
+    mbar_arrive_expect_tx(&full[s], L::kStage);
+    const int row = kv_row * Tlen + kt * kBK;
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_load_2d(st + p * L::kKVPanel, &kmap, &full[s], W * p, row);
+      tma_load_2d(st + (L::kPanels + p) * L::kKVPanel, &vmap, &full[s],
+                  W * p, row);
+    }
+  };
+  // kSelfLoad: warp releases of a stage, over all its tiles
+  __shared__ int released[kStages];
+
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);  // lane 0 of each consumer warp
+      if constexpr (L::kSelfLoad) released[s] = 0;
+      else mbar_init(&empty[s], kConsumerWarps);  // lane 0 of each consumer
     }
     mbar_init(&q_full, 1);
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp == kConsumerWarps) {  // producer
+  if constexpr (L::kSelfLoad) {
+    if (threadIdx.x == 0) {
+      load_q();
+      for (int kt = 0; kt < min(kStages, n_tiles); ++kt) load_tile(kt);
+    }
+  } else if (warp == kConsumerWarps) {  // producer
     if (lane == 0) {
-      mbar_arrive_expect_tx(&q_full, L::kQ);
-      for (int p = 0; p < L::kPanels; ++p)
-        tma_load_2d(qs + p * L::kQPanel, &qmap, &q_full, 64 * p, g * S + q0);
+      load_q();
       for (int kt = 0; kt < n_tiles; ++kt) {
-        const int s = kt % kStages, round = kt / kStages;
-        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
-        uint8_t* st = kvs + s * L::kStage;
-        mbar_arrive_expect_tx(&full[s], L::kStage);
-        const int row = kv_row * Tlen + kt * kBK;
-        for (int p = 0; p < L::kPanels; ++p) {
-          tma_load_2d(st + p * L::kKVPanel, &kmap, &full[s], 64 * p, row);
-          tma_load_2d(st + (L::kPanels + p) * L::kKVPanel, &vmap, &full[s],
-                      64 * p, row);
-        }
+        const int round = kt / kStages;
+        if (round > 0) mbar_wait(&empty[kt % kStages], (round - 1) & 1);
+        load_tile(kt);
       }
     }
     return;
   }
+  // lane 0 of each consumer warp gives tile kt's stage back once its reads
+  // are done; without a producer warp the last of the eight loads the
+  // stage's next tile.  Its count only grows (each tile of a stage adds
+  // kConsumerWarps); the fence before the add releases this warp's reads,
+  // the one after the eighth add acquires the other seven's before the
+  // TMA overwrites the stage.
+  auto release = [&](int kt) {
+    if (lane != 0) return;
+    const int s = kt % kStages;
+    if constexpr (L::kSelfLoad) {
+      __threadfence_block();
+      if ((atomicAdd(&released[s], 1) + 1) % kConsumerWarps == 0) {
+        __threadfence_block();
+        if (kt + kStages < n_tiles) load_tile(kt + kStages);
+      }
+    } else {
+      mbar_arrive(&empty[s]);
+    }
+  };
 
-  // consumer warpgroup `wgi`: query rows wrow0 .. wrow0 + 63; this thread
-  // holds rows r0 (j = 0) and r0 + 8 (j = 1) of every fragment
-  const int wgi = warp / 4;
+  // consumer warpgroup `wgi` (read from lane 0, so the compiler knows it
+  // is uniform across the warp): query rows wrow0 .. wrow0 + 63; this
+  // thread holds rows r0 (j = 0) and r0 + 8 (j = 1) of every fragment
+  const int wgi = __shfl_sync(0xffffffffu, warp / 4, 0);
   const int wrow0 = q0 + 64 * wgi;
   const int r0 = wrow0 + 16 * (warp % 4) + lane / 4;
   const int c0 = 2 * (lane % 4);
   int last = n_tiles - 1;
   if (causal) last = min(last, (wrow0 + 63) / kBK);
-  const uint8_t* qw = qs + 64 * wgi * kRowBytes;
+  // descriptors of this warpgroup's q rows and of stage 0's K and V
+  // panels; a byte offset within the tiles adds offset >> 4
+  const uint64_t dq = desc_swizzled<L::kRowBytes>(
+      qs + 64 * wgi * L::kRowBytes, 16, L::kAtom);
+  const uint64_t dk0 = desc_swizzled<L::kRowBytes>(kvs, 16, L::kAtom);
+  const uint64_t dv0 = desc_swizzled<L::kRowBytes>(
+      kvs + L::kPanels * L::kKVPanel, L::kKVPanel, L::kAtom);
 
-  float acc[L::kPanels][32];
+  // O's fragment: column 8 (e / 4) + c0 + e % 2 of row r0 + 8 ((e / 2) % 2)
+  float acc[HD / 2];
 #pragma unroll
-  for (int p = 0; p < L::kPanels; ++p)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+  for (int e = 0; e < HD / 2; ++e) acc[e] = 0.f;
   // m in raw score units; the exponent is 2^(s * c - m * c), c = scale *
   // log2(e), one FFMA and one ex2 per element
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  int pending = -1;  // the stage whose PV product may still be in flight
+  int pending = -1;  // the tile whose PV product may still be in flight
   // p rounded to bf16, the PV product's A fragment; it stays live (and
   // its registers unused by anything else) until that product is waited for
   uint32_t pa[4][4] = {};
@@ -413,28 +512,27 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
     const int s = kt % kStages;
     mbar_wait(&full[s], (kt / kStages) & 1);
     if (kt > last) {  // past this warpgroup's diagonal: release it unread
-      if (lane == 0) mbar_arrive(&empty[s]);
+      release(kt);
       continue;
     }
-    const uint8_t* ks = kvs + s * L::kStage;
-    const uint8_t* vs = ks + L::kPanels * L::kKVPanel;
+    const uint64_t dst = (uint64_t)(s * L::kStage) >> 4;
     float sc[32];
     wgmma_fence();
+    // S = Q K^T over the HD / 16 k-steps
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const int off = (kk / 4) * L::kQPanel + (kk % 4) * 32;
-      const int koff = (kk / 4) * L::kKVPanel + (kk % 4) * 32;
-      wgmma_m64n64k16_ss(sc, desc_sw128(qw + off), desc_sw128(ks + koff),
+      const int off = (kk / kSteps) * L::kQPanel + (kk % kSteps) * 32;
+      const int koff = (kk / kSteps) * L::kKVPanel + (kk % kSteps) * 32;
+      wgmma_m64n64k16_ss(sc, dq + (off >> 4), dk0 + dst + (koff >> 4),
                          kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();  // this S, and the previous tile's PV
     fence_regs(sc);
-#pragma unroll
-    for (int p = 0; p < L::kPanels; ++p) fence_regs(acc[p]);
+    fence_regs(acc);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-    if (pending >= 0 && lane == 0) mbar_arrive(&empty[pending]);
+    if (pending >= 0) release(pending);
 
     if (causal && kt * kBK + kBK - 1 > wrow0) {  // the diagonal tile
 #pragma unroll
@@ -442,11 +540,9 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
         if (kt * kBK + 8 * (e / 4) + c0 + e % 2 > r0 + 8 * ((e / 2) % 2))
           sc[e] = kNegInf;
     }
-    float mx[2] = {kNegInf, kNegInf};
+    float mx[2], alpha[2], ms[2], sum[2];
 #pragma unroll
-    for (int e = 0; e < 32; ++e)
-      mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], sc[e]);
-    float alpha[2], ms[2], sum[2] = {0.f, 0.f};
+    for (int j = 0; j < 2; ++j) mx[j] = row_reduce<true>(sc, j);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
@@ -457,18 +553,14 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
       ms[j] = m_new * scale_log2;
     }
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int j = (e / 2) % 2;
-      const float p = ex2(fmaf(sc[e], scale_log2, -ms[j]));
-      sum[j] += p;
-      sc[e] = p;
-    }
+    for (int e = 0; e < 32; ++e)
+      sc[e] = ex2(fmaf(sc[e], scale_log2, -ms[(e / 2) % 2]));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sum[j] = row_reduce<false>(sc, j);
 #pragma unroll
     for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + sum[j];
 #pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) acc[p][e] *= alpha[(e / 2) % 2];
+    for (int e = 0; e < HD / 2; ++e) acc[e] *= alpha[(e / 2) % 2];
 
     // the S fragment of keys 16 kk .. 16 kk + 15 is the A fragment of the
     // PV product's k-step kk
@@ -477,46 +569,60 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 2 : 1)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-#pragma unroll
-    for (int p = 0; p < L::kPanels; ++p) fence_regs(acc[p]);
+    fence_regs(acc);
     wgmma_fence();
+    // O += P V, one product of all hd columns a k-step: V is the
+    // transposed B operand, its panels the swizzle atoms along N (lbo)
 #pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_rs_tb(
-            acc[p], pa[kk],
-            desc_sw128(vs + p * L::kKVPanel + kk * 16 * kRowBytes, 1024,
-                       1024));
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = dv0 + dst + ((kk * 16 * L::kRowBytes) >> 4);
+      wgmma_m64nNk16_rs_tb<HD>(acc, pa[kk], dv);
+    }
     wgmma_commit();  // waited for with the next tile's S, or below
-    pending = s;
+    pending = kt;
   }
   wgmma_wait<0>();
-#pragma unroll
-  for (int p = 0; p < L::kPanels; ++p) fence_regs(acc[p]);
+  fence_regs(acc);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-  if (pending >= 0 && lane == 0) mbar_arrive(&empty[pending]);
+  if (pending >= 0) release(pending);
 
-  // out = acc / max(l, 1e-30), l summed across the quad
+  // out = acc / max(l, 1e-30), l summed across the quad; one division a
+  // row, then products
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
-    l[j] = fmaxf(l[j], 1e-30f);
+    l[j] = 1.f / fmaxf(l[j], 1e-30f);
   }
+  // O through this warpgroup's rows of the q tile (its S products are
+  // done, and the other warpgroup reads only its own rows), in q's
+  // swizzled layout, so that the rows leave as whole 16-byte chunks: the
+  // warpgroup's 64 rows of O are one contiguous run of memory.
+  uint8_t* ow = qs + 64 * wgi * L::kRowBytes;
+  auto o_chunk = [&](int row, int col) {  // the 16 bytes holding (row, col)
+    const int cw = (2 * (col % W)) >> 4;
+    return ow + (col / W) * L::kQPanel + row * L::kRowBytes +
+           ((cw ^ ((row * L::kRowBytes >> 7) & (L::kRowBytes / 16 - 1)))
+            << 4);
+  };
 #pragma unroll
-  for (int p = 0; p < L::kPanels; ++p)
-#pragma unroll
-    for (int e = 0; e < 32; e += 2) {
-      const int j = (e / 2) % 2;
-      const size_t row = (size_t)g * S + r0 + 8 * j;
-      __nv_bfloat162 val =
-          __floats2bfloat162_rn(acc[p][e] / l[j], acc[p][e + 1] / l[j]);
-      *reinterpret_cast<__nv_bfloat162*>(
-          o + row * HD + 64 * p + 8 * (e / 4) + c0) = val;
-    }
+  for (int e = 0; e < HD / 2; e += 2) {
+    const int col = 8 * (e / 4) + c0;
+    const int j = (e / 2) % 2;
+    const int row = r0 - wrow0 + 8 * j;
+    *reinterpret_cast<__nv_bfloat162*>(o_chunk(row, col) + 2 * (col % 8)) =
+        __floats2bfloat162_rn(acc[e] * l[j], acc[e + 1] * l[j]);
+  }
+  named_sync(1 + wgi, 128);  // this warpgroup's rows of O are written
+  constexpr int kChunks = HD / 8;  // 16-byte chunks of a row
+  uint4* og = reinterpret_cast<uint4*>(o + ((size_t)g * S + wrow0) * HD);
+  for (int i = threadIdx.x % 128; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks, col = 8 * (i % kChunks);
+    og[i] = *reinterpret_cast<const uint4*>(o_chunk(row, col));
+  }
 }
+
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -543,37 +649,40 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, hd) bf16 row-major matrix read in boxes of (box_rows, 64)
+// a (rows, hd) bf16 row-major matrix read in boxes of (box_rows, W)
+template <int W>
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* base,
             uint64_t rows, int hd, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)hd, rows};
   const cuuint64_t strides[1] = {(cuuint64_t)hd * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)W, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int W>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KV, int S, int Tlen, int causal,
                    float scale, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap qmap, kmap, vmap;
-  if (!encode(enc, &qmap, q, (uint64_t)B * H * S, HD, kBQ) ||
-      !encode(enc, &kmap, k, (uint64_t)B * KV * Tlen, HD, kBK) ||
-      !encode(enc, &vmap, v, (uint64_t)B * KV * Tlen, HD, kBK))
+  if (!encode<W>(enc, &qmap, q, (uint64_t)B * H * S, HD, kBQ) ||
+      !encode<W>(enc, &kmap, k, (uint64_t)B * KV * Tlen, HD, kBK) ||
+      !encode<W>(enc, &vmap, v, (uint64_t)B * KV * Tlen, HD, kBK))
     return cudaErrorInvalidValue;
-  const int bytes = Layout<HD>::kBytes;
+  const int bytes = Layout<HD, W>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<HD>,
+      flash_attention_wgmma_kernel<HD, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, S / kBQ);
-  flash_attention_wgmma_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_wgmma_kernel<HD, W>
+      <<<grid, Layout<HD, W>::kThreads, bytes, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, KV, S, Tlen,
       causal, scale * kLog2e);
   return cudaGetLastError();
@@ -586,7 +695,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (B, H, S, hd), k / v (B, KV, T, hd), o (B, H, S, hd), all contiguous
-// and of one type (f32, or bf16 when is_bf16 at hd 16, 32, 80 or 96).  The
+// and of one type (f32, or bf16 when is_bf16 at hd 16, 32 or 80).  The
 // caller checks S % 64 == 0, T % 64 == 0, H % KV == 0 and B * H <= 65535.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int KV, int S, int Tlen,
@@ -601,8 +710,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                scale, st);
 }
 
-// The tensor-core kernel: bf16 q, k, v, o as above, hd 64 or 128, every
-// pointer 16-byte aligned, S and T multiples of 128.
+// The tensor-core kernel: bf16 q, k, v, o as above, hd 64, 96 or 128,
+// every pointer 16-byte aligned, S and T multiples of 128.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int KV, int S,
                                  int Tlen, int hd, int causal, float scale,
@@ -610,11 +719,14 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return (int)wg::launch<64>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
-                               st);
+    return (int)wg::launch<64, 64>(q, k, v, o, B, H, KV, S, Tlen, causal,
+                                   scale, st);
+  if (hd == 96)
+    return (int)wg::launch<96, 32>(q, k, v, o, B, H, KV, S, Tlen, causal,
+                                   scale, st);
   if (hd == 128)
-    return (int)wg::launch<128>(q, k, v, o, B, H, KV, S, Tlen, causal, scale,
-                                st);
+    return (int)wg::launch<128, 64>(q, k, v, o, B, H, KV, S, Tlen, causal,
+                                    scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // addresses, mbarriers, TMA tile loads, cp.async with zero fill (16, 8 and
 // 4 bytes), the f64 `mma.sync` m16n8k16 product, the bf16 `wgmma`
-// m64n64k16 product with A from shared memory or registers, and the two
-// halves of a programmatic dependent launch.
+// m64n64k16 product with A from shared memory and m64n{64,96,128}k16 with
+// A from registers, and the two halves of a programmatic dependent
+// launch.
 //
 // Most helpers wrap one PTX instruction and are named after it.
 // `build.py` hashes this header with each source, so an edit here rebuilds
@@ -158,18 +159,23 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8],
 
 // ---- wgmma -----------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a tile written by TMA with 128-byte
-// swizzle: rows of 128 bytes, 8-row atoms of 1024 bytes (the tile must be
-// 1024-byte aligned).  K-major operands use `sbo` = 1024 (the next 8 rows
-// of M or N); an MN-major operand uses `sbo` = 1024 (the next 8 rows of K)
-// and `lbo` for the next 64-element atom along MN, which a 64-wide N
-// never reaches.  Both offsets are passed in bytes.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile,
-                                               uint32_t lbo = 16,
-                                               uint32_t sbo = 1024) {
+// Shared-memory matrix descriptor of a tile written by TMA with a
+// kSwizzle-byte swizzle (128 or 64): rows of kSwizzle bytes, 8-row atoms
+// of 8 kSwizzle bytes (the tile must start on an atom).  K-major operands
+// use `sbo` = one atom (the next 8 rows of M or N); an MN-major operand
+// uses `sbo` = one atom (the next 8 rows of K) and `lbo` for the next atom
+// along MN, kSwizzle / 2 elements on (unused where N is no wider).  Both
+// offsets are passed in bytes.  The address sits unmasked in the low field
+// below 2^18, so a byte offset within the tile adds offset >> 4.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t desc_swizzled(const void* tile,
+                                                  uint32_t lbo,
+                                                  uint32_t sbo) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64, "128B or 64B swizzle");
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 |
+         (uint64_t)(kSwizzle == 128 ? 1 : 2) << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,17 +232,72 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers, the layout of
-// d's fragment over two 8-column groups) . B (16 x 64) with B MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
-                                                      const uint32_t (&a)[4],
-                                                      uint64_t desc_b) {
+// d (64 x N, f32) += A (64 x 16, bf16 pairs in registers, the layout of
+// d's fragment over two 8-column groups) . B (16 x N) with B MN-major
+// (transposed) in shared memory, N = 64, 96 or 128: N / 8 column groups,
+// d[4 i + 2 j + c] as in the product above.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_rs_tb(float (&d)[N / 2],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs_tb<64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOPPER_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs_tb<96>(
+    float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs_tb<128>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

@@ -14,13 +14,14 @@ kernel modules:
 
 The shape contract is the reference's (S and T multiples of its 128-row
 blocks, H a multiple of KV), raised as `ValueError` where the reference
-asserts.  Two instantiations of the kernel, chosen by `_route` from the
-type and head dim: bf16 at head dims 64 and 128 (every dense config of
-the port) runs the tensor-core kernel (`wgmma` fed by TMA); f32 at head
-dims 16, 32, 64, 80, 96 and 128, and bf16 at 16, 32, 80 (zamba2) and 96
-(phi-3-vision), run the SIMT kernel.  `supports` states the shapes the
-kernel launches for; on a CUDA tensor of any other shape the wrapper
-raises, so a caller that may meet one (`models.attention`) asks first.
+asserts.  Two kernels, chosen by `_route` from the type and head dim:
+bf16 at head dims 64, 96 (phi-3-vision, in three 32-column panels) and
+128 runs the tensor-core kernel (`wgmma` fed by TMA); f32 at head dims
+16, 32, 64, 80, 96 and 128, and bf16 at 16, 32 and 80 (zamba2, whose
+4096-token window keeps it off every driven flash route), run the SIMT
+kernel.  `supports` states the shapes the kernel launches for; on a
+CUDA tensor of any other shape the wrapper raises, so a caller that may
+meet one (`models.attention`) asks first.
 `launches["flash_attention"]` counts every launch,
 `launches["flash_attention_wgmma"]` those of the tensor-core kernel.
 """
@@ -37,7 +38,7 @@ launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 BLOCK = 128                   # the reference's bq = bk: S, T multiples of it
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-WGMMA_HEAD_DIMS = (64, 128)   # 64-column swizzled panels of bf16
+WGMMA_HEAD_DIMS = (64, 96, 128)   # swizzled panels of 64 or 32 bf16
 MAX_GRID_Y = 65535            # B * H rides in the SIMT grid's y dimension
 TMA_ALIGN = 16                # bytes: a tensor map's base address
 

@@ -718,32 +718,56 @@ def test_flash_attention_matches_plain(dev, hd, group, causal, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
 
 
-@pytest.mark.parametrize("b,h,kv,s,t,hd,dtype", [
-    (2, 8, 2, 256, 256, 32, torch.bfloat16),       # SIMT bf16
-    (2, 8, 2, 256, 256, 32, torch.float32),
-    (4, 32, 8, 512, 512, 64, torch.bfloat16),      # the served shape
-    (4, 32, 8, 512, 512, 128, torch.bfloat16),     # granite-3-8b's
-    (2, 8, 2, 128, 512, 64, torch.bfloat16),       # T > S
-    (2, 8, 2, 128, 512, 128, torch.bfloat16),
-    (2, 8, 8, 384, 256, 64, torch.bfloat16),       # S > T
+@pytest.mark.parametrize("b,h,kv,s,t,hd,dtype,causal", [
+    (2, 8, 2, 256, 256, 32, torch.bfloat16, True),     # SIMT bf16
+    (2, 8, 2, 256, 256, 32, torch.float32, True),
+    (4, 32, 8, 512, 512, 64, torch.bfloat16, True),    # the served shape
+    (4, 32, 8, 512, 512, 128, torch.bfloat16, True),   # granite-3-8b's
+    (2, 8, 2, 128, 512, 64, torch.bfloat16, True),     # T > S
+    (2, 8, 2, 128, 512, 128, torch.bfloat16, True),
+    (2, 8, 8, 384, 256, 64, torch.bfloat16, True),     # S > T
+    (4, 32, 32, 640, 640, 96, torch.bfloat16, True),   # phi-3-vision's
+    (2, 8, 2, 128, 512, 96, torch.bfloat16, True),
+    (2, 8, 8, 384, 256, 96, torch.bfloat16, True),
+    (2, 8, 2, 256, 384, 96, torch.bfloat16, False),
 ], ids=["hd32-bf16", "hd32-f32", "served", "hd128-served", "t>s-hd64",
-        "t>s-hd128", "s>t-hd64"])
+        "t>s-hd128", "s>t-hd64", "phi3-prefill-hd96", "t>s-hd96",
+        "s>t-hd96", "full-gqa4-hd96"])
 def test_flash_attention_causal_shapes_match_plain(dev, b, h, kv, s, t, hd,
-                                                   dtype):
+                                                   dtype, causal):
     from repro_torch.kernels import flash_attention as FA
 
     q, k, v = _flash_inputs(dev, s + t + hd, b, h, kv, s, t, hd, dtype)
     before = dict(FA.launches)
-    got = FA.flash_attention(q, k, v, causal=True)
+    got = FA.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     wgmma = FA._route(dtype, hd) == "wgmma"
+    assert wgmma == (dtype == torch.bfloat16 and hd in (64, 96, 128))
     assert FA.launches == {
         "flash_attention": before["flash_attention"] + 1,
         "flash_attention_wgmma": before["flash_attention_wgmma"] + wgmma}
-    want = FA.flash_attention_plain(q, k, v, True)
+    want = FA.flash_attention_plain(q, k, v, causal)
     tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     rtol = tol if dtype == torch.float32 else 0.0
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
+
+
+def test_flash_attention_hd96_columns_land_in_place(dev):
+    """bf16 hd 96 on the tensor-core kernel with V's columns unlike one
+    another (v rising with the column, plus noise): a 32-column panel
+    stored at the wrong column offset or row stride, or a zero-filled
+    tail, would show far beyond the tolerance."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(dev, 96, 2, 8, 8, 384, 384, 96, torch.bfloat16)
+    v = (torch.arange(96, device=dev) / 96 + 0.1 * v.float()).to(v.dtype)
+    before = FA.launches["flash_attention_wgmma"]
+    got = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention_wgmma"] == before + 1
+    want = FA.flash_attention_plain(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_BF16_TOL, rtol=0.0)
 
 
 def test_flash_attention_counts_only_kernel_launches(dev):
@@ -780,6 +804,13 @@ def test_flash_attention_rejects_bad_operands(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         qb = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
         FA.flash_attention(qb[1:].view(q.shape), k.bfloat16(), v.bfloat16())
+    # hd 96 (192-byte rows) on the tensor cores: an unaligned base raises
+    # too, and does not fall back to the SIMT kernel
+    q96, k96, v96 = _flash_inputs(dev, 2, 1, 2, 2, 256, 256, 96,
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kb = torch.empty(k96.numel() + 1, dtype=torch.bfloat16, device=dev)
+        FA.flash_attention(q96, kb[1:].view(k96.shape), v96)
     assert FA.launches == {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 
@@ -1294,10 +1325,10 @@ def test_vlm_prefill_at_hd96_on_the_card_matches_the_cpu(dev):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-def test_vlm_bf16_prefill_takes_the_simt_kernel(dev):
-    """bf16 at hd 96 has no tensor-core instantiation: the SIMT kernel
-    runs, and a 512-token prompt (1088 positions, not a multiple of 128)
-    takes the plain SDPA."""
+def test_vlm_bf16_prefill_takes_the_tensor_core_kernel(dev):
+    """bf16 at hd 96 runs the tensor-core kernel once per layer at 640
+    positions, and a 512-token prompt (1088 positions, not a multiple of
+    128) takes the plain SDPA."""
     from repro_torch.configs import registry as R
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import transformer as T
@@ -1314,7 +1345,7 @@ def test_vlm_bf16_prefill_takes_the_simt_kernel(dev):
         logits, _ = T.forward_prefill(model, cfg, batch, 1100)
         torch.cuda.synchronize()
         assert FA.launches == {"flash_attention": launches,
-                               "flash_attention_wgmma": 0}
+                               "flash_attention_wgmma": launches}
         assert bool(logits.float().isfinite().all())
 
 

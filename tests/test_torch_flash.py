@@ -100,6 +100,16 @@ def test_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, hd, route):
     assert FA._route(dtype, hd) == route
 
 
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 96, "wgmma"), (torch.float32, 96, "simt"),
+    (torch.bfloat16, 80, "simt"), (torch.float32, 80, "simt")])
+def test_route_takes_tensor_cores_for_bf16_at_96(dtype, hd, route):
+    """phi-3-vision's head dim (96) in bf16 runs the wgmma kernel in
+    three 32-column panels; f32 stays on the SIMT kernel, and so does
+    zamba2's hd 80, which no driven path launches."""
+    assert FA._route(dtype, hd) == route
+
+
 def test_plain_version_is_the_oracle():
     q, k, v = (torch.tensor(a) for a in _qkv(9, 1, 2, 2, 128, 128, 16))
     assert torch.equal(FA.flash_attention_plain(q, k, v, causal=False),
