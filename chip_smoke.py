@@ -302,7 +302,13 @@ Phases, each of which must pass:
    hd 64), the first against the plain version; (b) its first 8 layers
    C3 int8 (fitted by the parent) on the same mesh: 896 codebook
    launches a rank over 10 local (M, K, N), the first of each against
-   the f64 product; (c) 8 layers, data 2 x model 1; each run's every
+   the f64 product; (c) 8 layers, data 2 x model 1; (e)
+   granite-moe-1b-a400m at full width, 8 layers, bf16, data 2 x model 1
+   (a decode group straddles the two batch shards: each rank routes
+   every row and does half of the experts' work, along their "embed"
+   axis), 8 flash launches a rank, and (f) the same on data 1 x model 2
+   (expert parallel), the one-device model's routing pinned to each
+   run's (top-k flips at bf16 resolution, logged free); each run's every
    step's logits within MESH_SERVE_TOL of the one-device model fed the
    run's own tokens, no greedy token differing above it, and (a)'s two
    planted faults outside it; tokens/s, prefill and decode ms, device
@@ -5161,7 +5167,7 @@ def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
 # phase 17: LM serving on a DeviceMesh
 # ---------------------------------------------------------------------------
 
-SERVE_SHORT_LAYERS = 8          # (b), (c), (d): granite-3-2b's first 8
+SERVE_SHORT_LAYERS = 8          # (b)-(f): the first 8 layers
 # Every step's logits of a meshed bf16 server against the one-device
 # model fed the meshed run's own tokens (teacher-forced).  The meshed
 # function is the same, but each row-parallel product (wo and mlp_wo of
@@ -5176,7 +5182,17 @@ SERVE_SHORT_LAYERS = 8          # (b), (c), (d): granite-3-2b's first 8
 # wq holds the other rank's heads): the random weights' layers add
 # little to a residual their embedding dominates, so a fault anywhere
 # but the logits moves them by tenths.
-MESH_SERVE_TOL = {"a": 0.125, "b": 0.125, "c": 0.125}
+# (e) and (f), granite-moe at 8 layers, are held with the one-device
+# routing pinned to the meshed run's (top-k flips at bf16 resolution move
+# their logits by 2.2-2.5 otherwise).  The random expert stacks (init
+# scale E^-0.5) give expert outputs near 16, where a bf16 ulp is 2^-3,
+# so each layer's rounding moves the residual more than a dense layer's:
+# measured on an H100 at --seed 0, (e) 0.1406 at most (prefill 0.0313,
+# the straddling decode steps 0.094-0.141) and (f), expert parallel with
+# whole groups (the path that predates the straddling split), 0.1445,
+# logits up to 5.34 (a bf16 ulp 2^-5).  The limit is 1.7 times that.
+MESH_SERVE_TOL = {"a": 0.125, "b": 0.125, "c": 0.125, "e": 0.25,
+                  "f": 0.25}
 
 
 def _serve_rank(rank: int, world: int, backend: str, tmp: str,
@@ -5204,9 +5220,9 @@ def _serve_rank(rank: int, world: int, backend: str, tmp: str,
 
 
 def _serve_mesh_model(run: dict, tmp: str, dev):
-    """granite-3-2b at full width with `run["layers"]` layers, bf16, from
-    the port's init seeded as phase 6's; or, for a C3 run, the quantized
-    leaves the parent saved."""
+    """granite-3-2b (or `run["arch"]`) at full width with `run["layers"]`
+    layers, bf16, from the port's init seeded as phase 6's; or, for a C3
+    run, the quantized leaves the parent saved."""
     import dataclasses
 
     import torch
@@ -5214,7 +5230,8 @@ def _serve_mesh_model(run: dict, tmp: str, dev):
     from repro_torch.configs import registry as R
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(R.get_arch(LM_ARCH), n_layers=run["layers"])
+    cfg = dataclasses.replace(R.get_arch(run.get("arch", LM_ARCH)),
+                              n_layers=run["layers"])
     if not run.get("c3"):
         return cfg, T.init_model(cfg, torch.Generator(device=dev).manual_seed(
             run["seed"]))
@@ -5249,17 +5266,19 @@ def _teacher_forced(cfg, model, batch: dict, tokens: list) -> list:
 def _gaps(got: list, want: list) -> dict:
     """Per step, the max |logit difference| of two runs' logits, and
     the rows whose greedy token differs with the one-device top-2 gap."""
-    diffs, flips, gaps = [], [], []
+    diffs, flips, gaps, tops = [], [], [], []
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
         if g.shape != w.shape or not bool(g.isfinite().all()):
             raise AssertionError(f"phase 17: bad logits {tuple(g.shape)}")
         diffs.append(float((g - w).abs().max()))
+        tops.append(float(w.abs().max()))
         top2 = w.topk(2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
         gaps.append(float(gap.min()))
         flips.extend(float(x) for x in gap[g.argmax(-1) != w.argmax(-1)])
-    return {"diffs": diffs, "flip_gaps": flips, "min_gaps": gaps}
+    return {"diffs": diffs, "flip_gaps": flips, "min_gaps": gaps,
+            "max_abs": max(tops)}
 
 
 def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
@@ -5348,8 +5367,10 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
         FA.reset_launches()
         CBM.reset_launches()
         seen["on"] = True
+        routes = []
         t0 = time.perf_counter()
-        done = srv.run(sample=sample)
+        done = _dispatching(_recorder(routes), lambda: srv.run(
+            sample=sample)) if cfg.family == "moe" else srv.run(sample=sample)
         _sync(dev)
         wall = time.perf_counter() - t0
         seen["on"] = False
@@ -5392,9 +5413,22 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
         faults = _planted_faults(rank, srv, prefill, batch, mesh)
     del srv, last, counted
     torch.cuda.empty_cache()
-    # the one-device model on the meshed run's own tokens
+    # the one-device model on the meshed run's own tokens (a moe model's
+    # routing pinned to the meshed run's, `_mesh_routes`)
     cfg1, one = _serve_mesh_model(run, tmp, dev)
-    want = _teacher_forced(cfg1, one, batch, tokens)
+    if cfg.family == "moe":
+        pinned = _mesh_routes(routes, dev)
+        if len(pinned) != len(tokens) * cfg.n_layers:
+            raise AssertionError(f"phase 17: {len(pinned)} routed moe "
+                                 f"layers for {len(tokens)} forward passes "
+                                 f"of {cfg.n_layers} layers")
+        want = _dispatching(_replayer(pinned), lambda: _teacher_forced(
+            cfg1, one, batch, tokens))
+        free = _gaps(logits, _teacher_forced(cfg1, one, batch, tokens))
+        res["routing_free_max_diff"] = max(free["diffs"])
+        res["routes_pinned"] = len(pinned)
+    else:
+        want = _teacher_forced(cfg1, one, batch, tokens)
     res["held"] = _gaps(logits, want)
     res["fault_diff"] = {k: float((f - want[0]).abs().max())
                          for k, f in faults.items()}
@@ -5414,6 +5448,27 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
     del one
     torch.cuda.empty_cache()
     return res
+
+
+def _mesh_routes(routes: list, dev) -> list:
+    """The dispatch tensors every moe layer of a meshed run used, as the
+    one-device model meets them: a decode group straddles the ranks'
+    batch shards, so every rank routed all of it (held equal across
+    ranks, so taken once); a prefill's groups fit in a shard, so each
+    rank routed its own rows, concatenated here in rank order (the
+    batch's); a misaligned replay fails on its shapes."""
+    import torch
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, [r.bool().cpu() for r in routes])
+    out = []
+    for parts in zip(*every):
+        if all(torch.equal(parts[0], q) for q in parts[1:]):
+            out.append(parts[0])
+        else:
+            out.append(torch.cat(parts))
+    return [r.to(dev, torch.float32) for r in out]
 
 
 def _planted_faults(rank: int, srv, prefill, batch: dict, mesh) -> dict:
@@ -5478,7 +5533,9 @@ def _hold_served(what: str, ranks: list, want: dict, tol: float | None,
            "flash_max_err": max(r["flash_max_err"] for r in ranks),
            "codebook_max_err": max(r["codebook_max_err"] for r in ranks)}
     log(f"{what}: every step's logits within {worst:.4g} of the one-device "
-        f"model on the run's own tokens (limit {tol}); greedy tokens "
+        f"model on the run's own tokens (limit {tol}; by step "
+        f"{[round(d, 5) for d in out['step_diffs']]}; logits up to "
+        f"{ranks[0]['held']['max_abs']:.4g}); greedy tokens "
         f"differ at top-2 gaps {out['flips']}; the first flash call "
         f"within {out['flash_max_err']:.3g} of the plain version "
         f"(tolerance {FLASH_BF16_TOL}); codebook calls per local (M, K, N) "
@@ -5500,8 +5557,12 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
     with phase 6's first 4 prompts: two gloo ranks on the card run (a)
     data 1 x model 2 at full depth, bf16, with one planted fault; (b) the
     same mesh at 8 layers, C3 int8; (c) data 2 x model 1 at 8 layers;
-    then (d) one NCCL rank, 1 x 1, 8 layers, bitwise the one-device
-    server."""
+    (e) granite-moe-1b-a400m at full width, 8 layers, data 2 x model 1
+    (every decode group straddles the two batch shards: each rank does
+    its half of the experts' work along their "embed" axis) and (f) the
+    same on data 1 x model 2 (expert parallel), both held with the
+    one-device routing pinned to the run's; then (d)
+    one NCCL rank, 1 x 1, 8 layers, bitwise the one-device server."""
     import gc
     import tempfile
 
@@ -5543,7 +5604,11 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
                 dict(name="b", model=2, layers=SERVE_SHORT_LAYERS,
                      seed=seed, c3=True),
                 dict(name="c", model=1, layers=SERVE_SHORT_LAYERS,
-                     seed=seed)]
+                     seed=seed),
+                dict(name="e", model=1, layers=SERVE_SHORT_LAYERS,
+                     seed=seed, arch=MOE_ARCH),
+                dict(name="f", model=2, layers=SERVE_SHORT_LAYERS,
+                     seed=seed, arch=MOE_ARCH)]
         ranks = _spawn_mesh(dict(name="serve-gloo", runs=runs), MESH_RANKS,
                             "gloo", tmp, _serve_rank, "phase 17")
         out["seconds"]["gloo"] = time.perf_counter() - part
@@ -5571,6 +5636,28 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
             f"phase 17 (c) data 2 x model 1, {n} layers", per["c"],
             {"flash_attention": n, "flash_attention_wgmma": n,
              "codebook_matmul": 0}, MESH_SERVE_TOL["c"], dp)
+        moe = R.get_arch(MOE_ARCH)
+        out["e"] = _hold_served(
+            f"phase 17 (e) {MOE_ARCH} data 2 x model 1, {n} layers",
+            per["e"], {"flash_attention": n, "flash_attention_wgmma": n,
+                       "codebook_matmul": 0}, MESH_SERVE_TOL["e"],
+            ((b // 2, moe.n_heads, s, moe.hd),
+             (b // 2, moe.n_kv_heads, s, moe.hd)))
+        out["f"] = _hold_served(
+            f"phase 17 (f) {MOE_ARCH} data 1 x model 2, {n} layers",
+            per["f"], {"flash_attention": n, "flash_attention_wgmma": n,
+                       "codebook_matmul": 0}, MESH_SERVE_TOL["f"],
+            ((b, moe.n_heads // 2, s, moe.hd),
+             (b, moe.n_kv_heads // 2, s, moe.hd)))
+        log(f"phase 17 (e) {MOE_ARCH} data 2 x model 1 ({smi}): tokens/s "
+            f"{[r['tokens_per_s'] for r in per['e']]}, decode ms a step "
+            f"{[r['decode_ms_per_step'] for r in per['e']]}, decode "
+            f"collectives {[r['decode_collective_ops'] for r in per['e']]}; "
+            f"held with the one-device routing pinned to the run's "
+            f"({per['e'][0]['routes_pinned']} moe layer calls); routing "
+            f"free, the logits move by "
+            f"{[r['routing_free_max_diff'] for r in per['e']]} (top-k "
+            f"flips at bf16 resolution, as phase 13 logs)")
         # (d) one NCCL rank
         part = time.perf_counter()
         (rank,) = _spawn_mesh(dict(name="serve-nccl", runs=[dict(

@@ -17,8 +17,10 @@ through a `TorchDispatchMode`.  The reference's rules, on aten ops:
     dynamic-update-slice analogue) costs 2 x the slice, and a row gather
     (`index_select`, `embedding`: the dynamic-slice analogue) 2 x what it
     gathers.
-  * Collectives: output bytes per `_c10d_functional` op, bucketed by
-    kind, counted apart from HBM bytes.
+  * Collectives: output bytes per `_c10d_functional` op and per
+    DTensor all-to-all (`_dtensor.shard_dim_alltoall`: one device's
+    shard), bucketed by kind, counted apart from HBM bytes; the largest
+    single output of each kind is kept too.
   * Temp bytes: the peak of the bytes of live storages that the step's
     ops made.  A storage lives while any tensor holds it, not only the
     op's output object: autograd keeps a saved output, and a
@@ -33,9 +35,18 @@ on fake tensors of its own fake mode, which are skipped: a traced step
 on fake tensors names its mode (`fake_mode`), and a step on real tensors
 counts no fake one.  An eager trace runs every layer, so the reference's
 while-loop trip-count recovery has no counterpart.
+
+A DTensor moving a shard from one tensor dim to another (Shard(i) ->
+Shard(j)) issues an all-to-all on a CUDA mesh, but on a CPU mesh, as the
+dry run's fake world is, torch falls back to an all-gather of the whole
+dim and a chunk of it.  A trace on fake tensors takes the all-to-all
+(`mesh_alltoall`), so it counts the step a mesh of cards runs: no
+gathered buffer, the all-to-all's output bytes.  Real gloo ranks keep
+torch's fallback, which is what they run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
@@ -69,6 +80,7 @@ def _kind(name: str) -> str | None:
                       ("reduce_scatter", "reduce-scatter"),
                       ("all_reduce", "all-reduce"),
                       ("all_to_all", "all-to-all"),
+                      ("alltoall", "all-to-all"),
                       ("broadcast", "collective-permute"),
                       ("permute", "collective-permute")):
         if key in name:
@@ -91,6 +103,7 @@ class TraceCosts:
     matched_bytes: float = 0.0   # traffic of tensors of `match_elems`
                                  # elements (kernel-adjusted accounting)
     n_ops: int = 0
+    largest: dict = dataclasses.field(default_factory=dict)  # by kind
 
 
 def _matmul_flops(name: str, args, out) -> float:
@@ -116,6 +129,7 @@ class CostMode(TorchDispatchMode):
         self.matched = 0.0
         self.per_kind = {k: 0.0 for k in COLLECTIVES}
         self.op_counts = {k: 0 for k in COLLECTIVES}
+        self.largest = {k: 0 for k in COLLECTIVES}
         self.live = 0
         self.peak = 0
         self.n_ops = 0
@@ -173,11 +187,13 @@ class CostMode(TorchDispatchMode):
         name = packet.__name__
         ns = getattr(func, "namespace", "")
         self.n_ops += 1
-        if ns == "_c10d_functional" and name != "wait_tensor":
+        if ns in ("_c10d_functional", "_dtensor") and name != "wait_tensor":
             kind = _kind(name)
             if kind is not None:
-                self.per_kind[kind] += sum(_nbytes(t) for t in outs)
+                n = sum(_nbytes(t) for t in outs)
+                self.per_kind[kind] += n
                 self.op_counts[kind] += 1
+                self.largest[kind] = max(self.largest[kind], n)
                 for t in outs:
                     self._track(t)
             return out
@@ -213,14 +229,41 @@ class CostMode(TorchDispatchMode):
             coll_bytes=sum(self.per_kind.values()),
             per_kind=dict(self.per_kind), op_counts=dict(self.op_counts),
             temp_bytes=float(self.peak), matched_bytes=self.matched,
-            n_ops=self.n_ops)
+            n_ops=self.n_ops, largest=dict(self.largest))
+
+
+@contextlib.contextmanager
+def mesh_alltoall():
+    """Within, DTensor's Shard(i) -> Shard(j) redistribution issues the
+    all-to-all (`_dtensor.shard_dim_alltoall`) on any mesh, as it does on
+    a CUDA mesh, instead of the CPU mesh's all-gather and chunk.  For
+    steps on fake tensors, whose collectives move nothing."""
+    from torch.distributed.tensor import _collective_utils as CU
+    from torch.distributed.tensor import placement_types as PT
+
+    def alltoall(local, gather_dim, shard_dim, mesh, mesh_dim):
+        group = mesh.get_group(mesh_dim).group_name
+        return torch.ops._dtensor.shard_dim_alltoall(local, gather_dim,
+                                                     shard_dim, group)
+
+    saved = {m: m.shard_dim_alltoall for m in (CU, PT)
+             if hasattr(m, "shard_dim_alltoall")}
+    try:
+        for m in saved:
+            m.shard_dim_alltoall = alltoall
+        yield
+    finally:
+        for m, f in saved.items():
+            m.shard_dim_alltoall = f
 
 
 def trace(fn, match_elems: int | None = None, fake_mode=None) -> TraceCosts:
     """Run `fn()` once under a `CostMode` and return its counts;
-    `fake_mode` is the mode of the fake tensors the step runs on."""
+    `fake_mode` is the mode of the fake tensors the step runs on (its
+    redistributions then take the all-to-all, `mesh_alltoall`)."""
     mode = CostMode(match_elems, fake_mode)
-    with mode:
+    with mesh_alltoall() if fake_mode is not None else \
+            contextlib.nullcontext(), mode:
         result = fn()
     del result
     return mode.costs()

@@ -19,7 +19,8 @@ prints the reference's row and JSON keys: `trace_s` (the trace's wall
 seconds) stands for `lower_s` / `compile_s`; argument bytes are one
 device's parameters, AdamW moments and batch (and caches for decode);
 temp bytes the peak of the step's live temporaries on that device
-(`trace_analysis.CostMode`), peak their sum; the roofline terms use the
+(`trace_analysis.CostMode`), peak their sum; `collective_largest` the
+largest single output of each collective kind; the roofline terms use the
 H100 constants of `distributed/roofline.py`, analytic, not measured.
 A cell whose step raises is FAILED, and any FAILED cell exits 1.
 """
@@ -100,6 +101,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "peak_bytes": costs.temp_bytes + arg_bytes,
         },
         "roofline": report.row(),
+        "collective_largest": costs.largest,
     }
     if verbose:
         m = out["memory"]

@@ -302,18 +302,26 @@ def _fold_ready(x):
 
 
 class _FoldReadyGrad(torch.autograd.Function):
-    """Identity on a folded product's DTensor output whose gradient is
-    made `_fold_ready`: the product's backward folds the gradient the
-    same way, and a gradient arriving sequence-sharded (from the next
-    residual layout) cannot be."""
+    """Identity on a folded product's DTensor output whose gradient takes
+    the output's own layout (a partial sum's gradient replicated): the
+    product's backward folds the gradient as it folded the input, which a
+    gradient arriving sequence-sharded (from the next residual layout)
+    cannot be; and a gradient that DTensor left whole on an axis the
+    output is split on (a split of the output's last dim, as mamba2's
+    in_proj is split, gathers it) would have the weight's gradient
+    computed whole on every device of that axis."""
 
     @staticmethod
     def forward(ctx, y):
+        ctx.placements = tuple(SH.Replicate() if p.is_partial() else p
+                               for p in y.placements)
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
-        return _fold_ready(g) if SH.is_dtensor(g) else g
+        if not SH.is_dtensor(g) or tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
 def swiglu(x, wi, wg, wo):
@@ -354,13 +362,21 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def _vocab_layout(logits, rules: SH.ShardingRules):
     """DTensor logits (..., V) laid out as `rules` say (the batch on its
-    axes, "vocab" on "model"), and whether the vocab dim is
-    then split across devices (an axis of one device leaves it whole)."""
+    axes, "vocab" on "model"), and whether the vocab dim is then split
+    across devices.  A vocab that its axis does not divide (granite's
+    49155 on 16) is split unevenly, as DTensor's product leaves it and
+    as XLA pads it: gathering it whole for each device's rows would hold
+    the rows' logits twice over (an all-gather's buffer and its
+    concatenation, 12.9 GB on a granite train_4k device).  An axis of
+    one device, or rules that name none, leave it whole."""
     mesh = logits.device_mesh
     nd = logits.ndim
     spec = SH.spec_for(tuple(logits.shape),
                        ("batch",) + (None,) * (nd - 2) + ("vocab",), mesh,
                        rules)
+    if spec[-1] is None:
+        spec = SH.P(*spec[:-1], _uneven_vocab_axis(logits.shape[-1], spec,
+                                                   mesh, rules))
     split = SH.nontrivial(spec[-1], mesh) is not None
     if not split:
         spec = SH.P(*spec[:-1], None)
@@ -368,6 +384,20 @@ def _vocab_layout(logits, rules: SH.ShardingRules):
     if tuple(logits.placements) != want:
         logits = logits.redistribute(mesh, want)
     return logits, split
+
+
+def _uneven_vocab_axis(vocab: int, spec, mesh, rules: SH.ShardingRules):
+    """The first single mesh axis the rules name for "vocab" that the
+    other dims of `spec` leave free and that has no more devices than
+    `vocab` has entries, or None."""
+    sizes = SH.mesh_sizes(mesh)
+    taken = {a for e in spec[:-1] if e is not None
+             for a in SH._axis_names(e)}
+    for cand in rules.get("vocab"):
+        if isinstance(cand, str) and cand in sizes and cand not in taken \
+                and sizes[cand] <= vocab:
+            return cand
+    return None
 
 
 # f32 bytes of logits a slab of `_RowTerms` converts at a time
@@ -433,21 +463,30 @@ def _row_terms_on_shards(logits, labels):
 
 def _vocab_parallel_terms(logits, labels):
     """(logsumexp, the label's logit) of DTensor logits (..., V) whose
-    vocab dim is split across devices, in f32: the max, the sum of
-    exponentials and the label's logit are each taken on a device's
-    slice of the vocabulary and reduced over its axes, so no device holds
-    a full row.  The label's logit is the sum of the logits where the
-    device's vocab ids equal the label (a gather on a sharded vocab dim
-    has no DTensor rule)."""
+    vocab dim is split across devices, in f32: the max is taken over the
+    vocab and reduced, then each device sums the exponentials and picks
+    the label's logit (the sum of its logits where its vocab ids equal
+    the label) on its own slice (`SH.on_shards`), and the partial sums
+    are reduced over the vocab's axes, so no device holds a full row and
+    the backward stays on each device's slice.  An uneven split holds
+    each device's `torch.chunk` slice of the vocabulary."""
     mesh = logits.device_mesh
     spec = SH.spec_of(logits.placements, logits.ndim, mesh)
-    logits = logits.float()
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    lse = (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
-           )[..., 0]
-    ids = SH.shard(torch.arange(logits.shape[-1], device=logits.device),
-                   SH.P(spec[-1]), mesh)
-    hit = labels.long()[..., None] == ids
-    ll = torch.where(hit, logits, torch.zeros((), device=logits.device)
-                     ).sum(dim=-1)
-    return lse, ll
+    pv, rows = spec[-1], SH.P(*tuple(spec)[:-1])
+    n = SH._axis_size(SH.mesh_sizes(mesh), pv)
+    first = SH.shard_index(mesh, pv) * -(-logits.shape[-1] // n)
+    m = logits.detach().amax(dim=-1)
+
+    def local(x, labels, m):
+        x = x.float()
+        m = m.float()[..., None]
+        ids = torch.arange(first, first + x.shape[-1], device=x.device)
+        hit = labels.long()[..., None] == ids
+        return (torch.exp(x - m).sum(dim=-1)[None],
+                torch.where(hit, x, torch.zeros((), device=x.device)
+                            ).sum(dim=-1)[None])
+
+    parts = SH.P(pv, *rows)
+    sumexp, ll = SH.on_shards(local, mesh, (logits, labels, m),
+                              (spec, rows, rows), (parts, parts))
+    return m.float() + torch.log(sumexp.sum(dim=0)), ll.sum(dim=0)

@@ -595,7 +595,7 @@ def forward_train(params: Transformer, cfg: ArchConfig, batch: dict,
     else:
         x, auxs = _remat_blocks(x, params, cfg, constraint)
         if cfg.family == "moe":
-            aux_total = 0.01 * torch.stack(auxs).sum()
+            aux_total = _replicated(0.01 * torch.stack(auxs).sum())
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = x[:, batch["patch_embeds"].shape[1]:]     # loss on text positions
@@ -603,6 +603,16 @@ def forward_train(params: Transformer, cfg: ArchConfig, batch: dict,
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
                               rules=rules)
     return loss + aux_total
+
+
+def _replicated(t):
+    """A DTensor replicated on every mesh axis: the experts' aux terms
+    are a partial sum and the loss a partial mean, and torch 2.11's
+    DTensor cannot turn one partial type into the other when they are
+    added (2.13 replicates the sum); a plain tensor as it is."""
+    if not SH.is_dtensor(t):
+        return t
+    return t.redistribute(t.device_mesh, SH.placements(SH.P(), t.device_mesh))
 
 
 def _remat_blocks(x, params: Transformer, cfg: ArchConfig,

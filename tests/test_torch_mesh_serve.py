@@ -5,7 +5,8 @@ themselves at world 2 and serve through `Server(mesh=...)`: each
 family's SMOKE config in f32 (dense, moe, ssm, hybrid, audio, vlm) on
 data 1 x model 2, the dense fixture of tests/test_torch_lm_quant.py
 with C3 int8 and 4-bit indexes (its MLP stacks quantize) and the moe
-one with C3 int8 expert stacks, and dense on data 2 x model 1, from the
+one with C3 int8 expert stacks, and dense and moe on data 2 x model 1
+(the moe decode groups straddle the two batch shards), from the
 reference's weights carried across by `convert_lm`.  Held:
 
 * every step's logits within LOGIT_REL of their largest magnitude of
@@ -17,7 +18,9 @@ reference's weights carried across by `convert_lm`.  Held:
   (which is `serve_shardings`' rule), the prefill's caches by
   `decode_state_specs`.
 
-Also `make_prefill_step` / `make_decode_step` at `mesh=None` against
+The moe layer of a decode step on data 2 x model 1 does half of the
+one-device layer's expert FLOPs on each rank.  Also `make_prefill_step`
+/ `make_decode_step` at `mesh=None` against
 `forward_prefill` / `forward_decode`, and `launch.serve --model-parallel
 2` on the CPU.
 """
@@ -73,6 +76,7 @@ CASES = {
     "dense-c3-4bit": ("granite-3-2b", C3_DENSE, "4bit", 2),
     "moe-c3-int8": ("granite-moe-1b-a400m", C3_MOE, True, 2),
     "dense-2x1": ("granite-3-2b", {}, False, 1),
+    "moe-2x1": ("granite-moe-1b-a400m", {}, False, 1),
 }
 
 
@@ -131,14 +135,18 @@ def _cache(case) -> int:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Every case served on two gloo ranks spawned once: {case: [rank 0's
-    result, rank 1's]}."""
+    """Every case served on two gloo ranks spawned once, and the moe
+    layer's FLOPs traced ("moe-flops"): {case: [rank 0's result, rank
+    1's]}."""
     cases = [dict(kind="server", arch=CASES[c][0], params=_leaves(
         _setup(c)[3]), cfg=dict(CASES[c][1], quant_serving=CASES[c][2]),
         model=CASES[c][3], prompts=_prompts(c), slots=SLOTS,
         cache_len=_cache(c), new=NEW) for c in CASES]
+    cases.append(dict(kind="moe_flops", arch=CASES["moe"][0],
+                      params=_leaves(_setup("moe")[3]), slots=SLOTS))
     out = spawn_mesh_ranks(tmp_path_factory.mktemp("serve"), 2, 2, cases)
-    return {c: [r[i] for r in out] for i, c in enumerate(CASES)}
+    names = [*CASES, "moe-flops"]
+    return {c: [r[i] for r in out] for i, c in enumerate(names)}
 
 
 def _one_device(case) -> tuple:
@@ -200,6 +208,27 @@ def test_mesh_server_lays_out_params_and_caches(ranks, case):
     if quant:
         key = "idx4" if quant == "4bit" else "idx"
         assert all(b.endswith((f".{key}", ".cb")) for b in quantized)
+
+
+def test_meshed_moe_decode_halves_each_ranks_expert_flops(ranks):
+    """A decode step's moe layer (SLOTS rows, one dispatch group over
+    both batch shards) on data 2 x model 1: each rank keeps its half of
+    the expert stacks' d (no stack gathered) and does half of the
+    one-device layer's expert FLOPs (all but the router product, which
+    each rank runs on every row); its output is the one-device layer's
+    within LOGIT_REL."""
+    _, tcfg, _, _ = _setup("moe")
+    e, d, ff = tcfg.n_experts, tcfg.d_model, tcfg.d_ff
+    for r in ranks["moe-flops"]:
+        assert r["stacks"] == {"moe_wi": (e, d // 2, ff),
+                               "moe_wg": (e, d // 2, ff),
+                               "moe_wo": (e, ff, d // 2)}
+        assert r["router"] == 2 * SLOTS * d * e
+        assert r["one"] > r["router"]
+        assert r["mesh"] - r["router"] == (r["one"] - r["router"]) / 2
+        assert r["per_kind"]["all-gather"] < 4
+        scale = float(r["want"].abs().max())
+        assert float((r["got"] - r["want"]).abs().max()) <= LOGIT_REL * scale
 
 
 @pytest.mark.parametrize("case", ["dense-c3-int8", "dense-c3-4bit",

@@ -13,6 +13,9 @@ reference's initial weights carried across by `convert_lm`.  Held:
   step at the remat policies "nothing" (the default) and "dots" is
   bitwise the step keeping every activation;
 * the pure-FSDP rules (`FSDP_RULES`) at world 4, the same losses;
+* at world 2, the loss of logits whose vocab (255) the "model" axis
+  does not divide, split unevenly and vocab-parallel, and its gradient
+  against one device;
 * a prefill and three greedy decode steps at world 4 against one
   device within 1e-5 of the logits' largest magnitude: the kv heads
   sharded on "model", and (one kv head) the cache sharded over its
@@ -41,6 +44,7 @@ import torch
 from repro_torch.configs import registry as TR
 from repro_torch.convert import convert_lm
 from repro_torch.launch import steps as TST
+from repro_torch.models import common as TC
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw as TA
 from repro_torch.train.trainer import Trainer, TrainJobConfig
@@ -120,6 +124,17 @@ def _train_cases():
     return cases
 
 
+# logits whose vocab the 2-way "model" axis does not divide
+ODD_VOCAB = 255
+
+
+def _vocab_loss_case():
+    g = torch.Generator().manual_seed(3)
+    return dict(kind="vocab_loss",
+                logits=torch.randn(B, 8, ODD_VOCAB, generator=g),
+                labels=torch.randint(0, ODD_VOCAB, (B, 8), generator=g))
+
+
 def _decode_case(**kw):
     _, params = _params("granite-3-2b", **kw)
     toks = np.random.default_rng(9).integers(0, 256, (B, 12))
@@ -142,7 +157,7 @@ def runs(tmp_path_factory):
     w4 = spawn_mesh_ranks(tmp_path_factory.mktemp("w4"), 4, 2, four)
     remat = [dict(cases["dense"], cfg={"remat_policy": p},
                   return_params=True) for p in REMAT]
-    two = [*cases.values(), *remat,
+    two = [*cases.values(), *remat, _vocab_loss_case(),
            dict(kind="checkpoint", steps=3, ckpt_dir=ckpt, **CKPT)]
     w2 = spawn_mesh_ranks(tmp_path_factory.mktemp("w2"), 2, 2, two)
     n = len(FAMILIES)
@@ -155,6 +170,7 @@ def runs(tmp_path_factory):
             2: {"train": {f: [r[i] for r in w2] for i, f in enumerate(cases)},
                 "remat": {p: [r[n + i] for r in w2]
                           for i, p in enumerate(REMAT)},
+                "vocab_loss": [r[n + len(REMAT)] for r in w2],
                 "checkpoint": [r[-1] for r in w2]}}
 
 
@@ -238,6 +254,26 @@ def test_mesh_remat_is_bitwise_keeping_everything(runs, policy):
     case = dict(runs["cases"]["dense"], cfg={"remat_policy": policy})
     want = _one_device_losses(case)
     assert _close(got["loss"], want), (got["loss"], want)
+
+
+def test_loss_of_a_vocab_the_model_axis_does_not_divide(runs):
+    """Logits (B, 8, 255) on data 1 x model 2: the loss splits the vocab
+    unevenly (128 and 127 columns, as DTensor chunks it) and takes the
+    vocab-parallel form, no rank holding a full row; the loss and the
+    gradient are the one-device ones."""
+    case = _vocab_loss_case()
+    logits = case["logits"].clone().requires_grad_(True)
+    loss = TC.cross_entropy_loss(logits, case["labels"])
+    loss.backward()
+    want = float(loss.detach())
+    got = runs[2]["vocab_loss"]
+    assert sorted(r["local_vocab"] for r in got) == [127, 128]
+    for r in got:
+        assert r["split"] and r["placements"][-1] == "Shard(dim=2)"
+        assert abs(r["loss"] - want) <= LOSS_REL * abs(want)
+        scale = float(logits.grad.abs().max())
+        assert float((r["grad"] - logits.grad).abs().max()) <= \
+            LOGIT_REL * scale
 
 
 def test_fsdp_rules_train_the_same(runs):

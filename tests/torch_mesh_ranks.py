@@ -73,9 +73,11 @@ def run_case(case: dict, mesh) -> dict:
     "checkpoint" (save at this world, or restore), "decode" (arch,
     params, prompt batch, cache_len, steps) or "server" (arch, params,
     prompts, slots, cache_len, new; on a mesh of "model" ranks a data
-    group when given, else the ranks' own)."""
+    group when given, else the ranks' own), "moe_flops" (arch, params,
+    slots) or "vocab_loss" (logits, labels)."""
     return {"train": _train, "decode": _serve, "server": _server,
-            "checkpoint": _checkpoint}[case["kind"]](case, mesh)
+            "checkpoint": _checkpoint, "moe_flops": _moe_flops,
+            "vocab_loss": _vocab_loss}[case["kind"]](case, mesh)
 
 
 def _cfg(case):
@@ -229,6 +231,63 @@ def _server(case, mesh) -> dict:
             "params_laid_out": all(laid.values()) and len(laid) > 0,
             "buffers": sorted(n for n, _ in srv.params.named_buffers()),
             "state_specs": got, "state_specs_want": want}
+
+
+def _moe_flops(case, mesh) -> dict:
+    """The first moe layer of a decode step, its `slots` rows (B, 1, d)
+    drawn from a seeded gaussian, traced (`trace_analysis.trace`) on one
+    device and on a data 2 x model 1 mesh of the ranks (the rows on
+    "data": the decode group straddles the two batch shards): the FLOPs
+    of each, the FLOPs of the router product alone, and both outputs."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import linear
+    from repro_torch.models.moe import moe_ffn
+
+    mesh = make_host_mesh(model=1, device=mesh.device_type)
+    cfg = _cfg(case)
+    model = _model(cfg, case["params"], mesh)
+    x = torch.randn(case["slots"], 1, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    layer = model.blocks[0]
+    router = TA.trace(lambda: linear(x.reshape(1, -1, cfg.d_model),
+                                     layer["router"])).flops
+    one = TA.trace(lambda: moe_ffn(x, layer, cfg))
+    with torch.no_grad():
+        want = moe_ffn(x, layer, cfg)[0]
+    ST.shard_serving_params(model, mesh)
+    xs = ST.shard_batch({"x": x}, mesh)["x"]
+    with implicit_replication(), torch.no_grad():
+        meshed = TA.trace(lambda: moe_ffn(xs, model.blocks[0], cfg))
+        got = _full(moe_ffn(xs, model.blocks[0], cfg)[0])
+    return {"router": router, "one": one.flops, "mesh": meshed.flops,
+            "per_kind": meshed.op_counts, "want": want, "got": got,
+            "stacks": {k: tuple(model.blocks[0][k].to_local().shape)
+                       for k in ("moe_wi", "moe_wg", "moe_wo")}}
+
+
+def _vocab_loss(case, mesh) -> dict:
+    """`cross_entropy_loss` of the case's logits (B, S, V), replicated on
+    the mesh, and its gradient: the loss, the full gradient, and the
+    layout and local vocab width the loss put the logits in."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import common as C
+
+    logits = SH.shard(case["logits"], SH.P(None, None, None), mesh)
+    logits.requires_grad_(True)
+    labels = SH.shard(case["labels"], SH.P(None, None), mesh)
+    with implicit_replication():
+        laid, split = C._vocab_layout(logits, SH.ShardingRules())
+        loss = C.cross_entropy_loss(logits, labels)
+        loss.backward()
+    return {"loss": float(_full(loss)), "grad": _full(logits.grad),
+            "split": split, "local_vocab": laid.to_local().shape[-1],
+            "placements": [repr(p) for p in laid.placements]}
 
 
 def _checkpoint(case, mesh) -> dict:
