@@ -4675,6 +4675,27 @@ DRYRUN_TIMEOUT_S = 600
 # train_4k` under jax 0.9.0 on the CPU; tests/test_torch_dryrun.py runs
 # the reference beside the port's cell and holds the two within 0.5-2x
 REF_DRYRUN_TEMP_BYTES = 11_116_425_376
+# (d): a cell of the sequence split (mamba2-130m's 24 heads do not divide
+# the 16-way "model" axis), under the card machine's torch: the
+# reference's row from `python -m repro.launch.dryrun --arch mamba2-130m
+# --shape prefill_32k` under jax 0.9.0 on the CPU (FLOPs, collective and
+# temp bytes a device), logged beside the port's (0.5-2x in the CPU table)
+SEQ_DRYRUN_CELL = ("mamba2-130m", "prefill_32k")
+SEQ_DRYRUN_REF = {"hlo_flops": 900_543_499_776.0,
+                  "coll_bytes": 1_142_210_880.0, "temp_bytes": 345_124_888}
+# (e): mamba2-130m at full width and depth, bf16, trained on data 1 x
+# model 2 under rules that leave the heads unsplit (its 24 SSD heads are
+# never split there: `transformer._shard_ssm_heads` wants 16 to divide
+# them), so the sequence stays split on "model" through every block:
+# 512 positions a rank, two of the 256-position chunks.  Step 0 is held
+# to MESH_LOSS_REL / MESH_GNORM_REL of the one-device step: the split
+# products run the same rows (another cuBLAS tiling), the scan folds
+# the other rank's f32 summaries in (the recurrence reassociated).
+# Measured on an H100 at --seed 0: the losses equal, grad_norm 2.35e-4
+# apart (its limit 1e-3).  The run also holds every layer's scan to the
+# by-chunks route in each forward and its recompute.
+SEQ_RULES = {"heads": [], "kv_heads": []}
+SEQ_TRAIN_BATCH, SEQ_TRAIN_SEQ = 2, 1024
 
 
 def _mesh_rank(rank: int, world: int, backend: str, tmp: str,
@@ -4695,7 +4716,7 @@ def _mesh_rank(rank: int, world: int, backend: str, tmp: str,
         rank=rank, world_size=world,
         timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
     try:
-        res = _mesh_train(rank, dev, job)
+        res = (_seq_train if job.get("seq") else _mesh_train)(rank, dev, job)
         torch.save(res, f"{tmp}/{job['name']}-rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4846,6 +4867,158 @@ def _mesh_train(rank: int, dev, job: dict) -> dict:
     res["collective_ops_per_step"] = costs.op_counts
     ATT.flash_attention = plain
     return res
+
+
+def _seq_rules():
+    """The sharding rules of phase 16 (e) and 17 (g), (h): the defaults
+    with the heads and kv heads unsplit."""
+    from repro_torch.distributed import sharding as SH
+
+    return SH.ShardingRules(dict(SH.DEFAULT_RULES, **SEQ_RULES))
+
+
+def _seq_model(seed: int, dev):
+    """mamba2-130m at full width and depth (bf16), its random weights from
+    the port's init on `dev`."""
+    import torch
+
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as T
+
+    cfg = R.get_arch(SSM_ARCH)
+    return cfg, T.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 5))
+
+
+def _seq_batches(cfg, seed: int, dev, n: int) -> list:
+    from repro_torch.data.synthetic import TokenStream
+
+    data = TokenStream(cfg.vocab, SEQ_TRAIN_SEQ, SEQ_TRAIN_BATCH, seed)
+    return [data.batch_at(i, dev) for i in range(n)]
+
+
+def _seq_one_device_step(seed: int, dev) -> dict:
+    """(e)'s one-device step 0: loss and grad_norm."""
+    import torch
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+
+    cfg, model = _seq_model(seed, dev)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = ST.make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_STEPS_LM))
+    _, _, metrics = step(model, opt, _seq_batches(cfg, seed, dev, 1)[0])
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"])}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_spies():
+    """Count the sequence-split routes as they run: the SSD scan by
+    chunks (`mamba2._scan_by_chunks`) and attention on a device's query
+    rows (`attention._query_rows` naming an axis).  Returns the counts
+    and an undo."""
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import mamba2 as M2
+
+    counts = {"scan_by_chunks": 0, "query_rows": 0}
+    scan, rows = M2._scan_by_chunks, ATT._query_rows
+
+    def scan_spy(*a, **kw):
+        counts["scan_by_chunks"] += 1
+        return scan(*a, **kw)
+
+    def rows_spy(*a, **kw):
+        out = rows(*a, **kw)
+        counts["query_rows"] += out is not None
+        return out
+
+    M2._scan_by_chunks, ATT._query_rows = scan_spy, rows_spy
+
+    def undo():
+        M2._scan_by_chunks, ATT._query_rows = scan, rows
+
+    return counts, undo
+
+
+def _seq_train(rank: int, dev, job: dict) -> dict:
+    """(e): `job["steps"]` steps of `make_train_step(mesh=...)` on
+    mamba2-130m under `_seq_rules()` (each step's ms, loss, grad_norm and
+    the sequence-split routes taken), then one more step under the
+    collective counter (bytes sent a step)."""
+    import torch
+
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+
+    mesh = MESH.make_host_mesh(model=job["model"], device=dev)
+    rules = _seq_rules()
+    cfg, model = _seq_model(job["seed"], dev)
+    model = ST.shard_params(model, mesh, rules)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = ST.make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_STEPS_LM), mesh, rules=rules)
+    batches = _seq_batches(cfg, job["seed"], dev, job["steps"] + 1)
+    counts, undo = _seq_spies()
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, norms = [], [], []
+    try:
+        for i in range(job["steps"]):
+            t0 = time.perf_counter()
+            model, opt, metrics = step(model, opt, batches[i])
+            losses.append(float(metrics["loss"]))      # synchronises
+            norms.append(float(metrics["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        routes = dict(counts)
+        costs = TA.trace(lambda: step(model, opt, batches[job["steps"]]))
+    finally:
+        undo()
+    return {"rank": rank, "ms_per_step": ms, "loss": losses,
+            "grad_norm": norms, "routes": routes,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sent_bytes_per_step": dict(costs.per_kind,
+                                        total=costs.coll_bytes),
+            "collective_ops_per_step": costs.op_counts}
+
+
+def _hold_seq_train(what: str, ranks: list, want: dict, layers: int
+                    ) -> dict:
+    """(e): every rank scanned every layer by chunks in each forward and
+    its recompute (remat "nothing"); the ranks' losses equal, finite; step
+    0 within MESH_LOSS_REL / MESH_GNORM_REL of the one-device step."""
+    for r in ranks:
+        expect = len(r["loss"]) * layers * FLASH_CALLS_A_LAYER
+        if r["routes"]["scan_by_chunks"] != expect:
+            raise AssertionError(f"{what} rank {r['rank']}: routes "
+                                 f"{r['routes']}, expected {expect} scans "
+                                 f"by chunks")
+    if any(r["loss"] != ranks[0]["loss"] for r in ranks) or not all(
+            math.isfinite(x) for r in ranks for x in r["loss"]
+            + r["grad_norm"]):
+        raise AssertionError(f"{what}: the ranks' losses differ or are not "
+                             f"finite: {[r['loss'] for r in ranks]}")
+    loss_rel = abs(ranks[0]["loss"][0] - want["loss"]) / abs(want["loss"])
+    gnorm_rel = (abs(ranks[0]["grad_norm"][0] - want["grad_norm"])
+                 / want["grad_norm"])
+    out = {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel, "want": want,
+           "routes": ranks[0]["routes"]}
+    log(f"{what}: step 0 loss {ranks[0]['loss'][0]} against one device "
+        f"{want['loss']} (rel {loss_rel:.3g}, limit {MESH_LOSS_REL}), "
+        f"grad_norm {ranks[0]['grad_norm'][0]} against {want['grad_norm']} "
+        f"(rel {gnorm_rel:.3g}, limit {MESH_GNORM_REL}); routes a rank "
+        f"{ranks[0]['routes']}; ms a step "
+        f"{[r['ms_per_step'] for r in ranks]}; bytes sent a step per rank "
+        f"{[r['sent_bytes_per_step']['total'] for r in ranks]}")
+    if loss_rel > MESH_LOSS_REL or gnorm_rel > MESH_GNORM_REL:
+        raise AssertionError(f"{what}: step 0 outside ({MESH_LOSS_REL}, "
+                             f"{MESH_GNORM_REL}) of the one-device step")
+    return out
 
 
 def _spawn_mesh(job: dict, world: int, backend: str, tmp: str,
@@ -5001,16 +5174,19 @@ def _hold_mesh(what: str, ranks: list, want: dict, layers: int,
     return out
 
 
-def _dryrun_cell(device_note: str) -> dict:
+def _dryrun_cell(device_note: str, cell=DRYRUN_CELL,
+                 ref: dict | None = None) -> dict:
     """(d) one dry-run cell in a subprocess (a fake 256-rank world on
     the host; no card): its row, its temp bytes against the reference's
-    (REF_DRYRUN_TEMP_BYTES), and its argument plus temp bytes, which must
-    stay below the card's memory."""
+    (REF_DRYRUN_TEMP_BYTES, or `ref`'s, whose FLOPs and collective bytes
+    are set beside the port's too), and its argument plus temp bytes,
+    which must stay below the card's memory."""
     import tempfile
 
     import torch
 
-    arch, shape = DRYRUN_CELL
+    arch, shape = cell
+    ref = ref or {"temp_bytes": REF_DRYRUN_TEMP_BYTES}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "cell.json"
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -5033,7 +5209,9 @@ def _dryrun_cell(device_note: str) -> dict:
     card = torch.cuda.get_device_properties(0).total_memory
     res = {"cell": f"{arch}/{shape} 16x16", "wall_s": wall,
            "trace_s": row["trace_s"], "memory": mem,
-           "temp_vs_reference": mem["temp_bytes"] / REF_DRYRUN_TEMP_BYTES,
+           "temp_vs_reference": mem["temp_bytes"] / ref["temp_bytes"],
+           "vs_reference": {k: (mem if k == "temp_bytes" else r)[k] / v
+                            for k, v in ref.items()},
            "card_bytes": card,
            "flops_per_device": r["hlo_flops"],
            "bytes_per_device": r["hlo_bytes"],
@@ -5052,9 +5230,12 @@ def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
     """Phase 16: granite-3-2b trained on a DeviceMesh: (a) two gloo ranks
     on the card, data 1 x model 2, full width and depth; (b) data 2 x
     model 1 at 8 of its 40 layers; (c) one NCCL rank, 1 x 1, bitwise the
-    one-device step; (d) one dry-run cell.  Each is held against the
-    one-device step 0 of its depth, run here first; `one_device` is phase 15 (d)'s record, whose step 0 the one at
-    full depth repeats."""
+    one-device step; (e) mamba2-130m at full width and depth, data 1 x
+    model 2 under `_seq_rules()` (the sequence split on "model" through
+    every block); (d) two dry-run cells (granite-3-2b train_4k,
+    mamba2-130m prefill_32k).  Each is held against the one-device step
+    0 of its depth, run here first; `one_device` is phase 15 (d)'s
+    record, whose step 0 the one at full depth repeats."""
     import gc
     import tempfile
 
@@ -5129,8 +5310,22 @@ def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
             f"{'equal' if got['prints'] == want['prints'] else 'differ'}")
         out["c"] = {"ranks": [rank], "bitwise": True}
         out["seconds"]["c"] = time.perf_counter() - part
+        # (e) mamba2-130m, heads unsplit: the sequence split on "model"
+        part = time.perf_counter()
+        want = _seq_one_device_step(seed, dev)
+        log(f"phase 16 (e): one-device step 0 of {SSM_ARCH}: {want}")
+        job = dict(name="e", seq=True, model=MESH_RANKS, seed=seed,
+                   steps=MESH_STEPS)
+        ranks = _spawn_mesh(job, MESH_RANKS, "gloo", tmp)
+        out["e"] = _hold_seq_train(
+            f"phase 16 (e) {SSM_ARCH} data 1 x model 2, heads unsplit",
+            ranks, want, R.get_arch(SSM_ARCH).n_layers)
+        out["e"]["ranks"] = ranks
+        out["seconds"]["e"] = time.perf_counter() - part
     part = time.perf_counter()
     out["d"] = _dryrun_cell(f"torch {torch.__version__}")
+    out["d_seq"] = _dryrun_cell(f"torch {torch.__version__}",
+                                SEQ_DRYRUN_CELL, SEQ_DRYRUN_REF)
     out["seconds"]["d"] = time.perf_counter() - part
     flash = sum(r["launches"][-1]["flash_attention"]
                 for p in "abc" for r in out[p]["ranks"])
@@ -5157,6 +5352,11 @@ def mesh_train_path(seed: int, smi: str, one_device: dict) -> dict:
             "loss_rel", "grad_norm_rel", "leaf_grad_rel",
             "leaf_grad_rel_median", "leaf_update_rel",
             "leaf_update_rel_median")})
+    perf["e"] = {k: [r[k] for r in out["e"]["ranks"]] for k in (
+        "ms_per_step", "loss", "grad_norm", "peak_mem_gb",
+        "sent_bytes_per_step")}
+    perf["e"].update({k: out["e"][k] for k in ("loss_rel", "grad_norm_rel",
+                                               "routes")})
     log(f"phase 16 ({smi}): {json.dumps(perf)}")
     log(f"phase 16 seconds: {json.dumps(out['seconds'])}")
     out["perf"] = perf
@@ -5191,8 +5391,20 @@ SERVE_SHORT_LAYERS = 8          # (b)-(f): the first 8 layers
 # the straddling decode steps 0.094-0.141) and (f), expert parallel with
 # whole groups (the path that predates the straddling split), 0.1445,
 # logits up to 5.34 (a bf16 ulp 2^-5).  The limit is 1.7 times that.
+# (g) whisper-tiny and (h) mamba2-130m at full width, data 1 x model 2
+# under `_seq_rules()` (heads unsplit): the sequence stays split on
+# "model" through every block (each rank's query rows, its chunks), so
+# no partial sum is rounded before it is added: each product runs the
+# same rows at half the count (another cuBLAS tiling), the attention's
+# rows see the whole k / v, and the scan folds the other rank's f32
+# summaries in.  Measured on an H100 at --seed 0: (g) 0.03125 at most
+# (one bf16 ulp of logits up to 4.94); (h) prefill 0.0156, then the
+# decode steps 0.055-0.125 (logits up to 4.84): the prefill's bf16
+# roundings enter the SSM state and conv window, which every later
+# step reads (24 layers).  (g) is held to the dense limit, 4 times its
+# reading; (h) to 2 times its reading.
 MESH_SERVE_TOL = {"a": 0.125, "b": 0.125, "c": 0.125, "e": 0.25,
-                  "f": 0.25}
+                  "f": 0.25, "g": 0.125, "h": 0.25}
 
 
 def _serve_rank(rank: int, world: int, backend: str, tmp: str,
@@ -5303,8 +5515,12 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
     cfg, model = _serve_mesh_model(run, tmp, dev)
     prompts = _prompts(run["seed"], cfg.vocab)[:LM_SLOTS]
     batch = {"tokens": torch.as_tensor(np.stack(prompts), device=dev)}
+    if cfg.family == "audio":               # the server's stub frames
+        batch["frames"] = torch.zeros((LM_SLOTS, cfg.enc_frames,
+                                       cfg.d_model), device=dev)
     srv = Server(cfg, model, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
-                 mesh=mesh)
+                 mesh=mesh, rules=(_seq_rules() if run.get("seq")
+                                   else SH.ShardingRules()))
     del model
     timed = {"prefill": [], "decode": []}
     last = {}
@@ -5348,6 +5564,7 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
 
     seen["on"] = False
     ATT.flash_attention, CBM.codebook_matmul = flash_spy, codebook_spy
+    routes_taken, undo = _seq_spies()
     try:
         for uid, p in enumerate(prompts):                   # warm up
             srv.submit(Request(uid=uid, prompt=p, max_new_tokens=2))
@@ -5368,6 +5585,7 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
         CBM.reset_launches()
         seen["on"] = True
         routes = []
+        routes_taken.update(scan_by_chunks=0, query_rows=0)
         t0 = time.perf_counter()
         done = _dispatching(_recorder(routes), lambda: srv.run(
             sample=sample)) if cfg.family == "moe" else srv.run(sample=sample)
@@ -5375,8 +5593,10 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
         wall = time.perf_counter() - t0
         seen["on"] = False
         launches = {**FA.launches, **CBM.launches}
+        seq_routes = dict(routes_taken)
     finally:
         ATT.flash_attention, CBM.codebook_matmul = flash, kernel
+        undo()
     res = {"rank": rank, "launches": launches,
            "flash_shapes": sorted(set(seen["flash"])),
            "flash_calls": len(seen["flash"]),
@@ -5390,7 +5610,14 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
            "prefill_ms": timed["prefill"],
            "decode_ms_per_step": statistics.median(timed["decode"]),
            "decode_steps": len(timed["decode"]),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seq_routes": seq_routes}
+    if run.get("seq"):
+        # one more prefill, its collectives counted
+        costs = TA.trace(lambda: prefill(srv.params, batch=batch))
+        res["prefill_collective_bytes"] = dict(costs.per_kind,
+                                               total=costs.coll_bytes)
+        res["prefill_collective_ops"] = costs.op_counts
     # one more decode step, profiled, its collectives counted
     counted = {}
     step_toks = tokens[-1].to(torch.int32)[:, None]
@@ -5552,6 +5779,41 @@ def _hold_served(what: str, ranks: list, want: dict, tol: float | None,
     return out
 
 
+def _hold_seq_served(per: dict, smi: str) -> dict:
+    """Phase 17 (g), (h): each rank's served run held as `_hold_served`
+    holds it (no flash and no codebook launch: a rank's query rows at an
+    offset take `_sdpa`), and the sequence-split routes taken: every
+    prefill attention on its query rows (whisper-tiny's decoder self- and
+    cross-attention, its encoder's 1500 frames split too), every mamba2
+    layer's scan by chunks."""
+    from repro_torch.configs import registry as R
+
+    out = {}
+    audio, ssm = R.get_arch(AUDIO_ARCH), R.get_arch(SSM_ARCH)
+    for p, cfg, want_routes in (
+            ("g", audio, {"query_rows": 2 * audio.n_layers
+                          + audio.enc_layers, "scan_by_chunks": 0}),
+            ("h", ssm, {"query_rows": 0, "scan_by_chunks": ssm.n_layers})):
+        out[p] = _hold_served(
+            f"phase 17 ({p}) {cfg.name} data 1 x model 2, heads unsplit, "
+            f"{cfg.n_layers} layers", per[p],
+            {"flash_attention": 0, "codebook_matmul": 0},
+            MESH_SERVE_TOL[p], ())
+        for r in per[p]:
+            if r["seq_routes"] != want_routes:
+                raise AssertionError(f"phase 17 ({p}) rank {r['rank']}: "
+                                     f"routes {r['seq_routes']}, expected "
+                                     f"{want_routes}")
+        log(f"phase 17 ({p}) {cfg.name} ({smi}): sequence-split routes a "
+            f"rank {per[p][0]['seq_routes']}; a prefill's collective bytes "
+            f"per rank {[r['prefill_collective_bytes'] for r in per[p]]}, "
+            f"ops {per[p][0]['prefill_collective_ops']}; tokens/s "
+            f"{[r['tokens_per_s'] for r in per[p]]}, prefill ms "
+            f"{[r['prefill_ms'] for r in per[p]]}, decode ms a step "
+            f"{[r['decode_ms_per_step'] for r in per[p]]}")
+    return out
+
+
 def mesh_serve_path(seed: int, smi: str) -> dict:
     """Phase 17: granite-3-2b served on a DeviceMesh by `Server(mesh=...)`
     with phase 6's first 4 prompts: two gloo ranks on the card run (a)
@@ -5561,8 +5823,11 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
     (every decode group straddles the two batch shards: each rank does
     its half of the experts' work along their "embed" axis) and (f) the
     same on data 1 x model 2 (expert parallel), both held with the
-    one-device routing pinned to the run's; then (d)
-    one NCCL rank, 1 x 1, 8 layers, bitwise the one-device server."""
+    one-device routing pinned to the run's; (g) whisper-tiny and (h)
+    mamba2-130m at full width and depth, data 1 x model 2 under
+    `_seq_rules()` (heads unsplit: the sequence split on "model" through
+    every block; one prefill's collectives counted); then (d) one NCCL
+    rank, 1 x 1, 8 layers, bitwise the one-device server."""
     import gc
     import tempfile
 
@@ -5608,7 +5873,11 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
                 dict(name="e", model=1, layers=SERVE_SHORT_LAYERS,
                      seed=seed, arch=MOE_ARCH),
                 dict(name="f", model=2, layers=SERVE_SHORT_LAYERS,
-                     seed=seed, arch=MOE_ARCH)]
+                     seed=seed, arch=MOE_ARCH),
+                dict(name="g", model=2, seed=seed, arch=AUDIO_ARCH,
+                     layers=R.get_arch(AUDIO_ARCH).n_layers, seq=True),
+                dict(name="h", model=2, seed=seed, arch=SSM_ARCH,
+                     layers=R.get_arch(SSM_ARCH).n_layers, seq=True)]
         ranks = _spawn_mesh(dict(name="serve-gloo", runs=runs), MESH_RANKS,
                             "gloo", tmp, _serve_rank, "phase 17")
         out["seconds"]["gloo"] = time.perf_counter() - part
@@ -5649,6 +5918,7 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
                        "codebook_matmul": 0}, MESH_SERVE_TOL["f"],
             ((b, moe.n_heads // 2, s, moe.hd),
              (b, moe.n_kv_heads // 2, s, moe.hd)))
+        out.update(_hold_seq_served(per, smi))
         log(f"phase 17 (e) {MOE_ARCH} data 2 x model 1 ({smi}): tokens/s "
             f"{[r['tokens_per_s'] for r in per['e']]}, decode ms a step "
             f"{[r['decode_ms_per_step'] for r in per['e']]}, decode "
@@ -5681,7 +5951,8 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
             "decode_ms_per_step", "decode_steps", "peak_mem_gb",
             "device_busy_ms", "idle_share", "flash_kernel_ms",
             "codebook_kernel_ms", "copy_ms", "decode_collective_bytes",
-            "decode_collective_ops", "launches", "codebook_calls")
+            "decode_collective_ops", "launches", "codebook_calls",
+            "prefill_collective_bytes")
     perf = {p: {k: [r.get(k) for r in per[p]] for k in keys} for p in per}
     for p in per:
         perf[p].update({k: out[p][k] for k in (

@@ -141,14 +141,15 @@ def make_train_step(cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ArchConfig, mesh, cache_len: int,
-                      seq_parallel: bool = True):
+                      seq_parallel: bool = True,
+                      rules: SH.ShardingRules = SH.ShardingRules()):
     """`prefill_step(params, batch) -> (last-token logits, DecodeState)`.
 
     With `mesh=None`, `forward_prefill` on one device.  On a mesh the
     parameters are laid out by `shard_serving_params`, the batch by
     `shard_batch` (the prompts on the batch axes), the residual by the
     reference's constraint (sequence parallel unless
-    `seq_parallel=False`); the caches come out laid out by
+    `seq_parallel=False`) under `rules`; the caches come out laid out by
     `decode_state_specs` and the logits as a DTensor.  As the
     reference's, the step takes no C3 parameter transform (the server
     builds its C3 prefill itself)."""
@@ -157,11 +158,12 @@ def make_prefill_step(cfg: ArchConfig, mesh, cache_len: int,
             return T.forward_prefill(params, cfg, batch, cache_len)
 
         return prefill_step
-    constraint = SH.make_residual_constraint(mesh, seq_parallel)
+    constraint = SH.make_residual_constraint(mesh, seq_parallel, rules)
 
     def sharded_prefill(params: T.Transformer, batch: dict):
         logits, state = _serve_call(T.forward_prefill, params, cfg,
-                                    shard_batch(batch, mesh), cache_len,
+                                    shard_batch(batch, mesh, rules),
+                                    cache_len,
                                     constraint=constraint)
         return logits, lay_out_state(state, mesh)
 
@@ -181,12 +183,14 @@ def lay_out_state(state: T.DecodeState, mesh) -> T.DecodeState:
     return state._replace(enc_out=enc.redistribute(mesh, want))
 
 
-def make_decode_step(cfg: ArchConfig, mesh):
+def make_decode_step(cfg: ArchConfig, mesh,
+                     rules: SH.ShardingRules = SH.ShardingRules()):
     """`decode_step(params, state, tokens) -> (logits, DecodeState)`: one
     `forward_decode` step; under `cfg.quant_serving` through
     `quant.lm_quant.make_param_transform(cfg.dtype)`.  On a mesh the
     tokens (B, 1) go on the batch axes and the residual is constrained
-    without sequence parallelism; with `mesh=None` the one-device step."""
+    without sequence parallelism, under `rules`; with `mesh=None` the
+    one-device step."""
     pt = None
     if cfg.quant_serving:
         from repro_torch.quant.lm_quant import make_param_transform
@@ -199,11 +203,12 @@ def make_decode_step(cfg: ArchConfig, mesh):
                                     param_transform=pt)
 
         return decode_step
-    constraint = SH.make_residual_constraint(mesh, seq_parallel=False)
+    constraint = SH.make_residual_constraint(mesh, seq_parallel=False,
+                                             rules=rules)
 
     def sharded_decode(params: T.Transformer, state: T.DecodeState,
                        tokens: torch.Tensor):
-        tokens = shard_batch({"tokens": tokens}, mesh)["tokens"]
+        tokens = shard_batch({"tokens": tokens}, mesh, rules)["tokens"]
         return _serve_call(T.forward_decode, params, cfg, state, tokens,
                            param_transform=pt, constraint=constraint)
 
@@ -214,7 +219,9 @@ def make_decode_step(cfg: ArchConfig, mesh):
 # Serve: the parameter and cache layouts
 # ---------------------------------------------------------------------------
 
-def serving_param_specs(model: T.Transformer, mesh) -> dict:
+def serving_param_specs(model: T.Transformer, mesh,
+                        rules: SH.ShardingRules = SH.ShardingRules()
+                        ) -> dict:
     """{name: PartitionSpec} of every parameter and C3 buffer of `model`
     (`named_parameters` and `named_buffers` names): `serve_shardings`'s
     rule on the model's own leaves.  A quantized leaf's `idx` / `idx4`
@@ -227,15 +234,17 @@ def serving_param_specs(model: T.Transformer, mesh) -> dict:
         weight, _, key = name.rpartition(".")
         axes[name] = (logical[name] if name in logical else
                       (None,) if key == "cb" else logical[weight])
-    return SH.tree_specs(axes, leaves, mesh)
+    return SH.tree_specs(axes, leaves, mesh, rules)
 
 
-def shard_serving_params(model: T.Transformer, mesh) -> T.Transformer:
+def shard_serving_params(model: T.Transformer, mesh,
+                         rules: SH.ShardingRules = SH.ShardingRules()
+                         ) -> T.Transformer:
     """Lay `model`'s parameters and C3 buffers (full tensors, the same on
     every rank) out on `mesh` by `serving_param_specs`, in place, as
     `shard_params` lays out the parameters; DTensors stay as they are.
     Returns the model."""
-    specs = serving_param_specs(model, mesh)
+    specs = serving_param_specs(model, mesh, rules)
     for name, t in [*model.named_parameters(), *model.named_buffers()]:
         if SH.is_dtensor(t):
             continue

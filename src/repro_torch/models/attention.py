@@ -21,7 +21,12 @@ On a mesh (DTensor q / k / v, `launch/steps.py`), each attention runs on
 every device's own rows and heads through `local_map` (`_on_local_heads`):
 the batch on the rules' batch axes, the heads on "model" when they
 divide; kv heads that do not divide are repeated over their query group
-first, so each device's kv heads are those its query heads read.  The
+first, so each device's kv heads are those its query heads read.  Heads
+that do not divide leave the sequence split on "model" through the
+block, as the reference's layout does: the projections run on each
+device's rows (`_heads_unsplit`) and each device attends its own query
+rows from their offset over the whole k / v (never the flash route,
+whose causal mask starts at row 0).  The
 flash kernel's wrapper takes plain contiguous tensors, so this is the
 only way it runs on a mesh.  Decode and the prefill's cache writes work
 on each device's cache shard (`distributed.sharding.decode_state_spec`):
@@ -39,8 +44,8 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  supports)
-from repro_torch.models.common import (ArchConfig, apply_rope, init_dense,
-                                       linear)
+from repro_torch.models.common import (ArchConfig, apply_rope, gather_rows,
+                                       init_dense, linear)
 
 NEG_INF = -1e30
 
@@ -65,25 +70,52 @@ def _repeat_kv(t, h: int):
 
 
 def _on_local_heads(fn, q, k, v, rules: SH.ShardingRules):
-    """`fn(q, k, v) -> (B, S, H * hd)` on each device's rows and heads of
-    DTensor q (B, S, H, hd), k / v (B, T, KV, hd), through `local_map`."""
+    """`fn(q, k, v, offset) -> (B, S, H * hd)` on each device's rows and
+    heads of DTensor q (B, S, H, hd), k / v (B, T, KV, hd), through
+    `local_map`.  Heads that the model axis does not split leave the
+    queries split by sequence (`_query_rows`): each device attends its
+    rows, the first at position `offset`, over the whole k / v (gathered
+    once), as the reference's layout keeps the sequence split on "model"
+    through such a block; every other layout passes offset 0."""
     mesh, pb, ph, pk = _head_layout(q, k, rules)
     if pk == "repeat":
         k, v, pk = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2]), ph
-    return SH.on_shards(fn, mesh, (q, k, v),
-                        (SH.P(pb, None, ph, None), SH.P(pb, None, pk, None),
-                         SH.P(pb, None, pk, None)), SH.P(pb, None, ph))
+    ps = _query_rows(q, pb, ph, rules)
+    offset = _offset(mesh, ps, q.shape[1])
+    return SH.on_shards(lambda q, k, v: fn(q, k, v, offset), mesh, (q, k, v),
+                        (SH.P(pb, ps, ph, None), SH.P(pb, None, pk, None),
+                         SH.P(pb, None, pk, None)), SH.P(pb, ps, ph))
+
+
+def _query_rows(q, pb, ph, rules: SH.ShardingRules):
+    """The mesh axis the queries' sequence is split on in the local
+    attention: with the heads unsplit (`ph` None), the first candidate
+    the rules name for "seq" that the batch leaves free and that divides
+    the sequence; else None (every device the whole sequence)."""
+    if ph is not None or q.shape[1] < 2:
+        return None
+    sizes = SH.mesh_sizes(q.device_mesh)
+    for cand in rules.get("seq"):
+        names = SH._axis_names(cand)
+        if all(n in sizes for n in names) and SH.free_of(cand, pb) \
+                and q.shape[1] % SH._axis_size(sizes, cand) == 0:
+            return cand
+    return None
 
 
 def _flash_ok(cfg: ArchConfig, s: int) -> bool:
     return s % 128 == 0 and s > 128 and cfg.sliding_window <= 0
 
 
-def _flash_route(q, cfg: ArchConfig) -> bool:
-    """The flash route for q (B, S, H, hd): a qualifying sequence and a
-    shape the kernel launches for."""
+def _flash_route(q, k, cfg: ArchConfig) -> bool:
+    """The flash route for q (B, S, H, hd) against k (B, T, KV, hd): the
+    whole sequence's queries (S == T: the kernel's causal mask counts
+    rows and columns from 0, so a device's rows at an offset take
+    `_sdpa`), a qualifying sequence and a shape the kernel launches
+    for."""
     b, s, h, hd = q.shape
-    return _flash_ok(cfg, s) and supports(q.dtype, hd, b, h)
+    return s == k.shape[1] and _flash_ok(cfg, s) and supports(
+        q.dtype, hd, b, h)
 
 
 class _FlashCore(torch.autograd.Function):
@@ -153,30 +185,50 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
          rules: SH.ShardingRules = SH.ShardingRules()):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _by_heads(linear(x, p[q_name]), h, "heads", rules).reshape(
+    rows = _heads_unsplit(x, cfg, rules)
+    xq, xk, xv = (x,) * 3 if rows else gather_rows(x, p[q_name], p[k_name],
+                                                    p[v_name])
+    q = _by_heads(linear(xq, p[q_name], rows), h, "heads", rules).reshape(
         b, s, h, hd)
-    k = _by_heads(linear(x, p[k_name]), kv, "kv_heads", rules).reshape(
-        b, s, kv, hd)
-    v = _by_heads(linear(x, p[v_name]), kv, "kv_heads", rules).reshape(
-        b, s, kv, hd)
+    k = _by_heads(linear(xk, p[k_name], rows), kv, "kv_heads",
+                  rules).reshape(b, s, kv, hd)
+    v = _by_heads(linear(xv, p[v_name], rows), kv, "kv_heads",
+                  rules).reshape(b, s, kv, hd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _heads_unsplit(x, cfg: ArchConfig, rules: SH.ShardingRules
+                   ) -> bool:
+    """Whether the attention of DTensor x (B, S, d) runs its products on
+    each device's rows (`linear(..., rows=True)`): where the rules leave
+    its heads unsplit, the sequence stays split on "model" through the
+    block, as in the reference's layout, and each projection's weight is
+    gathered whole instead (whisper-tiny's 6 heads on 16 devices would
+    otherwise gather the sequence for a product split inside the heads,
+    then gather the projection back to whole heads)."""
+    if not SH.is_dtensor(x) or x.shape[1] < 2:
+        return False
+    return SH.spec_for((x.shape[0], cfg.n_heads), ("batch", "heads"),
+                       x.device_mesh, rules)[1] is None
+
+
 def _by_heads(y, n_heads: int, logical: str, rules: SH.ShardingRules):
     """A DTensor projection (B, S, n_heads * hd) laid out as the heads
     split it: rows on the batch axes, the heads on "model" when they
     divide it, else whole (a shard inside a head cannot be reshaped to
-    (..., heads, hd)).  A plain tensor passes through."""
+    (..., heads, hd)) with the sequence left as the product laid it out.
+    A plain tensor passes through."""
     if not SH.is_dtensor(y):
         return y
 
     mesh = y.device_mesh
     pb, ph = SH.spec_for((y.shape[0], n_heads), ("batch", logical), mesh,
                          rules)
-    want = SH.placements(SH.P(pb, None, ph), mesh)
+    ps = SH.entry_of(y, 1) if ph is None else None
+    want = SH.placements(SH.P(pb, SH.free_of(ps, pb), ph), mesh)
     return y if tuple(y.placements) == want else y.redistribute(mesh, want)
 
 
@@ -207,34 +259,35 @@ def _sdpa(q, k, v, mask, cfg: ArchConfig):
             .reshape(b, s, h * hd).to(v.dtype))
 
 
-def _sdpa_chunked(q, k, v, cfg: ArchConfig, chunk: int):
+def _sdpa_chunked(q, k, v, cfg: ArchConfig, chunk: int, offset: int = 0):
     """Query-chunked attention (flash-style memory behaviour).
 
     Live score tensor shrinks from O(S·T) to O(chunk·T) per head.  Each
     chunk's softmax row is complete, so no online max/sum bookkeeping is
-    needed; numerics match `_sdpa` exactly.
+    needed; numerics match `_sdpa` exactly.  The queries are positions
+    `offset` to `offset + S` of the keys' sequence.
     """
     b, s, h, hd = q.shape
     t = k.shape[1]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
-    cols = torch.arange(t, device=q.device)
     outs = []
     for ci in range(s // chunk):
-        rows = ci * chunk + torch.arange(chunk, device=q.device)
-        m = cols[None, :] <= rows[:, None]
-        if cfg.sliding_window > 0:
-            m &= cols[None, :] > rows[:, None] - cfg.sliding_window
+        m = causal_mask(chunk, cfg.sliding_window, offset + ci * chunk,
+                        q.device, cols=t)
         qc = q[:, ci * chunk:(ci + 1) * chunk]
         outs.append(_sdpa(qc, k, v, m.expand(b, chunk, t), cfg))
     return torch.cat(outs, dim=1)
 
 
-def causal_mask(s: int, window: int = 0, offset: int = 0, device=None
-                ) -> torch.Tensor:
-    """(s, s+offset) causal (optionally sliding-window) mask."""
+def causal_mask(s: int, window: int = 0, offset: int = 0, device=None,
+                cols: int | None = None) -> torch.Tensor:
+    """(s, s+offset) causal (optionally sliding-window) mask: rows are
+    positions offset to offset + s; `cols` columns (positions from 0)
+    when given."""
     rows = torch.arange(s, device=device)[:, None] + offset
-    cols = torch.arange(s + offset, device=device)[None, :]
+    cols = torch.arange(s + offset if cols is None else cols,
+                        device=device)[None, :]
     m = cols <= rows
     if window > 0:
         m &= cols > rows - window
@@ -242,18 +295,22 @@ def causal_mask(s: int, window: int = 0, offset: int = 0, device=None
 
 
 def _self_attention(q, k, v, cfg: ArchConfig,
-                    rules: SH.ShardingRules = SH.ShardingRules()):
+                    rules: SH.ShardingRules = SH.ShardingRules(),
+                    offset: int = 0):
+    """Causal self-attention of q (B, S, H, hd), positions `offset` to
+    `offset + S`, over k / v (B, T, KV, hd) from position 0."""
     if SH.is_dtensor(q):
         return _on_local_heads(
-            lambda q, k, v: _self_attention(q, k, v, cfg, rules), q, k, v,
-            rules)
+            lambda q, k, v, off: _self_attention(q, k, v, cfg, rules, off),
+            q, k, v, rules)
     b, s = q.shape[:2]
-    if _flash_route(q, cfg):
+    t = k.shape[1]
+    if _flash_route(q, k, cfg):
         return _sdpa_flash(q, k, v)
     if cfg.attn_chunk and s % cfg.attn_chunk == 0 and s > cfg.attn_chunk:
-        return _sdpa_chunked(q, k, v, cfg, cfg.attn_chunk)
-    mask = causal_mask(s, cfg.sliding_window, device=q.device)[None]
-    return _sdpa(q, k, v, mask.expand(b, s, s), cfg)
+        return _sdpa_chunked(q, k, v, cfg, cfg.attn_chunk, offset)
+    mask = causal_mask(s, cfg.sliding_window, offset, q.device, cols=t)
+    return _sdpa(q, k, v, mask[None].expand(b, s, t), cfg)
 
 
 def attention_train(x, p, cfg: ArchConfig, positions=None, *,
@@ -264,7 +321,8 @@ def attention_train(x, p, cfg: ArchConfig, positions=None, *,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(x, p, cfg, positions, rules=rules)
-    return linear(_self_attention(q, k, v, cfg, rules), p["wo"])
+    return linear(_self_attention(q, k, v, cfg, rules), p["wo"],
+                  _heads_unsplit(x, cfg, rules))
 
 
 def attention_encoder(x, p, cfg: ArchConfig, *,
@@ -273,15 +331,16 @@ def attention_encoder(x, p, cfg: ArchConfig, *,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(x, p, cfg, positions, rules=rules)
-    return linear(_full_attention(q, k, v, cfg, rules), p["wo"])
+    return linear(_full_attention(q, k, v, cfg, rules), p["wo"],
+                  _heads_unsplit(x, cfg, rules))
 
 
 def _full_attention(q, k, v, cfg: ArchConfig,
                     rules: SH.ShardingRules = SH.ShardingRules()):
     """`_sdpa` with no mask (every position sees every other)."""
     if SH.is_dtensor(q):
-        return _on_local_heads(lambda q, k, v: _sdpa(q, k, v, None, cfg),
-                               q, k, v, rules)
+        return _on_local_heads(
+            lambda q, k, v, _: _sdpa(q, k, v, None, cfg), q, k, v, rules)
     return _sdpa(q, k, v, None, cfg)
 
 
@@ -291,13 +350,17 @@ def attention_cross(x, enc_out, p, cfg: ArchConfig, *,
     b, s, _ = x.shape
     t = enc_out.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _by_heads(linear(x, p["xwq"]), h, "heads", rules).reshape(
+    rows = _heads_unsplit(x, cfg, rules)
+    enc_rows = _heads_unsplit(enc_out, cfg, rules)
+    ek, ev = (enc_out,) * 2 if enc_rows else gather_rows(
+        enc_out, p["xwk"], p["xwv"])
+    q = _by_heads(linear(x, p["xwq"], rows), h, "heads", rules).reshape(
         b, s, h, hd)
-    k = _by_heads(linear(enc_out, p["xwk"]), kv, "kv_heads", rules).reshape(
-        b, t, kv, hd)
-    v = _by_heads(linear(enc_out, p["xwv"]), kv, "kv_heads", rules).reshape(
-        b, t, kv, hd)
-    return linear(_full_attention(q, k, v, cfg, rules), p["xwo"])
+    k = _by_heads(linear(ek, p["xwk"], enc_rows), kv, "kv_heads",
+                  rules).reshape(b, t, kv, hd)
+    v = _by_heads(linear(ev, p["xwv"], enc_rows), kv, "kv_heads",
+                  rules).reshape(b, t, kv, hd)
+    return linear(_full_attention(q, k, v, cfg, rules), p["xwo"], rows)
 
 
 def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
@@ -325,7 +388,7 @@ def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
     else:
         cache.k[:, :, :s] = k.transpose(1, 2)
         cache.v[:, :, :s] = v.transpose(1, 2)
-    return linear(out, p["wo"]), cache
+    return linear(out, p["wo"], _heads_unsplit(x, cfg, rules)), cache
 
 
 def _cache_layout(cache_k):

@@ -5,8 +5,11 @@ Port of `repro.models.common`.  `init_dense` / `init_ones` return plain
 tensors; the reference's logical axes, which its `Initializer` records
 beside them, are `models.transformer.param_specs`, and the mesh layouts
 built from them are DTensors (`distributed/sharding.py`).  On a mesh,
-`linear` gathers a sharded sequence before it folds (B, S) into rows and
-`cross_entropy_loss` takes its vocab-parallel form.
+`linear` gathers a sharded sequence before a product whose weight is
+split on the sequence's axis (tensor parallelism; `gather_rows` gathers
+it once for the products of one input), runs any other product on each
+device's rows, and `cross_entropy_loss` takes its vocab-parallel form
+where the vocab is split, else runs on each device's rows.
 
 Every 2-D weight product of the LM goes through `linear(x, w)`: a tensor
 `w` is a plain `x @ w`; a `CodebookWeight` (C3 serving,
@@ -235,37 +238,81 @@ def gather_codebook(w: CodebookWeight) -> torch.Tensor:
                         mesh, (w.idx, w.cb), (spec, SH.P(None)), spec)
 
 
-def linear(x: torch.Tensor, w) -> torch.Tensor:
+def linear(x: torch.Tensor, w, rows: bool = False) -> torch.Tensor:
     """x (..., K) @ w (K, N) -> (..., N) in x's type.  A `CodebookWeight`
     runs `ops.codebook_matmul` on x as a contiguous (M, K) matrix (on a
     CUDA tensor the kernel, or a raise; its plain version on the CPU);
     the f32 product is rounded to x's type, as the reference's product of
     two tensors of that type is; on a mesh, on each device's shards
-    (`_codebook_on_shards`)."""
+    (`_codebook_on_shards`).  On a mesh a DTensor x's sequence is
+    gathered where w is split on its axis (`_fold_ready`), unless `rows`
+    (a block whose heads the axis does not split: the product runs on
+    each device's rows whatever w's layout)."""
     if isinstance(w, CodebookWeight):
         if SH.is_dtensor(x) or SH.is_dtensor(w.idx):
-            return _codebook_on_shards(x, w)
+            return _codebook_on_shards(x, w, rows)
         idx = _unpacked(w.idx, w.packed)
         k, n = idx.shape
         out = ops.codebook_matmul(x.reshape(-1, k).contiguous(), idx, w.cb)
         return out.to(x.dtype).reshape(*x.shape[:-1], n)
     if x.ndim > 2 and SH.is_dtensor(x):
-        return _FoldReadyGrad.apply(_fold_ready(x) @ w)
+        if not rows:
+            x = _fold_ready(x, w)
+        if _rows_split(x):
+            return _on_rows(x, w)
+        return _FoldReadyGrad.apply(x @ w)
     return x @ w
 
 
-def _codebook_on_shards(x, w: CodebookWeight):
+def _rows_split(x) -> bool:
+    """Whether DTensor x (..., K) has a leading dim past the first (the
+    sequence) sharded on a mesh axis, and its last dim whole."""
+    return SH.entry_of(x, x.ndim - 1) is None and any(
+        isinstance(p, SH.Shard) and 0 < p.dim < x.ndim - 1
+        for p in x.placements)
+
+
+def _on_rows(x, w):
+    """x @ w on each device's rows of DTensor x (..., K), its sequence
+    split (sequence parallelism through a product whose weight is not
+    split on that axis, or in a block whose heads it does not split):
+    w's rows whole (an FSDP shard gathered), its columns on their own
+    axis where x's rows leave it free, else whole; the output laid out as
+    x's rows and w's columns."""
+    mesh = x.device_mesh
+    lead = tuple(SH.spec_of(x.placements, x.ndim, mesh))[:-1]
+    pn = SH.free_of(SH.entry_of(w, 1), *lead) if SH.is_dtensor(w) else None
+    return SH.on_shards(torch.matmul, mesh, (x, w),
+                        (SH.P(*lead, None), SH.P(None, pn)),
+                        SH.P(*lead, pn))
+
+
+def gather_rows(x, *ws):
+    """x (B, S, K) as the products x @ w of one block input, one for each
+    of `ws`, read it: where any w is split on the axis x's sequence is
+    split on (a tensor-parallel block), the sequence gathered once
+    (`_fold_ready`) and shared by all of them, so `linear` gathers no
+    more; else x as it is laid out, each product on each device's rows.
+    A tuple, one entry per w."""
+    if not SH.is_dtensor(x) or x.ndim < 3 or all(
+            _fold_placements(x, w) == tuple(x.placements) for w in ws):
+        return (x,) * len(ws)
+    return (_fold_ready(x),) * len(ws)
+
+
+def _codebook_on_shards(x, w: CodebookWeight, rows: bool = False):
     """x @ cb[idx] on a mesh: each device launches the codebook product
     on its local x and idx (a 4-bit idx unpacked there), the codebook
-    replicated.  x keeps its batch layout (`_fold_ready`); idx keeps its
-    own unless an axis of it is one x's rows are split on (FSDP's
-    "data"), which is gathered.  idx split on N (column-parallel): the
-    output is split on its last dim.  idx split on K (row-parallel): x's
-    last dim is split alike and each device's product, rounded to x's
-    type, is a partial sum, stacked on a new leading dim split over K's
-    axes and summed (DTensor's reduction)."""
+    replicated.  x keeps its rows' layout (`_fold_ready`, or as it is
+    with `rows`); idx keeps its own unless an axis of it is one x's rows
+    are split on (FSDP's "data"), which is gathered.  idx split on N
+    (column-parallel): the output is split on its last dim.  idx split
+    on K (row-parallel): x's last dim is split alike and each device's
+    product, rounded to x's type, is a partial sum, stacked on a new
+    leading dim split over K's axes and summed (DTensor's reduction)."""
     mesh = (w.idx if SH.is_dtensor(w.idx) else x).device_mesh
-    x = _fold_ready(SH.replicated(x, mesh))
+    x = SH.replicated(x, mesh)
+    x = x if rows else _fold_ready(x, w)
     lead = tuple(SH.spec_of(x.placements, x.ndim, mesh))[:-1]
     pk, pn = (SH.spec_of(w.idx.placements, 2, mesh)
               if SH.is_dtensor(w.idx) else (None, None))
@@ -289,14 +336,34 @@ def _codebook_on_shards(x, w: CodebookWeight):
                         SH.P(pk, *lead, pn)).sum(dim=0)
 
 
-def _fold_ready(x):
-    """A DTensor (..., K) with only its first dim (of those the product
-    folds into rows) left sharded: a shard of any other leading dim (the
-    sequence, under sequence parallelism) is gathered first, since a
-    flatten of (B, S) with S sharded has no DTensor rule (torch 2.11) or
-    needs a strided shard."""
-    want = tuple(SH.Replicate() if isinstance(pl, SH.Shard)
-                 and 0 < pl.dim < x.ndim - 1 else pl for pl in x.placements)
+def _split_axes(w):
+    """The mesh axes a product's weight is split on (a dense DTensor's,
+    or a `CodebookWeight`'s indexes'); none for a plain tensor."""
+    t = w.idx if isinstance(w, CodebookWeight) else w
+    if not SH.is_dtensor(t):
+        return set()
+    return {name for name, p in zip(t.device_mesh.mesh_dim_names,
+                                    t.placements) if p.is_shard()}
+
+
+def _fold_placements(x, w=None) -> tuple:
+    """The placements `_fold_ready(x, w)` lays DTensor x out in."""
+    names = x.device_mesh.mesh_dim_names
+    axes = set(names) if w is None else _split_axes(w)
+    return tuple(SH.Replicate() if isinstance(pl, SH.Shard)
+                 and 0 < pl.dim < x.ndim - 1 and name in axes else pl
+                 for name, pl in zip(names, x.placements))
+
+
+def _fold_ready(x, w=None):
+    """A DTensor (..., K) ready for a product with weight `w`: a shard of
+    a leading dim past the first (the sequence, under sequence
+    parallelism) is gathered where it lies on an axis `w` is split on
+    (every such shard without `w`), as the reference's layout gathers it
+    for a tensor-parallel product; the rest stay, and the product runs on
+    each device's rows (`_on_rows`; a flatten of (B, S) with S sharded
+    has no DTensor rule in torch 2.11 or needs a strided shard)."""
+    want = _fold_placements(x, w)
     return x if want == tuple(x.placements) else x.redistribute(
         x.device_mesh, want)
 
@@ -325,7 +392,8 @@ class _FoldReadyGrad(torch.autograd.Function):
 
 
 def swiglu(x, wi, wg, wo):
-    return linear(linear(x, wi) * F.silu(linear(x, wg)), wo)
+    xi, xg = gather_rows(x, wi, wg)
+    return linear(linear(xi, wi) * F.silu(linear(xg, wg)), wo)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

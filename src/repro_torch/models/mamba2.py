@@ -83,12 +83,54 @@ def _conv_weight(w) -> torch.Tensor:
 def _conv_on_shards(xbc, w, b, rules: SH.ShardingRules):
     """The causal conv on a mesh: each device convolves its rows of the
     batch with the whole kernel (DTensor's convolution backward cannot
-    take a replicated kernel)."""
+    take a replicated kernel).  A sequence split across devices stays
+    split: each device convolves its own positions after the previous
+    shard's last K - 1 raw rows (`_shard_tails`, zeros before the first
+    shard), as the reference's layout convolves a sequence-parallel
+    input."""
     mesh = xbc.device_mesh
     pb = SH.spec_for((xbc.shape[0],), ("batch",), mesh, rules)[0]
-    return SH.on_shards(_causal_conv_train, mesh, (xbc, w, b),
-                        (SH.P(pb, None, None), SH.P(None, None), SH.P(None)),
-                        SH.P(pb, None, None))
+    k = w.shape[-1]
+    ps = _seq_split(xbc, k - 1)
+    if ps is None:
+        return SH.on_shards(_conv_rows, mesh, (xbc, w, b),
+                            (SH.P(pb, None, None), SH.P(None, None),
+                             SH.P(None)), SH.P(pb, None, None))
+    index = SH.shard_index(mesh, ps)
+
+    def local(x, tails, w, b):
+        # the previous shard's tail, zeros on the first: selected from
+        # one tensor, so every device's gradient reaches every tail (and
+        # all run the same collectives in the backward)
+        before = torch.cat([torch.zeros_like(tails[:1]), tails[:-1]])
+        return _conv_rows(x, w, b, before[index])
+
+    return SH.on_shards(local, mesh, (xbc, _shard_tails(xbc, k - 1), w, b),
+                        (SH.P(pb, ps, None), SH.P(None, pb, None, None),
+                         SH.P(None, None), SH.P(None)), SH.P(pb, ps, None))
+
+
+def _seq_split(x, rows: int):
+    """The mesh axes DTensor x (B, S, ...)'s sequence is split on, when
+    they hold more than one device and leave each at least `rows`
+    positions; else None."""
+    ps = SH.nontrivial(SH.entry_of(x, 1), x.device_mesh)
+    if ps is None or x.shape[1] // SH._axis_size(
+            SH.mesh_sizes(x.device_mesh), ps) < rows:
+        return None
+    return ps
+
+
+def _shard_tails(x, rows: int):
+    """The last `rows` positions of each device's shard of DTensor x
+    (B, S, CH), its sequence split on `_seq_split(x, rows)`: a DTensor
+    (n, B, rows, CH) whose dim 0, the shards in order, lies on the
+    sequence's axes (gathering it moves only these rows)."""
+    mesh = x.device_mesh
+    pb, ps = SH.entry_of(x, 0), SH.entry_of(x, 1)
+    return SH.on_shards(lambda t: t[:, t.shape[1] - rows:][None], mesh,
+                        (x,), (SH.P(pb, ps, None),),
+                        SH.P(ps, pb, None, None))
 
 
 def _causal_conv_train(xbc: torch.Tensor, w, b: torch.Tensor,
@@ -99,8 +141,16 @@ def _causal_conv_train(xbc: torch.Tensor, w, b: torch.Tensor,
     w = _conv_weight(w)
     if SH.is_dtensor(xbc):
         return _conv_on_shards(xbc, w, b, rules)
+    return _conv_rows(xbc, w, b)
+
+
+def _conv_rows(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               halo: torch.Tensor | None = None) -> torch.Tensor:
+    """`_causal_conv_train` of plain tensors, the K - 1 rows before the
+    first taken from `halo` (B, K - 1, CH) instead of zeros."""
     k = w.shape[-1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0)).transpose(1, 2)      # (B, CH, S+K-1)
+    pad = (F.pad(xbc, (0, 0, k - 1, 0)) if halo is None
+           else torch.cat([halo, xbc], dim=1)).transpose(1, 2)
     out = F.conv1d(pad, w[:, None, :].to(xbc.dtype), groups=xbc.shape[-1])
     out = out.transpose(1, 2)
     return F.silu(out + b.to(out.dtype))
@@ -141,8 +191,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     diff = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (b,nc,i,j,h)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                    torch.zeros((), device=x.device))
+    # masked before the exp, not after: above the diagonal diff is a sum
+    # of -dt·A, which overflows exp in a long chunk (dt·A near -2 a step
+    # reaches +500 in 256 steps), and the gradient of where(m, exp(diff),
+    # 0) is 0 · inf = NaN there; exp(-inf) is 0, the same forward values
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              torch.full((), float("-inf"),
+                                         device=x.device)))
     CB = Cc @ Bc.transpose(-1, -2)                        # (b,nc,i,j)
     w_intra = L * dtc[:, :, None, :, :] * CB[..., None]   # (b,nc,i,j,h)
     y_intra = w_intra.permute(0, 1, 4, 2, 3) @ xt         # (b,nc,h,i,p)
@@ -193,24 +248,97 @@ def _scan(xin, dt, B, C, A_log, dt_bias, D, hp: int, chunk: int):
     return y.reshape(b, s, d_in), final
 
 
-def _scan_on_shards(scan, rules: SH.ShardingRules, xin, dt, B, C, A_log,
-                    dt_bias, D):
+def _decay_from_start(dt_act, A, chunk: int):
+    """(b, s, h) f32: how much a state entering step 0 of dt_act (b, s,
+    h) has decayed by each step: exp of dt·A summed within each chunk,
+    times the decays of the chunks before, as `ssd_chunked` carries it."""
+    b, s, h = dt_act.shape
+    dA_cum = torch.cumsum(dt_act.reshape(b, s // chunk, chunk, h) * A,
+                          dim=2)
+    chunk_decay = torch.exp(dA_cum[:, :, -1])             # (b,nc,h)
+    before = torch.cumprod(torch.cat([torch.ones_like(chunk_decay[:, :1]),
+                                      chunk_decay[:, :-1]], dim=1), dim=1)
+    return (torch.exp(dA_cum) * before[:, :, None]).reshape(b, s, h)
+
+
+def _scan_on_shards(rules: SH.ShardingRules, hp: int, chunk: int, xin, dt,
+                    B, C, A_log, dt_bias, D):
     """`_scan` on a mesh: each device scans its rows of the batch and its
     SSD heads (the heads on the axis the layer's `A_log` is sharded on,
     else all of them), with B and C whole: the scan's hundreds of small
     ops then run on plain local tensors, not through DTensor's layout
     propagation (which also cannot split (..., heads * hp) once it has
-    sharded it off the heads)."""
+    sharded it off the heads).  With the heads unsplit and the sequence
+    split into whole chunks, `_scan_by_chunks`."""
     mesh = xin.device_mesh
     ph = SH.entry_of(A_log, 0) if SH.is_dtensor(A_log) else None
     pb = SH.free_of(SH.spec_for((xin.shape[0],), ("batch",), mesh,
                                 rules)[0], ph)
+    args = (xin, dt, B, C, A_log, dt_bias, D)
+    ps = _seq_split(xin, chunk) if ph is None else None
+    if ps is not None and (xin.shape[1] // SH._axis_size(
+            SH.mesh_sizes(mesh), ps)) % chunk == 0:
+        return _scan_by_chunks(mesh, pb, ps, hp, chunk, *args)
     rows = SH.P(pb, None, ph)
     heads = SH.P(ph)
-    return SH.on_shards(scan, mesh, (xin, dt, B, C, A_log, dt_bias, D),
+    scan = functools.partial(_scan, hp=hp, chunk=chunk)
+    return SH.on_shards(scan, mesh, args,
                         (rows, rows, SH.P(pb, None, None),
                          SH.P(pb, None, None), heads, heads, heads),
                         (rows, SH.P(pb, ph, None, None)))
+
+
+def _scan_by_chunks(mesh, pb, ps, hp: int, chunk: int, xin, dt, B, C, A_log,
+                    dt_bias, D):
+    """`_scan` with the sequence split on `ps` (whole chunks a device),
+    as the reference's layout keeps a sequence-parallel scan: each device
+    scans its own chunks from a zero state (the intra-chunk term, the
+    chunk end-states, the inter-chunk term among its chunks) and returns
+    its shard's end state and total decay; these (b, h, n, p) and (b, h)
+    summaries are gathered over `ps`, each device folds in the shards
+    before its own, in order, to the state entering its first chunk, and
+    adds that state's decayed contribution to its rows.  The final state
+    is the state after every shard, kept by the last.  The same
+    recurrence as the one-device scan, reassociated."""
+    index = SH.shard_index(mesh, ps)
+    rows = SH.P(pb, ps, None)
+
+    def own_chunks(xin, dt, B, C, A_log, dt_bias, D):
+        y, end = _scan(xin, dt, B, C, A_log, dt_bias, D, hp, chunk)
+        decay = _decay_from_start(F.softplus(dt.float() + dt_bias),
+                                  -torch.exp(A_log.float()), chunk)
+        return y, decay, end[None], decay[:, -1][None]
+
+    y, decay, ends, totals = SH.on_shards(
+        own_chunks, mesh, (xin, dt, B, C, A_log, dt_bias, D),
+        (rows, rows, rows, rows, SH.P(None), SH.P(None), SH.P(None)),
+        (rows, rows, SH.P(ps, pb, None, None, None), SH.P(ps, pb, None)))
+
+    def fold(y, decay, C, ends, totals):
+        b, s, _ = y.shape
+        states = [torch.zeros_like(ends[0])]
+        for j in range(ends.shape[0]):
+            states.append(states[-1] * totals[j][..., None, None] + ends[j])
+        # the state entering this shard, selected from one tensor, so
+        # every device's gradient reaches every summary (and all run
+        # the same collectives in the backward)
+        entering = torch.stack(states[:-1])[index]
+        carried = (C.float()[:, None] @ entering).permute(0, 2, 1, 3)
+        carried = carried * decay[..., None]                # (b, s, h, p)
+        last = torch.tensor(index == n - 1, device=y.device)
+        final = torch.where(last, states[-1], torch.zeros_like(states[-1]))
+        return y + carried.reshape(b, s, -1), final[None]
+
+    # the final state is the last shard's (zeros elsewhere, summed over
+    # the shards: one reduction of a state, not a gather of every
+    # shard's), so its gradient is counted once
+    n = SH._axis_size(SH.mesh_sizes(mesh), ps)
+    y, final = SH.on_shards(
+        fold, mesh, (y, decay, C, ends, totals),
+        (rows, rows, rows, SH.P(None, pb, None, None, None),
+         SH.P(None, pb, None)), (rows, SH.P(ps, pb, None, None, None)))
+    return y, final.sum(dim=0).redistribute(
+        mesh, SH.placements(SH.P(pb, None, None, None), mesh))
 
 
 def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
@@ -236,18 +364,17 @@ def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
     pre_conv_xbc = torch.cat([xin, B, C], dim=-1)
     xbc = _causal_conv_train(pre_conv_xbc, p["conv_w"], p["conv_b"], rules)
     xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
-    scan = functools.partial(_scan, hp=hp, chunk=cfg.ssm_chunk)
     args = (xin, dt, B, C, p["A_log"], p["dt_bias"], p["D"])
     if SH.is_dtensor(xin):
-        y, final = _scan_on_shards(scan, rules, *args)
+        y, final = _scan_on_shards(rules, hp, cfg.ssm_chunk, *args)
     else:
-        y, final = scan(*args)
+        y, final = _scan(*args, hp, cfg.ssm_chunk)
     y = y.to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
     out = linear(y, p["out_proj"])
     if not return_cache:
         return out
-    tail = pre_conv_xbc[:, s - (k - 1):, :]               # raw conv window
+    tail = _conv_window(pre_conv_xbc, k - 1)             # raw conv window
     if cache is None:
         return out, SSMCache(conv=tail, state=final)
     cache.conv.copy_(tail)
@@ -255,30 +382,79 @@ def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
     return out, cache
 
 
+def _conv_window(x, rows: int):
+    """The last `rows` positions of x (B, S, CH): of a DTensor whose
+    sequence is split, the last shard's tail (`_shard_tails`), not a
+    gather of the sequence."""
+    if SH.is_dtensor(x) and _seq_split(x, rows) is not None:
+        return _shard_tails(x, rows)[-1]
+    return x[:, x.shape[1] - rows:, :]
+
+
 def mamba2_decode(x, p, cfg: ArchConfig, cache: SSMCache):
     """One-token step.  x (B, 1, d) -> (B, 1, d), new cache."""
-    b = x.shape[0]
-    d_in, nh, n, hp = dims(cfg)
+    d_in, _, n, hp = dims(cfg)
     z, xin, B, C, dt = _split_proj(linear(x, p["in_proj"]), cfg)
     raw_xbc = torch.cat([xin, B, C], dim=-1)              # (B, 1, CH)
     xbc, new_conv = _causal_conv_step(raw_xbc, cache.conv, p["conv_w"],
                                       p["conv_b"])
     xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
+    args = (xin, dt, B, C, p["A_log"], p["dt_bias"], p["D"], cache.state)
+    if _heads_apart(cache.state, p["A_log"]):
+        y, state = _ssm_step_on_shards(hp, *args)
+    else:
+        y, state = _ssm_step(*args, hp)
+    y = y.to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
+    out = linear(y, p["out_proj"])
+    return out, SSMCache(conv=new_conv, state=state)
 
-    A = -torch.exp(p["A_log"].float())                    # (h,)
-    dt_act = F.softplus(dt[:, 0].float() + p["dt_bias"])  # (B, h)
+
+def _ssm_step(xin, dt, B, C, A_log, dt_bias, D, state, hp: int):
+    """The recurrence of one decode step: xin (b, 1, h * hp), dt (b, 1,
+    h), B / C (b, 1, n), the state (b, h, n, hp) -> (y (b, 1, h * hp) f32
+    with the D skip, the new f32 state)."""
+    b = xin.shape[0]
+    nh = xin.shape[-1] // hp
+    A = -torch.exp(A_log.float())                         # (h,)
+    dt_act = F.softplus(dt[:, 0].float() + dt_bias)       # (B, h)
     xh = xin[:, 0].reshape(b, nh, hp).float()
     Bv = B[:, 0].float()                                  # (B, n)
     Cv = C[:, 0].float()
     decay = torch.exp(dt_act * A)                         # (B, h)
     upd = (dt_act[:, :, None] * Bv[:, None, :])[..., None] * xh[:, :, None]
-    state = cache.state.float() * decay[..., None, None] + upd   # (B,h,n,p)
+    state = state.float() * decay[..., None, None] + upd  # (B,h,n,p)
     y = (Cv[:, None, None, :] @ state)[:, :, 0]           # (B, h, p)
-    y = y + p["D"][None, :, None] * xh
-    y = y.reshape(b, 1, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    out = linear(y, p["out_proj"])
-    return out, SSMCache(conv=new_conv, state=state)
+    y = y + D[None, :, None] * xh
+    return y.reshape(b, 1, nh * hp), state
+
+
+def _heads_apart(state, A_log) -> bool:
+    """Whether a DTensor SSM state (B, H, N, P) is split over its heads
+    (`decode_state_spec`: "cache_heads" where they divide the axis) on
+    an axis the layer's per-head weights are not (mamba2-130m's 24 heads
+    on a model axis of 2: its weights never split them)."""
+    if not SH.is_dtensor(state) or SH.entry_of(state, 1) is None:
+        return False
+    return SH.entry_of(state, 1) != (SH.entry_of(A_log, 0)
+                                     if SH.is_dtensor(A_log) else None)
+
+
+def _ssm_step_on_shards(hp: int, xin, dt, B, C, A_log, dt_bias, D, state):
+    """`_ssm_step` on each device's heads of a state split over heads the
+    layer's weights are not (`_heads_apart`): x, dt and the per-head
+    weights are laid out by the state's heads, B and C whole.  torch
+    2.11's DTensor cannot fold (B, H) with H split for the state's
+    batched product there; where the weights are split alike (zamba2),
+    DTensor's own layout runs the step."""
+    mesh = state.device_mesh
+    pb, ph = SH.entry_of(state, 0), SH.entry_of(state, 1)
+    heads, whole = SH.P(pb, None, ph), SH.P(pb, None, None)
+    per_head, st = SH.P(ph), SH.P(pb, ph, None, None)
+    return SH.on_shards(functools.partial(_ssm_step, hp=hp), mesh,
+                        (xin, dt, B, C, A_log, dt_bias, D, state),
+                        (heads, heads, whole, whole, per_head, per_head,
+                         per_head, st), (heads, st))
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> SSMCache:

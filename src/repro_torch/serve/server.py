@@ -9,7 +9,8 @@ on `device`, where the prompts go.  On a `DeviceMesh`
 (`launch/mesh.py` `make_host_mesh`) the server lays the parameters and
 C3 buffers out by `launch.steps.shard_serving_params`, the left-padded
 prompts and the step tokens go on the batch axes, the prefill's caches
-come out laid out by `decode_state_specs`, and `sample` gets the full
+come out laid out by `decode_state_specs` (the parameters and the
+residual by the sharding `rules`), and `sample` gets the full
 logits, a plain tensor the same on every rank, so every rank returns
 the same requests.  With `cfg.quant_serving` the decode step takes
 `quant.lm_quant.make_param_transform(cfg.dtype)` and so does the
@@ -70,7 +71,8 @@ class Server:
     """Fixed-slot batching over a single shared decode state."""
 
     def __init__(self, cfg: ArchConfig, params: T.Transformer, device=None,
-                 batch_slots: int = 4, cache_len: int = 256, mesh=None):
+                 batch_slots: int = 4, cache_len: int = 256, mesh=None,
+                 rules: SH.ShardingRules = SH.ShardingRules()):
         if device is None and mesh is not None:
             device = mesh.device_type
         self.device = resolve_device(device)
@@ -79,7 +81,7 @@ class Server:
             raise ValueError(f"parameters lie on {on}, the server runs on "
                              f"{self.device}")
         if mesh is not None:
-            params = ST.shard_serving_params(params, mesh)
+            params = ST.shard_serving_params(params, mesh, rules)
         self.cfg = cfg
         self.params = params
         self.mesh = mesh
@@ -89,8 +91,9 @@ class Server:
             self.prefill = _quant_prefill(cfg, mesh, cache_len,
                                           make_param_transform(cfg.dtype))
         else:
-            self.prefill = ST.make_prefill_step(cfg, mesh, cache_len)
-        self.decode = ST.make_decode_step(cfg, mesh)
+            self.prefill = ST.make_prefill_step(cfg, mesh, cache_len,
+                                                rules=rules)
+        self.decode = ST.make_decode_step(cfg, mesh, rules)
         self.queue: list[Request] = []
 
     def submit(self, req: Request):

@@ -333,7 +333,11 @@ def test_checkpoint_at_world_4_restores_at_world_2(runs, tmp_path):
 # The port's one-device ops before its mesh layer, recorded by
 # tests/torch_one_device_ops.py at commit 2d44687; `embed_tokens` has
 # since become `F.embedding` (bitwise the row index it replaced), whose
-# forward and backward ops stand for the index's.
+# forward and backward ops stand for the index's.  The ssm and hybrid
+# cases since carry the SSD scan's mask taken before its exp (an
+# overflow above the diagonal made the gradient NaN): where(m, diff,
+# -inf) then exp in place of exp then where(m, ., 0), the same count of
+# ops with `full` for `zeros` and the backward's detach / mul moved.
 PARENT_OPS = Path(__file__).parent / "data" / "torch_one_device_ops.json"
 EMBEDDING_WAS = {"aten.embedding.default": ["aten.index.Tensor"],
                  "aten.embedding_dense_backward.default": [

@@ -74,10 +74,14 @@ def run_case(case: dict, mesh) -> dict:
     params, prompt batch, cache_len, steps) or "server" (arch, params,
     prompts, slots, cache_len, new; on a mesh of "model" ranks a data
     group when given, else the ranks' own), "moe_flops" (arch, params,
-    slots) or "vocab_loss" (logits, labels)."""
+    slots), "vocab_loss" (logits, labels), "seq_pieces" (inputs of the
+    sequence-split attention, conv, scan and mamba2 layer) or "seq_flops"
+    (a mamba2 layer and an attention traced on one device and on the
+    mesh)."""
     return {"train": _train, "decode": _serve, "server": _server,
             "checkpoint": _checkpoint, "moe_flops": _moe_flops,
-            "vocab_loss": _vocab_loss}[case["kind"]](case, mesh)
+            "vocab_loss": _vocab_loss, "seq_pieces": _seq_pieces,
+            "seq_flops": _seq_flops}[case["kind"]](case, mesh)
 
 
 def _cfg(case):
@@ -168,7 +172,8 @@ def _serve(case, mesh) -> dict:
 
 
 def _server(case, mesh) -> dict:
-    """`Server(mesh=...)` over the case's prompts: each request's tokens,
+    """`Server(mesh=...)` over the case's prompts (under the case's
+    sharding "rules", the defaults without): each request's tokens,
     the full logits `sample` got at every step, the operand shapes of
     every codebook product (and whether one was a DTensor), whether the parameters
     and C3 buffers lie as `serving_param_specs` says, and the first
@@ -183,8 +188,9 @@ def _server(case, mesh) -> dict:
         mesh = make_host_mesh(model=case["model"], device=mesh.device_type)
     cfg = _cfg(case)
     model = _model(cfg, case["params"], mesh)
+    rules = SH.ShardingRules(case.get("rules"))
     srv = Server(cfg, model, batch_slots=case["slots"],
-                 cache_len=case["cache_len"], mesh=mesh)
+                 cache_len=case["cache_len"], mesh=mesh, rules=rules)
     states = []
     prefill = srv.prefill
 
@@ -218,7 +224,7 @@ def _server(case, mesh) -> dict:
         done = srv.run(sample=sample)
     finally:
         CBM.codebook_matmul = kernel
-    specs = ST.serving_param_specs(srv.params, mesh)
+    specs = ST.serving_param_specs(srv.params, mesh, rules)
     laid = {n: SH.spec_of(t.placements, t.ndim, mesh) == specs[n]
             for n, t in [*srv.params.named_parameters(),
                          *srv.params.named_buffers()]}
@@ -307,3 +313,123 @@ def _checkpoint(case, mesh) -> dict:
             "params": {n: _full(t).detach()
                        for n, t in state["params"].named_parameters()},
             "step": int(state["opt"].step)}
+
+
+def _seq_split(t, mesh, dims: int):
+    """Full tensor `t` as a DTensor split on "model" along dim 1 (the
+    sequence) when `dims` says so, else replicated; a leaf that wants its
+    gradient."""
+    from repro_torch.distributed import sharding as SH
+
+    spec = SH.P(None, "model" if dims else None, *[None] * (t.ndim - 2))
+    return SH.shard(t, spec, mesh).requires_grad_(True)
+
+
+def _run_piece(fn, inputs: dict, split: dict, cotangents, mesh) -> dict:
+    """`fn(**DTensor inputs)` on the mesh: the full outputs, each output's
+    placements, and the full gradients of every input under the given
+    cotangents (one per output)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    args = {k: _seq_split(v, mesh, split.get(k, 0)) for k, v in inputs.items()}
+    with implicit_replication():
+        outs = fn(**args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = torch.autograd.grad(
+            outs, list(args.values()),
+            [_seq_split(g, mesh, 0).detach().redistribute(
+                o.device_mesh, o.placements) for g, o in zip(cotangents,
+                                                               outs)])
+    return {"out": [_full(o).detach() for o in outs],
+            "placements": [tuple(repr(p) for p in o.placements)
+                           for o in outs],
+            "grads": {k: _full(g) for k, g in zip(args, grads)}}
+
+
+def _seq_pieces(case, mesh) -> dict:
+    """The sequence-split pieces on the mesh, each from the case's full
+    inputs: causal attention (plain and query-chunked), full attention,
+    the causal conv with its halo, the SSD scan by chunks and a whole
+    mamba2 layer with its prefill cache (its parameters plain tensors,
+    replicated)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import attention as A
+    from repro_torch.models import mamba2 as M
+
+    rules = SH.ShardingRules()
+    acfg = _cfg({"arch": "whisper-tiny"})
+    chunked = dataclasses.replace(acfg, attn_chunk=case["attn_chunk"])
+    mcfg = _cfg({"arch": "mamba2-130m"})
+    _, _, _, hp = M.dims(mcfg)
+    att, ssm = case["attention"], case["ssm"]
+    qkv = {k: att[k] for k in ("q", "k", "v")}
+    out = {
+        "causal": _run_piece(
+            lambda q, k, v: A._self_attention(q, k, v, acfg, rules), qkv,
+            {"q": 1, "k": 1, "v": 1}, [att["g"]], mesh),
+        "chunked": _run_piece(
+            lambda q, k, v: A._self_attention(q, k, v, chunked, rules), qkv,
+            {"q": 1, "k": 1, "v": 1}, [att["g"]], mesh),
+        "full": _run_piece(
+            lambda q, k, v: A._full_attention(q, k, v, acfg, rules),
+            {"q": att["q"], "k": att["ek"], "v": att["ev"]}, {"q": 1},
+            [att["g"]], mesh),
+        "conv": _run_piece(
+            lambda xbc, conv_w, conv_b: M._causal_conv_train(
+                xbc, conv_w, conv_b, rules),
+            {k: ssm[k] for k in ("xbc", "conv_w", "conv_b")}, {"xbc": 1},
+            [ssm["g_conv"]], mesh),
+        "scan": _run_piece(
+            lambda xin, dt, B, C, A_log, dt_bias, D: M._scan_on_shards(
+                rules, hp, mcfg.ssm_chunk, xin, dt, B, C, A_log, dt_bias, D),
+            {k: ssm[k] for k in ("xin", "dt", "B", "C", "A_log", "dt_bias",
+                                 "D")},
+            {"xin": 1, "dt": 1, "B": 1, "C": 1},
+            [ssm["g_scan"], ssm["g_state"]], mesh),
+        "layer": _run_piece(
+            lambda x, **p: M.mamba2_forward(x, p, mcfg, return_cache=True,
+                                            rules=rules)[0],
+            {"x": ssm["x"], **ssm["params"]}, {"x": 1}, [ssm["g_layer"]],
+            mesh),
+    }
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication(), torch.no_grad():
+        x = _seq_split(ssm["x"], mesh, 1)
+        _, cache = M.mamba2_forward(x, ssm["params"], mcfg,
+                                    return_cache=True, rules=rules)
+    out["cache"] = {"conv": _full(cache.conv), "state": _full(cache.state)}
+    return out
+
+
+def _seq_flops(case, mesh) -> dict:
+    """A mamba2 layer's forward and a causal self-attention traced
+    (`trace_analysis.trace`) on one device and, the sequence split, on the
+    mesh: FLOPs a device and the largest all-gather output of each."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.models import attention as A
+    from repro_torch.models import mamba2 as M
+
+    rules = SH.ShardingRules()
+    acfg, mcfg = _cfg({"arch": "whisper-tiny"}), _cfg({"arch": "mamba2-130m"})
+    att, ssm = case["attention"], case["ssm"]
+    runs = {"layer": lambda x: M.mamba2_forward(x["x"], ssm["params"], mcfg,
+                                                rules=rules),
+            "attention": lambda x: A._self_attention(x["q"], x["k"], x["v"],
+                                                     acfg, rules)}
+    inputs = {"layer": {"x": ssm["x"]},
+              "attention": {k: att[k] for k in ("q", "k", "v")}}
+    out = {}
+    with torch.no_grad():
+        for name, run in runs.items():
+            one = TA.trace(lambda: run(inputs[name]))
+            with implicit_replication():
+                split = {k: _seq_split(v, mesh, 1).detach()
+                         for k, v in inputs[name].items()}
+                meshed = TA.trace(lambda: run(split))
+            out[name] = {"one": one.flops, "mesh": meshed.flops,
+                         "gathered": meshed.largest.get("all-gather", 0)}
+    return out
