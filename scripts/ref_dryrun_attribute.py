@@ -12,7 +12,9 @@ scaled by the trip counts of the while loops around it (the analysis's
 own rule):
 
 * FLOPs: every `dot` and `convolution`;
-* collective bytes: every collective's output, by kind;
+* collective bytes: every collective's output, by kind, and the bytes
+  a device receives for it (`torch_dryrun_compare.wire_bytes`, the
+  group size from its `replica_groups`);
 * the largest op outputs (the candidates for the temp peak: XLA's
   `memory_analysis` gives only the total, not the buffers it is made of),
   once per op, not scaled.
@@ -38,6 +40,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro.distributed import hlo_analysis as HA  # noqa: E402
 from repro.distributed import roofline as RL  # noqa: E402
+from torch_dryrun_compare import wire_bytes  # noqa: E402
 
 _NAME_RE = re.compile(r'op_name="([^"]*)"')
 _SRC_RE = re.compile(r'source_file="([^"]*)" source_line=(\d+)')
@@ -54,38 +57,34 @@ def _where(op: HA.Op) -> str:
     return path
 
 
-def _multipliers(ops: list, entry: str) -> dict:
-    """{computation: product of enclosing while trip counts} for the
-    entry and every while body (the computations `hlo_analysis.analyze`
-    prices), by its own rule."""
-    body_parent, cond_of = {}, {}
+def _multipliers(ops: list, entry: str, trips: dict) -> dict:
+    """{computation: product of the trip counts of the while loops around
+    it} for the entry and every while body (the computations
+    `hlo_analysis.analyze` prices), from the analysis's own trip counts
+    (`HloCosts.trip_counts`, one for each body)."""
+    parent = {}
     for o in ops:
-        if o.opcode == "while":
-            bm = re.search(r"body=%?([\w.\-]+)", o.rest)
-            cm = re.search(r"condition=%?([\w.\-]+)", o.rest)
-            if bm:
-                body_parent[bm.group(1)] = o.comp
-            if bm and cm:
-                cond_of[bm.group(1)] = cm.group(1)
-    by_comp = collections.defaultdict(list)
-    for o in ops:
-        by_comp[o.comp].append(o)
-    trip = {}
-    for body, cond in cond_of.items():
-        n = 1
-        for o in by_comp.get(cond, []):
-            if o.opcode == "constant":
-                m = re.match(r"^(\d+)\)?", o.rest)
-                if m:
-                    n = max(n, int(m.group(1)))
-        trip[body] = n
+        m = re.search(r"body=%?([\w.\-]+)", o.rest)
+        if o.opcode == "while" and m:
+            parent[m.group(1)] = o.comp
 
     def mult(comp, depth=0):
-        if comp == entry or depth > 10 or comp not in body_parent:
+        if comp == entry or depth > 10 or comp not in parent:
             return 1
-        return trip.get(comp, 1) * mult(body_parent[comp], depth + 1)
+        return trips.get(comp, 1) * mult(parent[comp], depth + 1)
 
-    return {c: mult(c) for c in {entry} | set(body_parent)}
+    return {c: mult(c) for c in {entry} | set(parent)}
+
+
+def _group_size(op: HA.Op) -> int:
+    """The devices in one replica group of a collective: the iota form
+    `replica_groups=[groups,size]<=[...]`, or the first listed group; a
+    permute (source-target pairs) counts as a group of 2."""
+    m = re.search(r"replica_groups=\[\d+,(\d+)\]<=", op.rest)
+    if m:
+        return int(m.group(1))
+    m = re.search(r"replica_groups=\{\{([0-9,]*)\}", op.rest)
+    return len(m.group(1).split(",")) if m else 2
 
 
 def _dot_flops(op: HA.Op, symbols: dict) -> float:
@@ -115,9 +114,11 @@ def _dot_flops(op: HA.Op, symbols: dict) -> float:
 def attribute(text: str, top: int) -> None:
     ops, meta = HA.parse_module(text)
     symbols = {o.name: o for o in ops}
-    mults = _multipliers(ops, meta["entry"])
+    costs = HA.analyze(text)
+    mults = _multipliers(ops, meta["entry"], costs.trip_counts)
     flops = collections.Counter()
     coll = collections.Counter()
+    wire = collections.Counter()
     sizes = []
     for o in ops:
         if o.comp not in mults:
@@ -126,7 +127,9 @@ def attribute(text: str, top: int) -> None:
         base = next((c for c in HA.COLLECTIVES if o.opcode.startswith(c)),
                     None)
         if base is not None and not o.opcode.endswith("-done"):
-            coll[(base, k, _where(o))] += HA._shape_bytes(o.type_str) * k
+            n = HA._shape_bytes(o.type_str) * k
+            coll[(base, k, _where(o))] += n
+            wire[(base, k, _where(o))] += wire_bytes(base, n, _group_size(o))
             continue
         if o.opcode in ("dot", "convolution"):
             flops[(o.opcode, k, _where(o))] += _dot_flops(o, symbols) * k
@@ -134,13 +137,17 @@ def attribute(text: str, top: int) -> None:
             sizes.append((HA._shape_bytes(o.type_str), o.opcode,
                           o.type_str.split("{")[0], _where(o)))
     total = sum(flops.values())
-    print(f"\nFLOPs {total:.4g}, by op (x trip count) and site:")
+    print(f"\nFLOPs {total:.4g} (the analysis's total {costs.flops:.4g}), "
+          f"by op (x trip count) and site:")
     for (opcode, k, where), n in flops.most_common(top):
         print(f"  {n:.4g}  {n / total:6.1%}  {opcode} x{k}  {where}")
     total = sum(coll.values())
-    print(f"\ncollective bytes {total:.4g}, by kind (x trip count) and site:")
+    print(f"\ncollective bytes {total:.4g} (the analysis's total "
+          f"{costs.coll_bytes:.4g}), wire bytes {sum(wire.values()):.4g}, "
+          f"by kind (x trip count) and site, output then wire bytes:")
     for (kind, k, where), n in coll.most_common(top):
-        print(f"  {n:.4g}  {n / total:6.1%}  {kind} x{k}  {where}")
+        print(f"  {n:.4g}  {n / total:6.1%}  {wire[(kind, k, where)]:.4g}"
+              f"  {kind} x{k}  {where}")
     print("\nlargest op outputs (temp candidates), bytes once:")
     for n, opcode, shape, where in sorted(sizes, reverse=True)[:top]:
         print(f"  {n:.4g}  {opcode} {shape}  {where}")

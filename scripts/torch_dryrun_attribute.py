@@ -9,7 +9,9 @@ Traces the cell as `python -m repro_torch.launch.dryrun` does (a fake
 `trace_analysis.CostMode` that also files every count under the aten op
 and the call site (the two innermost frames of `repro_torch`, and "bwd"
 for an op the autograd engine runs): FLOPs, collective output bytes by
-kind, and the storages live at the temp-bytes peak.  Prints the cell's
+kind with the bytes a device receives for them
+(`torch_dryrun_compare.wire_bytes`, the group size from the op's process
+group), and the storages live at the temp-bytes peak.  Prints the cell's
 row line, then the top sites of each.  Analytic counts of one device,
 not card times.
 """
@@ -27,6 +29,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import torch  # noqa: E402
 
 from repro_torch.distributed import trace_analysis as TA  # noqa: E402
+from torch_dryrun_compare import wire_bytes  # noqa: E402
+
+
+def _group_size(args) -> int:
+    """The ranks of a collective's process group, from the group name
+    the `_c10d_functional` / `_dtensor` op takes."""
+    from torch.distributed import distributed_c10d as C10D
+
+    name = [a for a in args if isinstance(a, str)][-1]
+    return C10D._resolve_process_group(name).size()
 
 
 def _site() -> str:
@@ -46,6 +58,7 @@ class AttributingMode(TA.CostMode):
         super().__init__(*args, **kw)
         self.flops_by = collections.Counter()
         self.coll_by = collections.Counter()
+        self.wire_by = collections.Counter()
         self.made_by = {}
         self.at_peak = {}
         self._op = self._where = None
@@ -70,7 +83,10 @@ class AttributingMode(TA.CostMode):
             self.flops_by[(self._op, self._where)] += self.flops - flops
         for kind, n in self.per_kind.items():
             if n != coll[kind]:
-                self.coll_by[(kind, self._op, self._where)] += n - coll[kind]
+                key = (kind, self._op, self._where)
+                self.coll_by[key] += n - coll[kind]
+                self.wire_by[key] += wire_bytes(kind, n - coll[kind],
+                                                _group_size(args))
         return out
 
 
@@ -104,9 +120,13 @@ def main(argv=None):
     for (op, where), n in m.flops_by.most_common(args.top):
         print(f"  {n:.4g}  {n / m.flops:6.1%}  {op}  {where}")
     total = sum(m.per_kind.values())
-    print(f"\ncollective bytes {total:.4g}, by kind, op and site:")
-    for (kind, op, where), n in m.coll_by.most_common(args.top):
-        print(f"  {n:.4g}  {n / total:6.1%}  {kind} ({op})  {where}")
+    print(f"\ncollective bytes {total:.4g}, wire bytes "
+          f"{sum(m.wire_by.values()):.4g}, by kind, op and site, output "
+          f"then wire bytes:")
+    for key, n in m.coll_by.most_common(args.top):
+        kind, op, where = key
+        print(f"  {n:.4g}  {n / total:6.1%}  {m.wire_by[key]:.4g}  {kind} "
+              f"({op})  {where}")
     by_site = collections.Counter()
     for n, made in m.at_peak.values():
         by_site[(made[0], made[2]) if made else ("?", "?")] += n

@@ -30,6 +30,24 @@ TERMS = (("FLOPs", "roofline", "hlo_flops"), ("HBM", "roofline", "hlo_bytes"),
 MESHES = ("16x16", "2x16x16")
 
 
+def wire_bytes(kind: str, out_bytes: float, n: int) -> float:
+    """Bytes one device receives in a collective of `kind` over a group
+    of n devices whose output on that device is `out_bytes`, by the ring
+    algorithms' counts: an all-gather or an all-to-all receives
+    (n - 1) / n of its output, a reduce-scatter n - 1 times its output
+    (one shard of the reduced tensor), an all-reduce twice (n - 1) / n
+    of its output (a reduce-scatter, then an all-gather), a permute its
+    output.  The table's collective bytes count outputs, so one
+    all-reduce of a tensor counts n times a reduce-scatter of it; wire
+    bytes count both alike (`scripts/ref_dryrun_attribute.py`,
+    `scripts/torch_dryrun_attribute.py`)."""
+    if n <= 1:
+        return 0.0
+    return out_bytes * {"all-gather": (n - 1) / n, "all-to-all": (n - 1) / n,
+                        "reduce-scatter": n - 1,
+                        "all-reduce": 2 * (n - 1) / n}.get(kind, 1.0)
+
+
 def _rows(path: str) -> dict:
     """{(mesh, arch, shape): row}; a skipped row that names no mesh (the
     reference's: a skip depends on the cell alone) stands for both."""

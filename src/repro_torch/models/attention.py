@@ -23,8 +23,9 @@ the batch on the rules' batch axes, the heads on "model" when they
 divide; kv heads that do not divide are repeated over their query group
 first, so each device's kv heads are those its query heads read.  Heads
 that do not divide leave the sequence split on "model" through the
-block, as the reference's layout does: the projections run on each
-device's rows (`_heads_unsplit`) and each device attends its own query
+block, as the reference's layout does: the block's weights are laid out
+with their head dims whole (`_block_weights`), so its projections run on
+each device's rows, and each device attends its own query
 rows from their offset over the whole k / v (never the flash route,
 whose causal mask starts at row 0).  The
 flash kernel's wrapper takes plain contiguous tensors, so this is the
@@ -44,8 +45,9 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  supports)
-from repro_torch.models.common import (ArchConfig, apply_rope, gather_rows,
-                                       init_dense, linear)
+from repro_torch.models.common import (ArchConfig, CodebookWeight,
+                                       apply_rope, gather_rows, init_dense,
+                                       linear)
 
 NEG_INF = -1e30
 
@@ -185,14 +187,12 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
          rules: SH.ShardingRules = SH.ShardingRules()):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    rows = _heads_unsplit(x, cfg, rules)
-    xq, xk, xv = (x,) * 3 if rows else gather_rows(x, p[q_name], p[k_name],
-                                                    p[v_name])
-    q = _by_heads(linear(xq, p[q_name], rows), h, "heads", rules).reshape(
+    xq, xk, xv = gather_rows(x, p[q_name], p[k_name], p[v_name])
+    q = _by_heads(linear(xq, p[q_name]), h, "heads", rules).reshape(
         b, s, h, hd)
-    k = _by_heads(linear(xk, p[k_name], rows), kv, "kv_heads",
+    k = _by_heads(linear(xk, p[k_name]), kv, "kv_heads",
                   rules).reshape(b, s, kv, hd)
-    v = _by_heads(linear(xv, p[v_name], rows), kv, "kv_heads",
+    v = _by_heads(linear(xv, p[v_name]), kv, "kv_heads",
                   rules).reshape(b, s, kv, hd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -202,17 +202,41 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
 
 def _heads_unsplit(x, cfg: ArchConfig, rules: SH.ShardingRules
                    ) -> bool:
-    """Whether the attention of DTensor x (B, S, d) runs its products on
-    each device's rows (`linear(..., rows=True)`): where the rules leave
-    its heads unsplit, the sequence stays split on "model" through the
-    block, as in the reference's layout, and each projection's weight is
-    gathered whole instead (whisper-tiny's 6 heads on 16 devices would
-    otherwise gather the sequence for a product split inside the heads,
-    then gather the projection back to whole heads)."""
+    """Whether the rules leave the heads of the attention of DTensor x
+    (B, S, d) unsplit: the sequence then stays split on "model" through
+    the block, as in the reference's layout (`_block_weights`)."""
     if not SH.is_dtensor(x) or x.shape[1] < 2:
         return False
     return SH.spec_for((x.shape[0], cfg.n_heads), ("batch", "heads"),
                        x.device_mesh, rules)[1] is None
+
+
+def _block_weights(x, p, names, cfg: ArchConfig,
+                   rules: SH.ShardingRules) -> dict:
+    """{name: weight} of the projections of one attention block on x, as
+    its products read them: where the rules leave the heads unsplit
+    (`_heads_unsplit`), each weight with its head dim (wq / wk / wv
+    columns, wo rows) whole, so `linear` runs every product on each
+    device's rows of x and gathers the weight, not the sequence
+    (whisper-tiny's 6 heads on 16 devices would otherwise gather the
+    sequence for a product split inside the heads, then gather the
+    projection back to whole heads); else the weights as they lie."""
+    if not _heads_unsplit(x, cfg, rules):
+        return {n: p[n] for n in names}
+    return {n: _head_dim_whole(p[n], 0 if n.endswith("wo") else 1)
+            for n in names}
+
+
+def _head_dim_whole(w, dim: int):
+    """Weight w (a DTensor, or a `CodebookWeight` of one) with its dim
+    `dim` gathered on every mesh axis it is split on."""
+    t = w.idx if isinstance(w, CodebookWeight) else w
+    if not SH.is_dtensor(t) or SH.entry_of(t, dim) is None:
+        return w
+    want = tuple(SH.Replicate() if isinstance(pl, SH.Shard) and pl.dim == dim
+                 else pl for pl in t.placements)
+    t = t.redistribute(t.device_mesh, want)
+    return w._replace(idx=t) if isinstance(w, CodebookWeight) else t
 
 
 def _by_heads(y, n_heads: int, logical: str, rules: SH.ShardingRules):
@@ -320,9 +344,9 @@ def attention_train(x, p, cfg: ArchConfig, positions=None, *,
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
-    return linear(_self_attention(q, k, v, cfg, rules), p["wo"],
-                  _heads_unsplit(x, cfg, rules))
+    w = _block_weights(x, p, ("wq", "wk", "wv", "wo"), cfg, rules)
+    q, k, v = _qkv(x, w, cfg, positions, rules=rules)
+    return linear(_self_attention(q, k, v, cfg, rules), w["wo"])
 
 
 def attention_encoder(x, p, cfg: ArchConfig, *,
@@ -330,9 +354,9 @@ def attention_encoder(x, p, cfg: ArchConfig, *,
     """Bidirectional attention (whisper encoder)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
-    return linear(_full_attention(q, k, v, cfg, rules), p["wo"],
-                  _heads_unsplit(x, cfg, rules))
+    w = _block_weights(x, p, ("wq", "wk", "wv", "wo"), cfg, rules)
+    q, k, v = _qkv(x, w, cfg, positions, rules=rules)
+    return linear(_full_attention(q, k, v, cfg, rules), w["wo"])
 
 
 def _full_attention(q, k, v, cfg: ArchConfig,
@@ -350,17 +374,16 @@ def attention_cross(x, enc_out, p, cfg: ArchConfig, *,
     b, s, _ = x.shape
     t = enc_out.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    rows = _heads_unsplit(x, cfg, rules)
-    enc_rows = _heads_unsplit(enc_out, cfg, rules)
-    ek, ev = (enc_out,) * 2 if enc_rows else gather_rows(
-        enc_out, p["xwk"], p["xwv"])
-    q = _by_heads(linear(x, p["xwq"], rows), h, "heads", rules).reshape(
+    w = {**_block_weights(x, p, ("xwq", "xwo"), cfg, rules),
+         **_block_weights(enc_out, p, ("xwk", "xwv"), cfg, rules)}
+    ek, ev = gather_rows(enc_out, w["xwk"], w["xwv"])
+    q = _by_heads(linear(x, w["xwq"]), h, "heads", rules).reshape(
         b, s, h, hd)
-    k = _by_heads(linear(ek, p["xwk"], enc_rows), kv, "kv_heads",
+    k = _by_heads(linear(ek, w["xwk"]), kv, "kv_heads",
                   rules).reshape(b, t, kv, hd)
-    v = _by_heads(linear(ev, p["xwv"], enc_rows), kv, "kv_heads",
+    v = _by_heads(linear(ev, w["xwv"]), kv, "kv_heads",
                   rules).reshape(b, t, kv, hd)
-    return linear(_full_attention(q, k, v, cfg, rules), p["xwo"], rows)
+    return linear(_full_attention(q, k, v, cfg, rules), w["xwo"])
 
 
 def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
@@ -377,7 +400,8 @@ def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
         raise ValueError(f"prompt of {s} tokens does not fit a cache of "
                          f"{cache_len}")
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions, rules=rules)
+    w = _block_weights(x, p, ("wq", "wk", "wv", "wo"), cfg, rules)
+    q, k, v = _qkv(x, w, cfg, positions, rules=rules)
     out = _self_attention(q, k, v, cfg, rules)
     if cache is None:
         kc = torch.zeros((b, cfg.n_kv_heads, cache_len, cfg.hd),
@@ -388,7 +412,7 @@ def attention_prefill(x, p, cfg: ArchConfig, cache_len: int,
     else:
         cache.k[:, :, :s] = k.transpose(1, 2)
         cache.v[:, :, :s] = v.transpose(1, 2)
-    return linear(out, p["wo"], _heads_unsplit(x, cfg, rules)), cache
+    return linear(out, w["wo"]), cache
 
 
 def _cache_layout(cache_k):

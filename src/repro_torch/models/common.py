@@ -238,26 +238,24 @@ def gather_codebook(w: CodebookWeight) -> torch.Tensor:
                         mesh, (w.idx, w.cb), (spec, SH.P(None)), spec)
 
 
-def linear(x: torch.Tensor, w, rows: bool = False) -> torch.Tensor:
+def linear(x: torch.Tensor, w) -> torch.Tensor:
     """x (..., K) @ w (K, N) -> (..., N) in x's type.  A `CodebookWeight`
     runs `ops.codebook_matmul` on x as a contiguous (M, K) matrix (on a
     CUDA tensor the kernel, or a raise; its plain version on the CPU);
     the f32 product is rounded to x's type, as the reference's product of
     two tensors of that type is; on a mesh, on each device's shards
     (`_codebook_on_shards`).  On a mesh a DTensor x's sequence is
-    gathered where w is split on its axis (`_fold_ready`), unless `rows`
-    (a block whose heads the axis does not split: the product runs on
-    each device's rows whatever w's layout)."""
+    gathered where w is split on its axis (`_fold_ready`), else the
+    product runs on each device's rows (`_on_rows`)."""
     if isinstance(w, CodebookWeight):
         if SH.is_dtensor(x) or SH.is_dtensor(w.idx):
-            return _codebook_on_shards(x, w, rows)
+            return _codebook_on_shards(x, w)
         idx = _unpacked(w.idx, w.packed)
         k, n = idx.shape
         out = ops.codebook_matmul(x.reshape(-1, k).contiguous(), idx, w.cb)
         return out.to(x.dtype).reshape(*x.shape[:-1], n)
     if x.ndim > 2 and SH.is_dtensor(x):
-        if not rows:
-            x = _fold_ready(x, w)
+        x = _fold_ready(x, w)
         if _rows_split(x):
             return _on_rows(x, w)
         return _FoldReadyGrad.apply(x @ w)
@@ -275,8 +273,9 @@ def _rows_split(x) -> bool:
 def _on_rows(x, w):
     """x @ w on each device's rows of DTensor x (..., K), its sequence
     split (sequence parallelism through a product whose weight is not
-    split on that axis, or in a block whose heads it does not split):
-    w's rows whole (an FSDP shard gathered), its columns on their own
+    split on that axis, as a head-dim weight of a block whose heads it
+    does not split is laid out): w's rows whole (an FSDP shard
+    gathered), its columns on their own
     axis where x's rows leave it free, else whole; the output laid out as
     x's rows and w's columns."""
     mesh = x.device_mesh
@@ -300,19 +299,19 @@ def gather_rows(x, *ws):
     return (_fold_ready(x),) * len(ws)
 
 
-def _codebook_on_shards(x, w: CodebookWeight, rows: bool = False):
+def _codebook_on_shards(x, w: CodebookWeight):
     """x @ cb[idx] on a mesh: each device launches the codebook product
     on its local x and idx (a 4-bit idx unpacked there), the codebook
-    replicated.  x keeps its rows' layout (`_fold_ready`, or as it is
-    with `rows`); idx keeps its own unless an axis of it is one x's rows
-    are split on (FSDP's "data"), which is gathered.  idx split on N
+    replicated.  x keeps its rows' layout (`_fold_ready`); idx keeps
+    its own unless an axis of it is one x's rows are split on (FSDP's
+    "data"), which is gathered.  idx split on N
     (column-parallel): the output is split on its last dim.  idx split
     on K (row-parallel): x's last dim is split alike and each device's
     product, rounded to x's type, is a partial sum, stacked on a new
     leading dim split over K's axes and summed (DTensor's reduction)."""
     mesh = (w.idx if SH.is_dtensor(w.idx) else x).device_mesh
     x = SH.replicated(x, mesh)
-    x = x if rows else _fold_ready(x, w)
+    x = _fold_ready(x, w)
     lead = tuple(SH.spec_of(x.placements, x.ndim, mesh))[:-1]
     pk, pn = (SH.spec_of(w.idx.placements, 2, mesh)
               if SH.is_dtensor(w.idx) else (None, None))

@@ -400,7 +400,7 @@ def mamba2_decode(x, p, cfg: ArchConfig, cache: SSMCache):
                                       p["conv_b"])
     xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
     args = (xin, dt, B, C, p["A_log"], p["dt_bias"], p["D"], cache.state)
-    if _heads_apart(cache.state, p["A_log"]):
+    if SH.is_dtensor(cache.state) and SH.entry_of(cache.state, 1) is not None:
         y, state = _ssm_step_on_shards(hp, *args)
     else:
         y, state = _ssm_step(*args, hp)
@@ -429,24 +429,14 @@ def _ssm_step(xin, dt, B, C, A_log, dt_bias, D, state, hp: int):
     return y.reshape(b, 1, nh * hp), state
 
 
-def _heads_apart(state, A_log) -> bool:
-    """Whether a DTensor SSM state (B, H, N, P) is split over its heads
-    (`decode_state_spec`: "cache_heads" where they divide the axis) on
-    an axis the layer's per-head weights are not (mamba2-130m's 24 heads
-    on a model axis of 2: its weights never split them)."""
-    if not SH.is_dtensor(state) or SH.entry_of(state, 1) is None:
-        return False
-    return SH.entry_of(state, 1) != (SH.entry_of(A_log, 0)
-                                     if SH.is_dtensor(A_log) else None)
-
-
 def _ssm_step_on_shards(hp: int, xin, dt, B, C, A_log, dt_bias, D, state):
-    """`_ssm_step` on each device's heads of a state split over heads the
-    layer's weights are not (`_heads_apart`): x, dt and the per-head
-    weights are laid out by the state's heads, B and C whole.  torch
-    2.11's DTensor cannot fold (B, H) with H split for the state's
-    batched product there; where the weights are split alike (zamba2),
-    DTensor's own layout runs the step."""
+    """`_ssm_step` on each device's heads of a state split over heads
+    (`decode_state_spec`: "cache_heads" where they divide the axis): x,
+    dt and the per-head weights laid out by the state's heads (a no-op
+    where the weights are split alike, as zamba2's are), B and C whole.
+    Each device's step reads only its heads' weights and rows; DTensor's
+    own rules would fold (B, H) with H split for the state's batched
+    product, which torch 2.11's DTensor cannot."""
     mesh = state.device_mesh
     pb, ph = SH.entry_of(state, 0), SH.entry_of(state, 1)
     heads, whole = SH.P(pb, None, ph), SH.P(pb, None, None)
