@@ -313,8 +313,17 @@ Phases, each of which must pass:
    run's own tokens, no greedy token differing above it, and (a)'s two
    planted faults outside it; tokens/s, prefill and decode ms, device
    busy and idle share of one more decode step, peak memory and the
-   collective bytes of a decode step per rank; then (d) one NCCL rank,
-   1 x 1, 8 layers: tokens and logits bitwise the one-device `Server`.
+   collective bytes of a decode step per rank; (g) whisper-tiny and (h)
+   mamba2-130m at full width and depth, data 1 x model 2, the heads
+   unsplit (the sequence split through every block), (h)'s decode step
+   divided over "model" (in_proj by pieces, out_proj's rows, the
+   state's heads): each rank's decode FLOPs half of one device's
+   (MESH_DECODE_FLOP_SHARE); (i) zamba2-2.7b at full width, 6 layers
+   (one shared-attention group), 4 prompts of 1024 tokens on data 1 x
+   model 2: in_proj by pieces on the heads' columns in every layer of
+   the prefill, no prefill all-gather as large as a rank's in_proj
+   output; then (d) one NCCL rank, 1 x 1, 8 layers: tokens and logits
+   bitwise the one-device `Server`.
 
 18. the examples — right after phase 17: examples/torch_quickstart.py
    on the card, exactly one zspe_spmm and one lif_update launch and no
@@ -4918,14 +4927,17 @@ def _seq_one_device_step(seed: int, dev) -> dict:
 
 def _seq_spies():
     """Count the sequence-split routes as they run: the SSD scan by
-    chunks (`mamba2._scan_by_chunks`) and attention on a device's query
-    rows (`attention._query_rows` naming an axis).  Returns the counts
-    and an undo."""
+    chunks (`mamba2._scan_by_chunks`), attention on a device's query
+    rows (`attention._query_rows` naming an axis), and in_proj as one
+    product per piece on the columns of an axis (`mamba2._in_proj_pieces`:
+    mamba2-130m's decode, zamba2's prefill).  Returns the counts and an
+    undo."""
     from repro_torch.models import attention as ATT
     from repro_torch.models import mamba2 as M2
 
-    counts = {"scan_by_chunks": 0, "query_rows": 0}
-    scan, rows = M2._scan_by_chunks, ATT._query_rows
+    counts = {"scan_by_chunks": 0, "query_rows": 0, "in_proj_pieces": 0}
+    scan, rows, pieces = (M2._scan_by_chunks, ATT._query_rows,
+                          M2._in_proj_pieces)
 
     def scan_spy(*a, **kw):
         counts["scan_by_chunks"] += 1
@@ -4936,10 +4948,16 @@ def _seq_spies():
         counts["query_rows"] += out is not None
         return out
 
+    def pieces_spy(*a, **kw):
+        counts["in_proj_pieces"] += 1
+        return pieces(*a, **kw)
+
     M2._scan_by_chunks, ATT._query_rows = scan_spy, rows_spy
+    M2._in_proj_pieces = pieces_spy
 
     def undo():
         M2._scan_by_chunks, ATT._query_rows = scan, rows
+        M2._in_proj_pieces = pieces
 
     return counts, undo
 
@@ -5402,9 +5420,31 @@ SERVE_SHORT_LAYERS = 8          # (b)-(f): the first 8 layers
 # decode steps 0.055-0.125 (logits up to 4.84): the prefill's bf16
 # roundings enter the SSM state and conv window, which every later
 # step reads (24 layers).  (g) is held to the dense limit, 4 times its
-# reading; (h) to 2 times its reading.
+# reading; (h) to 2 times its reading.  Since its decode step is
+# divided over "model" (out_proj's partial sums rounded to bf16 before
+# they are added), (h) read 0.1016 at most.  (i) zamba2-2.7b at 6
+# layers, data 1 x model 2, its 80 heads split: each rank scans its
+# heads and adds out_proj's bf16 partial sums, and the prefill's
+# roundings enter the SSM states and conv windows every decode step
+# reads; measured on an H100 at --seed 0: 0.1006 at most (the prefill;
+# decode steps 0.047-0.082, logits up to 4.97), held to 2.5 times its
+# reading, (h)'s limit.
 MESH_SERVE_TOL = {"a": 0.125, "b": 0.125, "c": 0.125, "e": 0.25,
-                  "f": 0.25, "g": 0.125, "h": 0.25}
+                  "f": 0.25, "g": 0.125, "h": 0.25, "i": 0.25}
+# (h): a rank's decode FLOPs over one device's.  Every product of
+# mamba2-130m's decode step splits evenly on model 2 (in_proj's pieces
+# 1536 / 1536 / 128 / 128 / 24 columns, out_proj's 1536 rows, the 24
+# heads of the state, the 50280-wide vocab), so each rank does half;
+# the elementwise ops count no FLOPs.  The band allows a 1 % slack.
+MESH_DECODE_FLOP_SHARE = (0.495, 0.505)
+# (i): zamba2-2.7b at full width, one shared-attention group (6 of 54
+# layers), data 1 x model 2 (its 80 heads on "model"), 4 prompts of
+# 1024 tokens: 4096 rows a rank at prefill, more than the 3840 weight
+# rows its in_proj pieces gather (2560 + 2560 / 2), so in_proj runs one
+# product per piece on the heads' columns (`mamba2._in_proj_pieces`);
+# at decode (4 rows) the output is gathered.
+HYBRID_MESH_LAYERS = 6
+HYBRID_MESH_PROMPT = 1024
 
 
 def _serve_rank(rank: int, world: int, backend: str, tmp: str,
@@ -5454,7 +5494,8 @@ def _serve_mesh_model(run: dict, tmp: str, dev):
             T.model_from(cfg, to))
 
 
-def _teacher_forced(cfg, model, batch: dict, tokens: list) -> list:
+def _teacher_forced(cfg, model, batch: dict, tokens: list,
+                    cache: int = LM_CACHE) -> list:
     """The one-device model's logits of every step of a served run: its
     prefill over `batch`, then one decode step per emitted token but the
     last (the meshed run's own tokens)."""
@@ -5464,7 +5505,7 @@ def _teacher_forced(cfg, model, batch: dict, tokens: list) -> list:
     from repro_torch.quant.lm_quant import make_param_transform
 
     pt = make_param_transform(cfg.dtype) if cfg.quant_serving else None
-    logits, state = T.forward_prefill(model, cfg, batch, LM_CACHE,
+    logits, state = T.forward_prefill(model, cfg, batch, cache,
                                       param_transform=pt)
     out = [logits.float()]
     for tok in tokens[:-1]:
@@ -5513,12 +5554,14 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
 
     mesh = MESH.make_host_mesh(model=run["model"], device=dev)
     cfg, model = _serve_mesh_model(run, tmp, dev)
-    prompts = _prompts(run["seed"], cfg.vocab)[:LM_SLOTS]
+    cache = run.get("cache", LM_CACHE)
+    prompts = _prompts(run["seed"], cfg.vocab,
+                       run.get("prompt", LM_PROMPT))[:LM_SLOTS]
     batch = {"tokens": torch.as_tensor(np.stack(prompts), device=dev)}
     if cfg.family == "audio":               # the server's stub frames
         batch["frames"] = torch.zeros((LM_SLOTS, cfg.enc_frames,
                                        cfg.d_model), device=dev)
-    srv = Server(cfg, model, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
+    srv = Server(cfg, model, batch_slots=LM_SLOTS, cache_len=cache,
                  mesh=mesh, rules=(_seq_rules() if run.get("seq")
                                    else SH.ShardingRules()))
     del model
@@ -5585,7 +5628,7 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
         CBM.reset_launches()
         seen["on"] = True
         routes = []
-        routes_taken.update(scan_by_chunks=0, query_rows=0)
+        routes_taken.update(dict.fromkeys(routes_taken, 0))
         t0 = time.perf_counter()
         done = _dispatching(_recorder(routes), lambda: srv.run(
             sample=sample)) if cfg.family == "moe" else srv.run(sample=sample)
@@ -5612,12 +5655,13 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
            "decode_steps": len(timed["decode"]),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "seq_routes": seq_routes}
-    if run.get("seq"):
+    if run.get("seq") or run.get("trace_prefill"):
         # one more prefill, its collectives counted
         costs = TA.trace(lambda: prefill(srv.params, batch=batch))
         res["prefill_collective_bytes"] = dict(costs.per_kind,
                                                total=costs.coll_bytes)
         res["prefill_collective_ops"] = costs.op_counts
+        res["prefill_largest_gather"] = costs.largest["all-gather"]
     # one more decode step, profiled, its collectives counted
     counted = {}
     step_toks = tokens[-1].to(torch.int32)[:, None]
@@ -5635,6 +5679,7 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
     res["decode_collective_bytes"] = dict(costs.per_kind,
                                           total=costs.coll_bytes)
     res["decode_collective_ops"] = costs.op_counts
+    res["decode_flops"] = costs.flops
     faults = {}
     if run.get("fault"):
         faults = _planted_faults(rank, srv, prefill, batch, mesh)
@@ -5655,8 +5700,16 @@ def _mesh_serve(rank: int, dev, run: dict, tmp: str) -> dict:
         res["routing_free_max_diff"] = max(free["diffs"])
         res["routes_pinned"] = len(pinned)
     else:
-        want = _teacher_forced(cfg1, one, batch, tokens)
+        want = _teacher_forced(cfg1, one, batch, tokens, cache)
     res["held"] = _gaps(logits, want)
+    if run.get("flops"):
+        # one decode step of the one-device model, its FLOPs counted
+        from repro_torch.models import transformer as T
+
+        _, state1 = T.forward_prefill(one, cfg1, batch, cache)
+        res["one_device_decode_flops"] = TA.trace(lambda: T.forward_decode(
+            one, cfg1, state1, step_toks)).flops
+        del state1
     res["fault_diff"] = {k: float((f - want[0]).abs().max())
                          for k, f in faults.items()}
     if run.get("bitwise"):
@@ -5792,8 +5845,10 @@ def _hold_seq_served(per: dict, smi: str) -> dict:
     audio, ssm = R.get_arch(AUDIO_ARCH), R.get_arch(SSM_ARCH)
     for p, cfg, want_routes in (
             ("g", audio, {"query_rows": 2 * audio.n_layers
-                          + audio.enc_layers, "scan_by_chunks": 0}),
-            ("h", ssm, {"query_rows": 0, "scan_by_chunks": ssm.n_layers})):
+                          + audio.enc_layers, "scan_by_chunks": 0,
+                          "in_proj_pieces": 0}),
+            ("h", ssm, {"query_rows": 0, "scan_by_chunks": ssm.n_layers,
+                        "in_proj_pieces": ssm.n_layers * (LM_NEW - 1)})):
         out[p] = _hold_served(
             f"phase 17 ({p}) {cfg.name} data 1 x model 2, heads unsplit, "
             f"{cfg.n_layers} layers", per[p],
@@ -5811,7 +5866,65 @@ def _hold_seq_served(per: dict, smi: str) -> dict:
             f"{[r['tokens_per_s'] for r in per[p]]}, prefill ms "
             f"{[r['prefill_ms'] for r in per[p]]}, decode ms a step "
             f"{[r['decode_ms_per_step'] for r in per[p]]}")
+    # (h): every rank's decode step does half of one device's FLOPs (each
+    # piece of in_proj on half its columns, out_proj on half its rows,
+    # the state's and the vocab's halves)
+    flops = [(r["decode_flops"], r["one_device_decode_flops"])
+             for r in per["h"]]
+    log(f"phase 17 (h) {ssm.name}: a decode step's FLOPs per rank "
+        f"{[f for f, _ in flops]} beside one device's "
+        f"{[o for _, o in flops]} (ratio "
+        f"{[round(f / o, 5) for f, o in flops]}; limit "
+        f"{MESH_DECODE_FLOP_SHARE[0]}-{MESH_DECODE_FLOP_SHARE[1]})")
+    for f, o in flops:
+        if not MESH_DECODE_FLOP_SHARE[0] <= f / o <= \
+                MESH_DECODE_FLOP_SHARE[1]:
+            raise AssertionError(f"phase 17 (h): a rank's decode FLOPs "
+                                 f"{f} against one device's {o}")
+    out["h"]["decode_flops"] = flops
     return out
+
+
+def _hold_hybrid_served(per: dict, smi: str) -> dict:
+    """Phase 17 (i): zamba2-2.7b's served run held as `_hold_served` holds
+    it (no flash launch: its window keeps the shared attention off the
+    flash route; no codebook launch), its prefill's in_proj one product
+    per piece on the heads' columns in every layer and none at a decode
+    step (4 rows: the output gather moves less than the pieces' weights),
+    and no all-gather of a prefill as large as a rank's in_proj output."""
+    import dataclasses
+
+    from repro_torch.configs import registry as R
+
+    cfg = dataclasses.replace(R.get_arch(HYBRID_ARCH),
+                              n_layers=HYBRID_MESH_LAYERS)
+    out = _hold_served(
+        f"phase 17 (i) {cfg.name} data 1 x model 2, {cfg.n_layers} layers, "
+        f"{LM_SLOTS} x {HYBRID_MESH_PROMPT} prompt tokens", per["i"],
+        {"flash_attention": 0, "codebook_matmul": 0}, MESH_SERVE_TOL["i"],
+        ())
+    d_in = cfg.ssm_expand * cfg.d_model
+    cols = 2 * d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_head_dim
+    output = LM_SLOTS * HYBRID_MESH_PROMPT * cols * 2          # bf16
+    for r in per["i"]:
+        if r["seq_routes"]["in_proj_pieces"] != cfg.n_layers:
+            raise AssertionError(f"phase 17 (i) rank {r['rank']}: routes "
+                                 f"{r['seq_routes']}, expected "
+                                 f"{cfg.n_layers} in_proj by pieces")
+        if not 0 < r["prefill_largest_gather"] < output:
+            raise AssertionError(f"phase 17 (i) rank {r['rank']}: a "
+                                 f"prefill all-gather of "
+                                 f"{r['prefill_largest_gather']} B, a "
+                                 f"rank's in_proj output is {output}")
+    log(f"phase 17 (i) {cfg.name} ({smi}): routes a rank "
+        f"{per['i'][0]['seq_routes']}; a prefill's largest all-gather "
+        f"{[r['prefill_largest_gather'] for r in per['i']]} B (a rank's "
+        f"in_proj output {output}), its collective bytes "
+        f"{[r['prefill_collective_bytes'] for r in per['i']]}; tokens/s "
+        f"{[r['tokens_per_s'] for r in per['i']]}, prefill ms "
+        f"{[r['prefill_ms'] for r in per['i']]}, decode ms a step "
+        f"{[r['decode_ms_per_step'] for r in per['i']]}")
+    return {"i": out}
 
 
 def mesh_serve_path(seed: int, smi: str) -> dict:
@@ -5877,7 +5990,12 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
                 dict(name="g", model=2, seed=seed, arch=AUDIO_ARCH,
                      layers=R.get_arch(AUDIO_ARCH).n_layers, seq=True),
                 dict(name="h", model=2, seed=seed, arch=SSM_ARCH,
-                     layers=R.get_arch(SSM_ARCH).n_layers, seq=True)]
+                     layers=R.get_arch(SSM_ARCH).n_layers, seq=True,
+                     flops=True),
+                dict(name="i", model=2, seed=seed, arch=HYBRID_ARCH,
+                     layers=HYBRID_MESH_LAYERS, prompt=HYBRID_MESH_PROMPT,
+                     cache=HYBRID_MESH_PROMPT + 2 * LM_NEW,
+                     trace_prefill=True)]
         ranks = _spawn_mesh(dict(name="serve-gloo", runs=runs), MESH_RANKS,
                             "gloo", tmp, _serve_rank, "phase 17")
         out["seconds"]["gloo"] = time.perf_counter() - part
@@ -5919,6 +6037,7 @@ def mesh_serve_path(seed: int, smi: str) -> dict:
             ((b, moe.n_heads // 2, s, moe.hd),
              (b, moe.n_kv_heads // 2, s, moe.hd)))
         out.update(_hold_seq_served(per, smi))
+        out.update(_hold_hybrid_served(per, smi))
         log(f"phase 17 (e) {MOE_ARCH} data 2 x model 1 ({smi}): tokens/s "
             f"{[r['tokens_per_s'] for r in per['e']]}, decode ms a step "
             f"{[r['decode_ms_per_step'] for r in per['e']]}, decode "

@@ -14,7 +14,13 @@ own rule):
 * FLOPs: every `dot` and `convolution`;
 * collective bytes: every collective's output, by kind, and the bytes
   a device receives for it (`torch_dryrun_compare.wire_bytes`, the
-  group size from its `replica_groups`);
+  group size from its `replica_groups`); and the bytes of the
+  all-gathers, all-to-alls and permutes that move bf16 values as f32
+  (their operand widened from bf16, or every user rounding them back),
+  with the total counted in the values' own type;
+* the loop fusions whose `op_name` ends in `dot_general`: products XLA
+  rewrote out of `dot` (at a batch of one row), which the analysis, and
+  so the reference's row, counts as no FLOPs; their output shapes;
 * the largest op outputs (the candidates for the temp peak: XLA's
   `memory_analysis` gives only the total, not the buffers it is made of),
   once per op, not scaled.
@@ -55,6 +61,83 @@ def _where(op: HA.Op) -> str:
     if src:
         path += f"  {src.group(1).split('src/')[-1]}:{src.group(2)}"
     return path
+
+
+def _rewritten_dot(op: HA.Op) -> bool:
+    """Whether `op` is a loop fusion whose jaxpr path ends in a
+    dot_general: a product XLA rewrote into elementwise code (at M = 1, a
+    batch of one row, it turns `bsd,dk->bsk` into a multiply and a
+    reduce), which `hlo_analysis` counts as no dot."""
+    name = _NAME_RE.search(op.rest)
+    return (op.opcode == "fusion" and "kind=kLoop" in op.rest
+            and name is not None and name.group(1).endswith("dot_general"))
+
+
+_MOVES = ("all-gather", "all-to-all", "collective-permute")
+# ops that move values without changing them, followed to a convert
+_LAYOUT = {"bitcast", "copy", "reshape", "transpose", "slice", "broadcast",
+           "concatenate", "pad", "dynamic-slice"}
+
+
+def _operands(op: HA.Op) -> list:
+    return HA._OPERAND_RE.findall(op.rest.split("), ")[0])
+
+
+def _called(op: HA.Op, comps: dict) -> list:
+    m = re.search(r"calls=%([\w.\-]+)", op.rest)
+    return comps.get(m.group(1), []) if op.opcode == "fusion" and m else []
+
+
+def _bf16_as_f32(op: HA.Op, symbols: dict, comps: dict) -> bool:
+    """Whether f32 `op` holds bf16 values: a convert from bf16, reached
+    from it (a fusion from its root, the last op XLA prints) through ops
+    that only move values."""
+    inner = _called(op, comps)
+    op = inner[-1] if inner else op
+    for _ in range(16):
+        args = [symbols.get(a) for a in _operands(op)]
+        if op.opcode == "convert":
+            return bool(args) and args[0] is not None \
+                and args[0].type_str.startswith("bf16")
+        if op.opcode not in _LAYOUT or not args or args[0] is None:
+            return False
+        op = args[0]
+    return False
+
+
+def _rounded_to_bf16(name: str, user: HA.Op, symbols: dict, comps: dict,
+                     users: dict) -> bool:
+    """Whether `user` rounds its operand `name` to bf16 before any other
+    use: a convert to bf16, or a fusion whose parameter for it feeds only
+    such converts."""
+    if user.opcode == "convert":
+        return user.type_str.startswith("bf16")
+    inner = _called(user, comps)
+    if not inner or name not in _operands(user):
+        return False
+    i = _operands(user).index(name)
+    param = next((o for o in inner if o.opcode == "parameter"
+                  and o.rest.startswith(f"{i})")), None)
+    uses = users.get(param.name, ()) if param is not None else ()
+    return bool(uses) and all(u.opcode == "convert"
+                              and u.type_str.startswith("bf16")
+                              for u in uses)
+
+
+def _widened(op: HA.Op, symbols: dict, comps: dict, users: dict) -> bool:
+    """Whether collective `op` moves bf16 values in f32: an all-gather,
+    all-to-all or permute of f32 whose operand is bf16 widened (XLA:CPU
+    runs a bf16 product in f32 and widens its operands before their
+    collectives) or whose every user rounds it back to bf16 first."""
+    if not (op.opcode.startswith(_MOVES) and op.type_str.startswith("f32")):
+        return False
+    args = [symbols.get(a) for a in _operands(op)]
+    if args and args[0] is not None and _bf16_as_f32(args[0], symbols,
+                                                     comps):
+        return True
+    out = users.get(op.name, ())
+    return bool(out) and all(_rounded_to_bf16(op.name, u, symbols, comps,
+                                              users) for u in out)
 
 
 def _multipliers(ops: list, entry: str, trips: dict) -> dict:
@@ -114,12 +197,20 @@ def _dot_flops(op: HA.Op, symbols: dict) -> float:
 def attribute(text: str, top: int) -> None:
     ops, meta = HA.parse_module(text)
     symbols = {o.name: o for o in ops}
+    comps, users = collections.defaultdict(list), collections.defaultdict(
+        list)
+    for o in ops:
+        comps[o.comp].append(o)
+        for ref in set(_operands(o)):
+            users[ref].append(o)
     costs = HA.analyze(text)
     mults = _multipliers(ops, meta["entry"], costs.trip_counts)
     flops = collections.Counter()
     coll = collections.Counter()
     wire = collections.Counter()
     sizes = []
+    rewritten = collections.Counter()
+    widened = 0.0
     for o in ops:
         if o.comp not in mults:
             continue
@@ -129,10 +220,14 @@ def attribute(text: str, top: int) -> None:
         if base is not None and not o.opcode.endswith("-done"):
             n = HA._shape_bytes(o.type_str) * k
             coll[(base, k, _where(o))] += n
+            if _widened(o, symbols, comps, users):
+                widened += n
             wire[(base, k, _where(o))] += wire_bytes(base, n, _group_size(o))
             continue
         if o.opcode in ("dot", "convolution"):
             flops[(o.opcode, k, _where(o))] += _dot_flops(o, symbols) * k
+        elif _rewritten_dot(o):
+            rewritten[(o.type_str.split("{")[0], k, _where(o))] += 1
         if o.opcode not in HA._FREE_OPS:
             sizes.append((HA._shape_bytes(o.type_str), o.opcode,
                           o.type_str.split("{")[0], _where(o)))
@@ -148,6 +243,17 @@ def attribute(text: str, top: int) -> None:
     for (kind, k, where), n in coll.most_common(top):
         print(f"  {n:.4g}  {n / total:6.1%}  {wire[(kind, k, where)]:.4g}"
               f"  {kind} x{k}  {where}")
+    print(f"of which bf16 values moved as f32 (XLA:CPU widens a bf16 "
+          f"product's operands before their collectives): {widened:.4g}; "
+          f"in the values' own type the total is "
+          f"{total - widened / 2:.4g}")
+    print("\nloop fusions of a dot_general (products XLA rewrote out of "
+          "`dot`, which the analysis counts as no FLOPs), by output shape "
+          "(x trip count) and site:")
+    for (shape, k, where), n in sorted(rewritten.items())[:top]:
+        print(f"  {shape} x{k}{f' ({n} ops)' if n > 1 else ''}  {where}")
+    if not rewritten:
+        print("  none")
     print("\nlargest op outputs (temp candidates), bytes once:")
     for n, opcode, shape, where in sorted(sizes, reverse=True)[:top]:
         print(f"  {n:.4g}  {opcode} {shape}  {where}")

@@ -299,6 +299,63 @@ def gather_rows(x, *ws):
     return (_fold_ready(x),) * len(ws)
 
 
+def relaid(w, spec, mesh):
+    """Weight `w` (a DTensor, or a `CodebookWeight` whose indexes are
+    one) laid out by `spec` on `mesh`: DTensor's redistribution, which
+    splits a replicated dim before it gathers a sharded one, so a device
+    receives only its own slice; an uneven split is DTensor's."""
+    t = w.idx if isinstance(w, CodebookWeight) else w
+    t = SH.replicated(t, mesh)
+    want = SH.placements(spec, mesh)
+    if tuple(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return w._replace(idx=t) if isinstance(w, CodebookWeight) else t
+
+
+def columns(w, a: int, b: int):
+    """Columns [a, b) of a (K, N) weight: a tensor's slice, or a
+    `CodebookWeight` of its indexes' slice (of a packed one, bytes
+    [a / 2, b / 2); a and b even)."""
+    if not isinstance(w, CodebookWeight):
+        return w[:, a:b]
+    step = 2 if w.packed else 1
+    return w._replace(idx=w.idx[:, a // step:b // step])
+
+
+def weight_spec(w, mesh):
+    """The PartitionSpec of a 2-D product weight (a dense DTensor's, or a
+    `CodebookWeight`'s indexes'); replicated for a plain tensor."""
+    t = w.idx if isinstance(w, CodebookWeight) else w
+    if not SH.is_dtensor(t):
+        return SH.P(None, None)
+    return SH.spec_of(t.placements, 2, mesh)
+
+
+def divided_axis(x, w, candidates):
+    """The mesh axis a product x @ w whose work every device of that axis
+    would repeat is divided over, or None.  DTensor x (..., K) has its
+    rows split on the axes w's rows are split on (FSDP's "embed", which
+    the product then gathers), and the first of `candidates` that is a
+    single axis of more than one device splitting neither x nor w is
+    returned: each of its devices would multiply the same rows by the
+    same weight.  A batch of one request (its rows replicated) keeps
+    DTensor's route, the product on each device's slice of K."""
+    mesh = x.device_mesh
+    pk, pn = weight_spec(w, mesh)
+    rows = SH.entry_of(x, 0)
+    if pk is None or rows is None or SH._axis_names(pk) != \
+            SH._axis_names(rows):
+        return None
+    used = {a for spec in (SH.spec_of(x.placements, x.ndim, mesh), (pk, pn))
+            for e in spec if e is not None for a in SH._axis_names(e)}
+    sizes = SH.mesh_sizes(mesh)
+    for cand in candidates:
+        if isinstance(cand, str) and cand in sizes and cand not in used \
+                and sizes[cand] > 1:
+            return cand
+    return None
+
+
 def _codebook_on_shards(x, w: CodebookWeight):
     """x @ cb[idx] on a mesh: each device launches the codebook product
     on its local x and idx (a 4-bit idx unpacked there), the codebook

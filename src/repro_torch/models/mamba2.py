@@ -22,9 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding as SH
-from repro_torch.models.common import (ArchConfig, CodebookWeight,
-                                       gather_codebook, init_dense,
-                                       init_ones, linear, rms_norm)
+from repro_torch.models.common import (ArchConfig, CodebookWeight, columns,
+                                       divided_axis, gather_codebook,
+                                       gather_rows, init_dense, init_ones,
+                                       linear, relaid, rms_norm, weight_spec)
 
 
 class SSMCache(NamedTuple):
@@ -67,9 +68,81 @@ def init_mamba2(gen: torch.Generator, cfg: ArchConfig, n_layers: int
     }
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
+def _widths(cfg: ArchConfig) -> list:
+    """The widths of in_proj's pieces z, x, B, C and dt."""
     d_in, nh, n, _ = dims(cfg)
-    return torch.split(zxbcdt, [d_in, d_in, n, n, nh], dim=-1)
+    return [d_in, d_in, n, n, nh]
+
+
+def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
+    return torch.split(zxbcdt, _widths(cfg), dim=-1)
+
+
+def _in_proj(x, w, cfg: ArchConfig, candidates):
+    """in_proj's pieces (z, xin, B, C, dt): the product split after it.
+    On a mesh, one product per piece (`_in_proj_pieces`) where the axis
+    the heads lie on would otherwise see the whole output gathered (the
+    weight's columns split there, and the rows a device multiplies
+    outnumber the weight rows the pieces gather: zamba2's prefill), or
+    where the first free axis of `candidates` would repeat the whole
+    product on each of its devices (`common.divided_axis`: mamba2-130m's
+    decode, its 24 heads unsplit, on the axis its state is split on)."""
+    if SH.is_dtensor(x):
+        axis = _piece_axis(x, w, candidates)
+        if axis is not None:
+            return _in_proj_pieces(x, w, cfg, axis)
+    return _split_proj(linear(x, w), cfg)
+
+
+def _piece_axis(x, w, candidates):
+    """The mesh axis `_in_proj` splits each piece's columns on, or None
+    for the product whole and split after.  Where the weight's columns
+    lie on an axis, gathering the output there moves rows x N per
+    device, re-laying the pieces' weights K / |rows' axes| x N (the
+    columns gathered) plus K x N / |axis| (each piece's rows gathered):
+    the pieces where the rows outnumber those, in a forward that takes
+    no gradient (prefill).  A training step keeps the gathered output:
+    its dry-run cells' collective and temp bytes lie within 0.5-2x of the
+    reference's that way, and the pieces would take them below (ROADMAP
+    Queue 3, zamba2-2.7b train_4k)."""
+    mesh = x.device_mesh
+    pk, pn = weight_spec(w, mesh)
+    pn = SH.nontrivial(pn, mesh)
+    if pn is None:
+        return divided_axis(x, w, candidates)
+    if not isinstance(pn, str) or (torch.is_grad_enabled() and (
+            x.requires_grad or getattr(w, "requires_grad", False))):
+        return None
+    sizes = SH.mesh_sizes(mesh)
+    k = x.shape[-1]
+    rows = x.numel() // k
+    for name, pl in zip(mesh.mesh_dim_names, x.placements):
+        if pl.is_shard() and pl.dim < x.ndim - 1 and name != pn:
+            rows //= sizes[name]
+    moved = k // (1 if pk is None else SH._axis_size(sizes, pk)) + \
+        k // sizes[pn]
+    return pn if rows > moved else None
+
+
+def _in_proj_pieces(x, w, cfg: ArchConfig, axis: str):
+    """(z, xin, B, C, dt), each x @ its columns of in_proj, the piece's
+    columns split on `axis` where its width divides (the heads' layout
+    of z, x and dt, which the scan and the gate read), else whole: the
+    weight's own column split gathered once, each piece's rows gathered
+    where x's rows need them whole (FSDP), x's sequence gathered once for
+    all of them (`gather_rows`)."""
+    mesh = x.device_mesh
+    n = SH.mesh_sizes(mesh)[axis]
+    pk = weight_spec(w, mesh)[0]
+    w = relaid(w, SH.P(pk, None), mesh)
+    step = 2 if isinstance(w, CodebookWeight) and w.packed else 1
+    pieces, a = [], 0
+    for width in _widths(cfg):
+        pn = axis if (width // step) % n == 0 else None
+        pieces.append(relaid(columns(w, a, a + width), SH.P(None, pn), mesh))
+        a += width
+    xs = gather_rows(x, *pieces)
+    return tuple(linear(xi, wi) for xi, wi in zip(xs, pieces))
 
 
 def _conv_weight(w) -> torch.Tensor:
@@ -82,20 +155,22 @@ def _conv_weight(w) -> torch.Tensor:
 
 def _conv_on_shards(xbc, w, b, rules: SH.ShardingRules):
     """The causal conv on a mesh: each device convolves its rows of the
-    batch with the whole kernel (DTensor's convolution backward cannot
-    take a replicated kernel).  A sequence split across devices stays
-    split: each device convolves its own positions after the previous
-    shard's last K - 1 raw rows (`_shard_tails`, zeros before the first
-    shard), as the reference's layout convolves a sequence-parallel
-    input."""
+    batch and its channels (all of them, or, the sequence whole, those
+    xbc's channels are split on) with their slice of the kernel
+    (DTensor's convolution backward cannot take a replicated kernel).  A
+    sequence split across devices stays split: each device convolves
+    its own positions, all channels, after the previous shard's last
+    K - 1 raw rows (`_shard_tails`, zeros before the first shard), as
+    the reference's layout convolves a sequence-parallel input."""
     mesh = xbc.device_mesh
     pb = SH.spec_for((xbc.shape[0],), ("batch",), mesh, rules)[0]
+    pc = SH.nontrivial(SH.entry_of(xbc, 2), mesh)
     k = w.shape[-1]
     ps = _seq_split(xbc, k - 1)
     if ps is None:
         return SH.on_shards(_conv_rows, mesh, (xbc, w, b),
-                            (SH.P(pb, None, None), SH.P(None, None),
-                             SH.P(None)), SH.P(pb, None, None))
+                            (SH.P(pb, None, pc), SH.P(pc, None),
+                             SH.P(pc)), SH.P(pb, None, pc))
     index = SH.shard_index(mesh, ps)
 
     def local(x, tails, w, b):
@@ -108,6 +183,43 @@ def _conv_on_shards(xbc, w, b, rules: SH.ShardingRules):
     return SH.on_shards(local, mesh, (xbc, _shard_tails(xbc, k - 1), w, b),
                         (SH.P(pb, ps, None), SH.P(None, pb, None, None),
                          SH.P(None, None), SH.P(None)), SH.P(pb, ps, None))
+
+
+def _channels_split(t) -> bool:
+    """Whether DTensor t (B, S, CH)'s channels lie split across devices
+    (in_proj's pieces laid out by the heads, `_in_proj_pieces`)."""
+    return SH.is_dtensor(t) and SH.nontrivial(SH.entry_of(t, 2),
+                                              t.device_mesh) is not None
+
+
+def _whole_channels(t):
+    """t (B, S, CH) with its channels whole on every device: a DTensor
+    whose channels are split gathered there; anything else as it is."""
+    if not _channels_split(t):
+        return t
+    spec = SH.spec_of(t.placements, 3, t.device_mesh)
+    return t.redistribute(t.device_mesh,
+                          SH.placements(SH.P(*spec[:2], None), t.device_mesh))
+
+
+def _conv_pieces(raw, w, b, rules: SH.ShardingRules):
+    """The causal conv of in_proj's raw x, B and C pieces (DTensors whose
+    channels `_in_proj_pieces` laid out apart): the conv is depthwise, so
+    each piece is convolved on its own channels, laid out as they are,
+    with its rows of the kernel and bias (gathered whole, then each
+    piece's rows laid out as its channels)."""
+    mesh = raw[0].device_mesh
+    w = relaid(_conv_weight(w), SH.P(None, None), mesh)
+    b = relaid(b, SH.P(None), mesh)
+    out, a = [], 0
+    for t in raw:
+        pc = SH.entry_of(t, 2)
+        c = t.shape[-1]
+        out.append(_conv_on_shards(
+            t, relaid(w[a:a + c], SH.P(pc, None), mesh),
+            relaid(b[a:a + c], SH.P(pc), mesh), rules))
+        a += c
+    return tuple(out)
 
 
 def _seq_split(x, rows: int):
@@ -360,10 +472,14 @@ def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
             f"a prompt of {s} tokens leaves a conv window of {s} rows, "
             f"shorter than ssm_conv - 1 = {k - 1}: the reference's decode "
             f"step fails on it")
-    z, xin, B, C, dt = _split_proj(linear(x, p["in_proj"]), cfg)
-    pre_conv_xbc = torch.cat([xin, B, C], dim=-1)
-    xbc = _causal_conv_train(pre_conv_xbc, p["conv_w"], p["conv_b"], rules)
-    xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
+    z, xin, B, C, dt = _in_proj(x, p["in_proj"], cfg, rules.get("heads"))
+    if _channels_split(xin):
+        raw = (xin, B, C)
+        xin, B, C = _conv_pieces(raw, p["conv_w"], p["conv_b"], rules)
+    else:
+        raw = torch.cat([xin, B, C], dim=-1)
+        xbc = _causal_conv_train(raw, p["conv_w"], p["conv_b"], rules)
+        xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
     args = (xin, dt, B, C, p["A_log"], p["dt_bias"], p["D"])
     if SH.is_dtensor(xin):
         y, final = _scan_on_shards(rules, hp, cfg.ssm_chunk, *args)
@@ -371,10 +487,12 @@ def mamba2_forward(x, p, cfg: ArchConfig, cache: SSMCache | None = None,
         y, final = _scan(*args, hp, cfg.ssm_chunk)
     y = y.to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    out = linear(y, p["out_proj"])
+    out = linear(y, _rows_as(p["out_proj"], y))
     if not return_cache:
         return out
-    tail = _conv_window(pre_conv_xbc, k - 1)             # raw conv window
+    tail = (torch.cat([_whole_channels(_conv_window(t, k - 1)) for t in raw],
+                      dim=-1) if isinstance(raw, tuple)
+            else _conv_window(raw, k - 1))               # raw conv window
     if cache is None:
         return out, SSMCache(conv=tail, state=final)
     cache.conv.copy_(tail)
@@ -392,22 +510,47 @@ def _conv_window(x, rows: int):
 
 
 def mamba2_decode(x, p, cfg: ArchConfig, cache: SSMCache):
-    """One-token step.  x (B, 1, d) -> (B, 1, d), new cache."""
+    """One-token step.  x (B, 1, d) -> (B, 1, d), new cache.  On a mesh
+    whose axis the state is split on (its heads, or its N where the
+    heads do not divide it) would repeat every product (mamba2-130m's,
+    its weights' heads unsplit), in_proj runs on each device's columns of
+    each piece (`_in_proj_pieces`), x, B and C are gathered for the conv
+    window, the gate runs on z's columns and out_proj on the matching
+    rows (`_rows_as`), a partial sum over that axis."""
     d_in, _, n, hp = dims(cfg)
-    z, xin, B, C, dt = _split_proj(linear(x, p["in_proj"]), cfg)
-    raw_xbc = torch.cat([xin, B, C], dim=-1)              # (B, 1, CH)
+    state_axes = ([SH.entry_of(cache.state, d) for d in (1, 2)]
+                  if SH.is_dtensor(cache.state) else [])
+    z, xin, B, C, dt = _in_proj(x, p["in_proj"], cfg, state_axes)
+    raw_xbc = torch.cat([_whole_channels(t) for t in (xin, B, C)],
+                        dim=-1)                           # (B, 1, CH)
     xbc, new_conv = _causal_conv_step(raw_xbc, cache.conv, p["conv_w"],
                                       p["conv_b"])
     xin, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
     args = (xin, dt, B, C, p["A_log"], p["dt_bias"], p["D"], cache.state)
     if SH.is_dtensor(cache.state) and SH.entry_of(cache.state, 1) is not None:
         y, state = _ssm_step_on_shards(hp, *args)
+    elif _channels_split(z):
+        y, state = _ssm_step_on_state_shards(hp, *args)
     else:
         y, state = _ssm_step(*args, hp)
     y = y.to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    out = linear(y, p["out_proj"])
+    out = linear(y, _rows_as(p["out_proj"], y))
     return out, SSMCache(conv=new_conv, state=state)
+
+
+def _rows_as(w, y):
+    """out_proj laid out for its input y (B, S, K): where y's K lies on
+    an axis that w's rows do not (z's columns, `_in_proj_pieces`), w's
+    rows split alike and its columns gathered, so each device's product
+    is its partial sum of every output; else w as it is."""
+    if not SH.is_dtensor(y):
+        return w
+    mesh = y.device_mesh
+    pk = SH.nontrivial(SH.entry_of(y, y.ndim - 1), mesh)
+    if pk is None or weight_spec(w, mesh)[0] == pk:
+        return w
+    return relaid(w, SH.P(pk, None), mesh)
 
 
 def _ssm_step(xin, dt, B, C, A_log, dt_bias, D, state, hp: int):
@@ -445,6 +588,36 @@ def _ssm_step_on_shards(hp: int, xin, dt, B, C, A_log, dt_bias, D, state):
                         (xin, dt, B, C, A_log, dt_bias, D, state),
                         (heads, heads, whole, whole, per_head, per_head,
                          per_head, st), (heads, st))
+
+
+def _ssm_step_on_state_shards(hp: int, xin, dt, B, C, A_log, dt_bias, D,
+                              state):
+    """`_ssm_step` of a state split over N (`decode_state_spec`'s
+    "cache_seq" branch, where the heads do not divide the axis) in a
+    decode step divided over that axis (`_in_proj_pieces`): each device
+    updates its slice of N from x and dt whole and its slice of B and C;
+    its part of y, C's slice times its slice of the state, is a partial
+    sum over that axis, summed in f32, and the D skip is added once
+    after.  A batch of one row (long_500k) keeps DTensor's own step."""
+    mesh = state.device_mesh
+    pb, pn = SH.entry_of(state, 0), SH.entry_of(state, 2)
+    whole, sliced = SH.P(pb, None, None), SH.P(pb, None, pn)
+
+    def local(xin, dt, B, C, A_log, dt_bias, state):
+        y, new = _ssm_step(xin, dt, B, C, A_log, dt_bias,
+                           torch.zeros_like(dt_bias), state, hp)
+        return y[None], new
+
+    ys, state = SH.on_shards(
+        local, mesh, (xin, dt, B, C, A_log, dt_bias, state),
+        (whole, whole, sliced, sliced, SH.P(None), SH.P(None),
+         SH.P(pb, None, pn, None)),
+        (SH.P(pn, pb, None, None), SH.P(pb, None, pn, None)))
+    y = ys.sum(dim=0)
+    y = y.redistribute(mesh, SH.placements(whole, mesh))
+    b = xin.shape[0]
+    skip = D[None, :, None] * xin[:, 0].reshape(b, D.shape[0], hp).float()
+    return y + skip.reshape(b, 1, -1), state
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> SSMCache:

@@ -55,8 +55,8 @@ from repro_torch.models.attention import (KVCache, attention_cross,
                                           attention_prefill, attention_train,
                                           init_attention)
 from repro_torch.models.common import (ArchConfig, cross_entropy_loss,
-                                       init_dense, init_ones, linear,
-                                       rms_norm, swiglu)
+                                       divided_axis, init_dense, init_ones,
+                                       linear, relaid, rms_norm, swiglu)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 _FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -477,13 +477,22 @@ def embed_tokens(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _embed_vocab_parallel(embed, tokens, rules: SH.ShardingRules):
     """The vocab-parallel lookup: each device looks its own rows of the
-    table up (zero for tokens outside them) for its rows of the batch,
-    the table's other dim gathered; the partial rows, stacked on a new
-    leading dim sharded over the vocab's axes, are summed (DTensor's
-    reduction).  DTensor's own embedding rule (a masked partial) fails
-    once the batch is sharded on another axis of a 2-D mesh."""
+    table up (zero for tokens outside them); the partial rows, stacked on
+    a new leading dim sharded over the vocab's axes, are summed (DTensor's
+    reduction).  Where the table's d is split too (FSDP), one of two
+    routes, chosen from the shapes before any collective moves: each
+    device looks up its rows of the batch in its vocab rows of the whole
+    table, d gathered (a table block of V / |vocab axes| rows), or, where
+    the rows looked up are fewer than that block's (every decode step),
+    the table stays as it lies and each device looks up, in its (vocab,
+    d) block, the tokens of every batch shard that shares its d axes:
+    only the looked-up rows move.  Both are exact, so both are bitwise
+    the one-device lookup.  DTensor's own embedding rule (a masked
+    partial) fails once the batch is sharded on another axis of a 2-D
+    mesh."""
     mesh = embed.device_mesh
-    pv = SH.entry_of(embed, 0)
+    pv, pd = SH.entry_of(embed, 0), SH.nontrivial(SH.entry_of(embed, 1),
+                                                   mesh)
     pb = SH.free_of(SH.spec_for((tokens.shape[0],), ("batch",), mesh,
                                 rules)[0], pv)
     n_rows = embed.to_local().shape[0]
@@ -496,9 +505,23 @@ def _embed_vocab_parallel(embed, tokens, rules: SH.ShardingRules):
         return (rows * hit[..., None].to(rows.dtype))[None]
 
     rest = [None] * (tokens.dim() - 1)
-    return SH.on_shards(local, mesh, (embed, tokens),
-                        (SH.P(pv, None), SH.P(pb, *rest)),
-                        SH.P(pv, pb, *rest, None)).sum(dim=0)
+    if pd is None or _rows_looked_up(tokens, pb, mesh) >= n_rows:
+        return SH.on_shards(local, mesh, (embed, tokens),
+                            (SH.P(pv, None), SH.P(pb, *rest)),
+                            SH.P(pv, pb, *rest, None)).sum(dim=0)
+    pt = SH.free_of(pb, pd)
+    rows = SH.on_shards(local, mesh, (embed, tokens),
+                        (SH.P(pv, pd), SH.P(pt, *rest)),
+                        SH.P(pv, pt, *rest, pd)).sum(dim=0)
+    return rows.redistribute(mesh, SH.placements(SH.P(pb, *rest, None),
+                                                 mesh))
+
+
+def _rows_looked_up(tokens, pb, mesh) -> int:
+    """How many tokens one device's shard of the batch holds, the batch
+    (tokens' dim 0) split on `pb`."""
+    return tokens.numel() // (1 if pb is None else SH._axis_size(
+        SH.mesh_sizes(mesh), pb))
 
 
 def _as_input(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -764,10 +787,21 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                        pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _logits(params: Transformer, cfg: ArchConfig, x: torch.Tensor
-            ) -> torch.Tensor:
+def _logits(params: Transformer, cfg: ArchConfig, x: torch.Tensor,
+            rules: SH.ShardingRules = SH.ShardingRules()) -> torch.Tensor:
+    """The serving logits of x (..., d).  On a mesh whose "vocab" axis
+    would repeat the whole product on each of its devices (a vocab it
+    does not divide, so the unembedding is split over d alone: FSDP), the
+    vocab is split there unevenly, as `common._vocab_layout` splits it,
+    the unembedding's d gathered: each device computes its rows' logits
+    for its slice of the vocab (`common.divided_axis`)."""
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return linear(x, params.unembed.to(cfg.dtype))
+    w = params.unembed.to(cfg.dtype)
+    if SH.is_dtensor(x) and SH.is_dtensor(w) and SH.entry_of(w, 1) is None:
+        axis = divided_axis(x, w, rules.get("vocab"))
+        if axis is not None:
+            w = relaid(w, SH.P(None, axis), x.device_mesh)
+    return linear(x, w)
 
 
 def _group(cfg: ArchConfig, layer: int) -> int | None:
@@ -839,7 +873,8 @@ def forward_decode(params: Transformer, cfg: ArchConfig, state: DecodeState,
                                     state.enc_out, lp, cfg, rules=rules)
         f, _ = _ffn(rms_norm(x, lp["ln2"], eps), lp, cfg, rules)
         x = _constrained(constraint, x + f)
-    return _logits(params, cfg, x)[:, 0], state._replace(pos=pos + 1)
+    return (_logits(params, cfg, x, rules)[:, 0],
+            state._replace(pos=pos + 1))
 
 
 @torch.no_grad()
@@ -897,4 +932,4 @@ def forward_prefill(params: Transformer, cfg: ArchConfig, batch: dict,
     state = DecodeState(**caches, enc_out=enc,
                         pos=torch.tensor(s, dtype=torch.int32,
                                          device=x.device))
-    return _logits(params, cfg, x[:, -1]), state
+    return _logits(params, cfg, x[:, -1], rules), state

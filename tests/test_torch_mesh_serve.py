@@ -19,7 +19,12 @@ reference's weights carried across by `convert_lm`.  Held:
   `decode_state_specs`.
 
 The moe layer of a decode step on data 2 x model 1 does half of the
-one-device layer's expert FLOPs on each rank.  Also `make_prefill_step`
+one-device layer's expert FLOPs on each rank; a mamba2 decode step's
+in_proj, out_proj and logits on data 1 x model 2 (its heads unsplit)
+half of one device's each, and a zamba2 layer's prefill gathers no
+in_proj output whole (its output and cache the one-device layer's).
+mamba2 also decodes with its state split over N and a vocab "model"
+does not divide, and serves C3 int8.  Also `make_prefill_step`
 / `make_decode_step` at `mesh=None` against
 `forward_prefill` / `forward_decode`, and `launch.serve --model-parallel
 2` on the CPU.
@@ -63,7 +68,7 @@ C3_MOE = dict(n_kv_heads=4, d_model=128, d_ff=128, n_experts=4, top_k=2,
 # the moe fixture quantizes its router and attention too (2-D products
 # on the kernel beside the gathered expert stacks): the reference's
 # size rule lowered for its fit
-QUANT_MIN = {"moe-c3-int8": 1 << 10}
+QUANT_MIN = {"moe-c3-int8": 1 << 10, "ssm-c3-int8": 1 << 10}
 # case -> (arch, config fields, quant_serving, model-axis size)
 CASES = {
     "dense": ("granite-3-2b", {}, False, 2),
@@ -77,6 +82,7 @@ CASES = {
     "moe-c3-int8": ("granite-moe-1b-a400m", C3_MOE, True, 2),
     "dense-2x1": ("granite-3-2b", {}, False, 1),
     "moe-2x1": ("granite-moe-1b-a400m", {}, False, 1),
+    "ssm-c3-int8": ("mamba2-130m", {}, True, 2),
 }
 
 
@@ -133,6 +139,50 @@ def _cache(case) -> int:
     return CACHE + _cfgs(case)[1].n_patches
 
 
+# mamba2's decode products on data 1 x model 2: its 4 heads unsplit in
+# the parameters (16 does not divide them), a vocab 2 does not divide
+SSM_FLOPS_CFG = {"vocab": 255}
+SSM_FLOPS_SLOTS = 4
+# mamba2 with one SSD head: its decode state splits over N on "model"
+# (the step `mamba2._ssm_step_on_state_shards`), the vocab unevenly
+SSM_N_SPLIT_CFG = {"ssm_head_dim": 128, "vocab": 255}
+# a zamba2 layer's prefill on data 1 x model 2: B x S = 128 rows, more
+# than the in_proj rows its pieces gather (64 + 64 / 2), so in_proj runs
+# one product per piece on the heads' columns
+HYBRID_SHAPE = (2, 64)
+
+
+def _ssm_cfg(kw: dict):
+    return dataclasses.replace(TR.get_arch("mamba2-130m", smoke=True),
+                               dtype=torch.float32, **kw)
+
+
+def _ssm_params(kw: dict) -> dict:
+    return _leaves(TT.init_model(_ssm_cfg(kw),
+                                 torch.Generator().manual_seed(0)))
+
+
+@functools.cache
+def _n_split_case() -> dict:
+    toks = np.random.default_rng(5).integers(0, SSM_N_SPLIT_CFG["vocab"],
+                                             (SLOTS, 12))
+    return dict(kind="decode", arch="mamba2-130m", cfg=SSM_N_SPLIT_CFG,
+                params=_ssm_params(SSM_N_SPLIT_CFG),
+                batch={"tokens": torch.tensor(toks, dtype=torch.int32)},
+                cache_len=CACHE, steps=3)
+
+
+@functools.cache
+def _hybrid_case() -> dict:
+    cfg = _cfgs("hybrid")[1]
+    rng = np.random.default_rng(3)
+    shape = (*HYBRID_SHAPE, cfg.d_model)
+    return dict(kind="hybrid_layer", arch="zamba2-2.7b",
+                params=_leaves(_setup("hybrid")[3]),
+                x=torch.tensor(rng.standard_normal(shape),
+                               dtype=torch.float32))
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every case served on two gloo ranks spawned once, and the moe
@@ -144,8 +194,14 @@ def ranks(tmp_path_factory):
         cache_len=_cache(c), new=NEW) for c in CASES]
     cases.append(dict(kind="moe_flops", arch=CASES["moe"][0],
                       params=_leaves(_setup("moe")[3]), slots=SLOTS))
+    cases.append(dict(kind="ssm_decode_flops", arch="mamba2-130m",
+                      cfg=SSM_FLOPS_CFG, params=_ssm_params(SSM_FLOPS_CFG),
+                      slots=SSM_FLOPS_SLOTS))
+    cases.append(_hybrid_case())
+    cases.append(_n_split_case())
     out = spawn_mesh_ranks(tmp_path_factory.mktemp("serve"), 2, 2, cases)
-    names = [*CASES, "moe-flops"]
+    names = [*CASES, "moe-flops", "ssm-flops", "hybrid-layer",
+             "ssm-n-split"]
     return {c: [r[i] for r in out] for i, c in enumerate(names)}
 
 
@@ -231,27 +287,104 @@ def test_meshed_moe_decode_halves_each_ranks_expert_flops(ranks):
         assert float((r["got"] - r["want"]).abs().max()) <= LOGIT_REL * scale
 
 
+@pytest.mark.parametrize("product", ["in_proj", "out_proj", "logits"])
+def test_meshed_mamba2_decode_halves_each_ranks_products(ranks, product):
+    """A mamba2 decode step's products on data 1 x model 2, the heads
+    unsplit in the parameters: each rank runs in_proj on half of each
+    piece's columns, out_proj on half of its rows (its input, z, split
+    alike; a partial sum) and the logits on its slice of the 255-wide
+    vocabulary (128 or 127 columns): half of one device's FLOPs, and the
+    one-device outputs within LOGIT_REL."""
+    vocab = SSM_FLOPS_CFG["vocab"]
+    for rank, r in enumerate(ranks["ssm-flops"]):
+        got = r[product]
+        share = (vocab + 1 - 2 * rank) // 2 / vocab if product == "logits" \
+            else 0.5
+        assert got["one"] > 0 and got["mesh"] == got["one"] * share
+        scale = float(got["want"].abs().max())
+        assert float((got["got"] - got["want"]).abs().max()) <= \
+            LOGIT_REL * scale
+
+
+def test_meshed_mamba2_decode_of_a_state_split_over_n(ranks):
+    """mamba2 with one SSD head on data 1 x model 2: its decode state is
+    split over N on "model", each rank steps its slice (y summed in f32),
+    and the logits split a 255-wide vocab unevenly; a prefill and three
+    greedy decode steps are the one-device model's within LOGIT_REL."""
+    case = _n_split_case()
+    cfg = _ssm_cfg(SSM_N_SPLIT_CFG)
+    model = TT.model_from(cfg, case["params"])
+    out, state = TT.forward_prefill(model, cfg, case["batch"],
+                                    case["cache_len"])
+    want = [out]
+    for _ in range(case["steps"]):
+        tok = want[-1].argmax(-1, keepdim=True).to(torch.int32)
+        out, state = TT.forward_decode(model, cfg, state, tok)
+        want.append(out)
+    for r in ranks["ssm-n-split"]:
+        assert len(r["logits"]) == len(want)
+        for g, w in zip(r["logits"], want):
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= LOGIT_REL * scale
+
+
+def test_meshed_hybrid_prefill_gathers_no_in_proj_output(ranks):
+    """A zamba2 layer's prefill (heads on "model") on data 1 x model 2,
+    its input's sequence split: the output and the cache (the raw conv
+    window, the SSM state) are the one-device layer's within LOGIT_REL,
+    and in_proj runs one product per piece on the heads' columns, so no
+    all-gather is as large as the in_proj output (B, S, N)."""
+    from repro_torch.models import mamba2 as TM
+
+    case = _hybrid_case()
+    _, tcfg, _, model = _setup("hybrid")
+    lp = model.blocks[0].leaves()
+    with torch.no_grad():
+        y, cache = TM.mamba2_forward(case["x"], lp, tcfg, return_cache=True)
+    n = lp["in_proj"].shape[1]
+    for r in ranks["hybrid-layer"]:
+        for got, want in ((r["out"], y), (r["conv"], cache.conv),
+                          (r["state"], cache.state)):
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= LOGIT_REL * scale
+        assert 0 < r["largest_gather"] < HYBRID_SHAPE[0] * HYBRID_SHAPE[1] \
+            * n * 4
+
+
 @pytest.mark.parametrize("case", ["dense-c3-int8", "dense-c3-4bit",
-                                  "moe-c3-int8"])
+                                  "moe-c3-int8", "ssm-c3-int8"])
 def test_c3_products_run_on_each_ranks_shards(ranks, case):
     """Every C3 product reaches `codebook_matmul` with plain tensors, the
     rank's shards, at every layer of every forward pass: the dense
     fixture's quantized MLP column-parallel (mlp_wi, mlp_wg: N halved)
     and row-parallel (mlp_wo: K halved); the moe fixture's attention
     likewise (wq, wk, wv; wo) and its router whole (replicated for the
-    routing; its expert stacks are gathered on each rank's experts)."""
+    routing; its expert stacks are gathered on each rank's experts); the
+    ssm fixture's heads are unsplit, so in the batch of two requests
+    in_proj runs on half of each piece's columns (z, x, B, C, dt) and
+    out_proj on half of its rows, at prefill (its sequence unsplit) and
+    at decode; the batch of one request (its row on every rank) runs both
+    whole, as `common.divided_axis` leaves a batch of one."""
     _, tcfg, _, _ = _setup(case)
     d, ff, e = tcfg.d_model, tcfg.d_ff, tcfg.n_experts
-    if case.startswith("moe"):
-        want, per_layer = {(d, d // 2), (d // 2, d), (d, e)}, 5
-    else:
-        want, per_layer = {(d, ff // 2), (ff // 2, d)}, 3
     passes = 2 * NEW                 # 2 prefills + 2 x 3 decode steps
+    if case.startswith("ssm"):
+        d_in, n = 2 * d, tcfg.ssm_state
+        h = d_in // tcfg.ssm_head_dim
+        want = {(d, 2 * d_in + 2 * n + h), (d_in, d), (d, d_in // 2),
+                (d, n // 2), (d, h // 2), (d_in // 2, d)}
+        count = tcfg.n_layers * passes // 2 * (6 + 2)
+    elif case.startswith("moe"):
+        want = {(d, d // 2), (d // 2, d), (d, e)}
+        count = 5 * tcfg.n_layers * passes
+    else:
+        want = {(d, ff // 2), (ff // 2, d)}
+        count = 3 * tcfg.n_layers * passes
     for r in ranks[case]:
         calls = r["codebook_products"]
         assert not any(dt for _, _, dt in calls)
         assert {k_n for _, k_n, _ in calls} == want
-        assert len(calls) == per_layer * tcfg.n_layers * passes
+        assert len(calls) == count
 
 
 @pytest.mark.parametrize("case", ["dense-c3-int8", "dense-c3-4bit",

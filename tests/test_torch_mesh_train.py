@@ -20,6 +20,9 @@ reference's initial weights carried across by `convert_lm`.  Held:
   device within 1e-5 of the logits' largest magnitude: the kv heads
   sharded on "model", and (one kv head) the cache sharded over its
   positions, read flash-decoding style;
+* the vocab-parallel lookup at world 4 bitwise the one-device lookup,
+  rows and gradient, on both of its routes (a decode step's tokens move
+  their rows, a prompt's gather the table's d-shard);
 * `Trainer(mesh=...)`: a checkpoint written at world 4 restores at world
   2, and the resumed run's loss and parameters are the uninterrupted
   one-device run's;
@@ -143,6 +146,23 @@ def _decode_case(**kw):
                 cache_len=16, steps=3)
 
 
+# token batches of the lookup at world 4 (the batch on "data"): a decode
+# step's (2 tokens a device, fewer than the 128 vocab rows a device
+# holds: the rows move) and a prompt's (2 x 64 a device: the table's
+# d-shard is gathered)
+EMBED_TOKENS = {"rows": (B, 1), "table": (B, 64)}
+
+
+@functools.cache
+def _embed_case() -> dict:
+    _, params = _params("granite-3-2b")
+    rng = np.random.default_rng(4)
+    return dict(kind="embed_routes", arch="granite-3-2b", params=params,
+                tokens=[torch.tensor(rng.integers(0, 256, shape),
+                                     dtype=torch.int32)
+                        for shape in EMBED_TOKENS.values()])
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both worlds' ranks, spawned once: world 4 trains every family,
@@ -153,6 +173,7 @@ def runs(tmp_path_factory):
     four = [*cases.values(),
             dict(cases["dense"], fsdp=True),
             *(_decode_case(**kw) for kw in DECODE.values()),
+            _embed_case(),
             dict(kind="checkpoint", steps=2, ckpt_dir=ckpt, **CKPT)]
     w4 = spawn_mesh_ranks(tmp_path_factory.mktemp("w4"), 4, 2, four)
     remat = [dict(cases["dense"], cfg={"remat_policy": p},
@@ -166,6 +187,7 @@ def runs(tmp_path_factory):
                 "fsdp": [r[n] for r in w4],
                 "decode": {k: [r[n + 1 + i] for r in w4]
                            for i, k in enumerate(DECODE)},
+                "embed": [r[-2] for r in w4],
                 "checkpoint": [r[-1] for r in w4]},
             2: {"train": {f: [r[i] for r in w2] for i, f in enumerate(cases)},
                 "remat": {p: [r[n + i] for r in w2]
@@ -303,6 +325,28 @@ def test_mesh_prefill_and_decode_match_one_device(runs, layout):
         for g, w in zip(r["logits"], want):
             scale = float(w.abs().max())
             assert float((g - w).abs().max()) <= LOGIT_REL * scale
+
+
+@pytest.mark.parametrize("route", list(EMBED_TOKENS))
+def test_mesh_lookup_is_the_one_device_lookup_bitwise(runs, route):
+    """The vocab-parallel lookup at world 4 (the table's vocab on
+    "model", its d on "data"), rows and the table's gradient, on both
+    routes: a decode step's tokens move their rows (no all-gather as
+    large as the table's block of 128 vocab rows), a prompt's gather the
+    table's d-shard (exactly that block)."""
+    case = _embed_case()
+    i = list(EMBED_TOKENS).index(route)
+    cfg = _cfgs("granite-3-2b")[1]
+    model = TT.model_from(cfg, case["params"])
+    want = TT.embed_tokens(model, cfg, case["tokens"][i])
+    (g_want,) = torch.autograd.grad(want.square().sum(), model.embed)
+    block = cfg.vocab // 2 * cfg.d_model * 4
+    for r in runs[4]["embed"]:
+        got = r[i]
+        assert torch.equal(got["rows"], want)
+        assert torch.equal(got["grad"], g_want)
+        assert (got["largest_gather"] < block if route == "rows"
+                else got["largest_gather"] == block)
 
 
 def test_checkpoint_at_world_4_restores_at_world_2(runs, tmp_path):

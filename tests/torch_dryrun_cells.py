@@ -11,21 +11,39 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# a cell at a cut depth: the dry run imported first (the reference's
+# sets its device count before JAX loads), then the package's `get_arch`
+# returns the config with `n_layers` replaced and its own `main` runs
+_CUT = """import dataclasses, sys
+from {package}.launch import dryrun
+from {package}.configs import registry as R
+get = R.get_arch
+R.get_arch = lambda name, smoke=False: dataclasses.replace(
+    get(name, smoke), n_layers={layers})
+sys.argv = sys.argv[:1] + {argv!r}
+dryrun.main()
+"""
+
 
 def cells(jobs: dict, tmp: Path, timeout: float = 900) -> dict:
-    """jobs {name: (package, arch, shape, multi_pod)}, `package`
-    "repro_torch" or "repro" -> {name: row}; fails unless every process
-    exits 0 with one row of status "ok"."""
+    """jobs {name: (package, arch, shape, multi_pod[, layers])},
+    `package` "repro_torch" or "repro", `layers` a cut depth -> {name:
+    row}; fails unless every process exits 0 with one row of status
+    "ok"."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2",
                JAX_PLATFORMS="cpu")
     procs = {}
-    for name, (package, arch, shape, multi_pod) in jobs.items():
+    for name, (package, arch, shape, multi_pod, *cut) in jobs.items():
         out = tmp / f"{name}.json"
-        cmd = [sys.executable, "-m", f"{package}.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--out", str(out)]
+        argv = ["--arch", arch, "--shape", shape, "--out", str(out)] + (
+            ["--multi-pod"] if multi_pod else [])
+        cmd = [sys.executable, "-m", f"{package}.launch.dryrun", *argv]
+        if cut:
+            cmd = [sys.executable, "-c", _CUT.format(
+                package=package, layers=cut[0], argv=argv)]
         procs[name] = (out, subprocess.Popen(
-            cmd + (["--multi-pod"] if multi_pod else []), env=env,
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+            cmd, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True))
     rows = {}
     try:
         for name, (out, proc) in procs.items():

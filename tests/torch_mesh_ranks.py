@@ -75,13 +75,17 @@ def run_case(case: dict, mesh) -> dict:
     prompts, slots, cache_len, new; on a mesh of "model" ranks a data
     group when given, else the ranks' own), "moe_flops" (arch, params,
     slots), "vocab_loss" (logits, labels), "seq_pieces" (inputs of the
-    sequence-split attention, conv, scan and mamba2 layer) or "seq_flops"
+    sequence-split attention, conv, scan and mamba2 layer), "seq_flops"
     (a mamba2 layer and an attention traced on one device and on the
-    mesh)."""
+    mesh), "ssm_decode_flops" (a mamba2 decode step's products),
+    "hybrid_layer" (a zamba2 layer's meshed prefill) or
+    "embed_routes" (the vocab-parallel lookup's two routes)."""
     return {"train": _train, "decode": _serve, "server": _server,
             "checkpoint": _checkpoint, "moe_flops": _moe_flops,
             "vocab_loss": _vocab_loss, "seq_pieces": _seq_pieces,
-            "seq_flops": _seq_flops}[case["kind"]](case, mesh)
+            "seq_flops": _seq_flops, "ssm_decode_flops": _ssm_decode_flops,
+            "hybrid_layer": _hybrid_layer,
+            "embed_routes": _embed_routes}[case["kind"]](case, mesh)
 
 
 def _cfg(case):
@@ -432,4 +436,111 @@ def _seq_flops(case, mesh) -> dict:
                 meshed = TA.trace(lambda: run(split))
             out[name] = {"one": one.flops, "mesh": meshed.flops,
                          "gathered": meshed.largest.get("all-gather", 0)}
+    return out
+
+
+def _ssm_decode_flops(case, mesh) -> dict:
+    """A mamba2 decode step's three products, on one device and on the
+    mesh (the serving layout, `shard_serving_params`; its rows (B, 1, d)
+    from a seeded gaussian on the batch axes), each traced
+    (`trace_analysis.trace`): in_proj (`mamba2._in_proj`), out_proj on
+    the meshed z (B, 1, d_in) as its input (`_rows_as`) and the logits
+    (`transformer._logits`).  For each: the FLOPs of one device and of
+    this rank, and both outputs (full)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import linear
+
+    rules = SH.ShardingRules()
+    cfg = _cfg(case)
+    one = _model(cfg, case["params"], mesh)
+    model = ST.shard_serving_params(_model(cfg, case["params"], mesh), mesh)
+    x = torch.randn(case["slots"], 1, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    xs = ST.shard_batch({"x": x}, mesh)["x"]
+    p1, pm = one.blocks[0], model.blocks[0]
+    out = {}
+    with implicit_replication(), torch.no_grad():
+        axes = ("model",)
+        z1 = M._in_proj(x, p1["in_proj"], cfg, axes)[0]
+        zm = M._in_proj(xs, pm["in_proj"], cfg, axes)[0]
+        runs = {
+            "in_proj": (lambda: M._in_proj(x, p1["in_proj"], cfg, axes),
+                        lambda: M._in_proj(xs, pm["in_proj"], cfg, axes)),
+            "out_proj": (lambda: linear(z1, p1["out_proj"]),
+                         lambda: linear(zm, M._rows_as(pm["out_proj"], zm))),
+            "logits": (lambda: T._logits(one, cfg, x, rules),
+                       lambda: T._logits(model, cfg, xs, rules))}
+        for name, (f1, fm) in runs.items():
+            a, b = f1(), fm()
+            a, b = (a, b) if name != "in_proj" else (
+                torch.cat(a, -1), torch.cat([_full(t) for t in b], -1))
+            out[name] = {"one": TA.trace(f1).flops, "mesh": TA.trace(fm).flops,
+                         "want": a, "got": _full(b)}
+    return out
+
+
+def _hybrid_layer(case, mesh) -> dict:
+    """A zamba2 layer's prefill (block 0 of the case's params, laid out by
+    `shard_params`: its heads on "model") on the mesh, its input (B, S,
+    d) and output laid out as the residual is (the batch on its axes, the
+    sequence on "model"): the output and the cache (the raw conv window
+    and the SSM state; full), and the forward's largest all-gather
+    (`trace_analysis.trace`)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import mamba2 as M
+
+    rules = SH.ShardingRules()
+    cfg = _cfg(case)
+    model = ST.shard_params(_model(cfg, case["params"], mesh), mesh)
+    lp = model.blocks[0]
+    residual = SH.make_residual_constraint(mesh, True)
+
+    def prefill():
+        return M.mamba2_forward(x, lp, cfg, return_cache=True, rules=rules)
+
+    with implicit_replication(), torch.no_grad():
+        x = residual(SH.replicated(case["x"].to(mesh.device_type), mesh))
+        costs = TA.trace(prefill)
+        y, cache = prefill()
+        y = residual(y)
+    return {"out": _full(y), "conv": _full(cache.conv),
+            "state": _full(cache.state),
+            "largest_gather": costs.largest["all-gather"]}
+
+
+def _embed_routes(case, mesh) -> dict:
+    """The vocab-parallel lookup (`transformer.embed_tokens`) of each of
+    the case's token batches (the batch on its axes) in the model's
+    table, laid out by `shard_params` (vocab on "model", d on "data"):
+    the rows and the table's gradient under sum(rows ** 2) (full), and
+    the largest all-gather of the lookup (`trace_analysis.trace`)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import trace_analysis as TA
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    cfg = _cfg(case)
+    model = ST.shard_params(_model(cfg, case["params"], mesh), mesh)
+    out = []
+    with implicit_replication():
+        for tokens in case["tokens"]:
+            t = ST.shard_batch({"t": tokens}, mesh)["t"]
+            with torch.no_grad():
+                costs = TA.trace(lambda: T.embed_tokens(model, cfg, t))
+            rows = T.embed_tokens(model, cfg, t)
+            (grad,) = torch.autograd.grad(rows.square().sum(), model.embed)
+            out.append({"rows": _full(rows).detach(), "grad": _full(grad),
+                        "largest_gather": costs.largest["all-gather"]})
     return out
